@@ -1,0 +1,292 @@
+"""Gaussian-process relevance model over a fixed corpus (port of ``ital_tpu.models.gp``).
+
+An exact GP with an RBF kernel, fit on user labels in {-1, +1} (the query
+counts as +1).  The corpus ``x`` (N, D) stays on the device; the labeled set
+lives in fixed-capacity padded buffers (``cap`` slots, ``count`` used), and
+the state carries the whitened cross-kernel ``v = L^-1 K_l,corpus`` (cap, N)::
+
+    mu      = v^T beta              (beta = L^-1 y)
+    sig2    = k(x,x) - sum_r v_r^2
+    cov(i,j)= k(x_i,x_j) - v_i . v_j
+
+New labels are absorbed with the incremental block Cholesky append
+(:func:`gp_update`), equal to a refit (:func:`gp_fit`) to tolerance.
+
+Where the reference needed pure functions, :func:`gp_update` writes the
+session-owned buffers (``idx``, ``y``, ``valid``, ``l``, ``beta``, ``v``,
+``mu``, ``sig2``) in place.  It never writes the corpus ``x`` or its norms
+``x2``: those may be shared by every session over the same corpus.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ital_tpu_torch.ops import chol as chol_ops
+from ital_tpu_torch.ops.kernels import rbf_kernel
+
+
+@dataclasses.dataclass
+class GPHyper:
+    """RBF-GP hyperparameters as 0-d tensors on the state's device."""
+
+    length_scale: torch.Tensor
+    var: torch.Tensor  # kernel variance sigma^2
+    noise: torch.Tensor  # observation noise added on the labeled diagonal
+
+
+@dataclasses.dataclass
+class GPState:
+    """Padded GP posterior state over a corpus.
+
+    Shapes (cap = labeled-slot capacity, N = corpus rows):
+      x (N, D) | idx (cap,) int64 | y (cap,) | valid (cap,) bool | count int |
+      l (cap, cap) | beta (cap,) | v (cap, N) | mu (N,) | sig2 (N,) | x2 (N,)
+
+    ``count`` is a host integer.  Slots < ``count`` with ``valid == False``
+    are occupied-but-inert (the user skipped that item).  ``x2`` caches the
+    corpus' squared row norms in f32 (or wider), computed from the stored
+    values.
+    """
+
+    x: torch.Tensor
+    idx: torch.Tensor
+    y: torch.Tensor
+    valid: torch.Tensor
+    count: int
+    l: torch.Tensor
+    beta: torch.Tensor
+    v: torch.Tensor
+    mu: torch.Tensor
+    sig2: torch.Tensor
+    hyper: GPHyper
+    x2: Optional[torch.Tensor] = None
+
+    @property
+    def active(self) -> torch.Tensor:
+        """(cap,) bool — slots that really participate in the posterior."""
+        slots = torch.arange(self.cap, device=self.idx.device)
+        return (slots < self.count) & self.valid
+
+    @property
+    def cap(self) -> int:
+        return self.idx.shape[0]
+
+
+def _state_dtype(x: torch.Tensor) -> torch.dtype:
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def gp_init(
+    x: torch.Tensor,
+    length_scale: float,
+    var: float,
+    noise: float,
+    cap: int,
+    *,
+    corpus_dtype: Optional[str] = None,
+) -> GPState:
+    """Fresh GP over corpus ``x`` (on its device) with an empty labeled set.
+
+    ``corpus_dtype`` (e.g. ``"bfloat16"``) stores the corpus in a narrower
+    dtype while the posterior buffers keep at least f32.  ``x2`` is computed
+    in f32 from the stored values, so self-distances stay exactly zero.
+    """
+    n = x.shape[0]
+    dev = x.device
+    dt = _state_dtype(x)
+    if corpus_dtype:
+        x = x.to(getattr(torch, corpus_dtype))
+    xf = x.to(_state_dtype(x))
+    hyper = GPHyper(
+        length_scale=torch.tensor(length_scale, dtype=dt, device=dev),
+        var=torch.tensor(var, dtype=dt, device=dev),
+        noise=torch.tensor(noise, dtype=dt, device=dev),
+    )
+    return GPState(
+        x=x,
+        idx=torch.zeros(cap, dtype=torch.int64, device=dev),
+        y=torch.zeros(cap, dtype=dt, device=dev),
+        valid=torch.zeros(cap, dtype=torch.bool, device=dev),
+        count=0,
+        l=torch.eye(cap, dtype=dt, device=dev),
+        beta=torch.zeros(cap, dtype=dt, device=dev),
+        v=torch.zeros((cap, n), dtype=dt, device=dev),
+        mu=torch.zeros(n, dtype=dt, device=dev),
+        sig2=torch.full((n,), float(var), dtype=dt, device=dev),
+        hyper=hyper,
+        x2=(xf * xf).sum(-1),
+    )
+
+
+def gp_fit(state: GPState) -> GPState:
+    """Refit the posterior from the label buffers (from-scratch Cholesky).
+
+    Replaces ``l``, ``beta``, ``v``, ``mu`` and ``sig2`` of ``state`` with
+    fresh tensors and returns it.
+    """
+    h = state.hyper
+    active = state.active
+    xl = state.x[state.idx]  # (cap, D)
+
+    k_ll = rbf_kernel(xl, xl, h.length_scale, h.var)
+    l = chol_ops.padded_cholesky(k_ll, active, h.noise)
+
+    k_l_all = rbf_kernel(xl, state.x, h.length_scale, h.var, b2=state.x2)
+    k_l_all = torch.where(active[:, None], k_l_all, 0.0)
+    v = chol_ops.tri_solve(l, k_l_all)
+    beta = chol_ops.tri_solve(l, torch.where(active, state.y, 0.0)[:, None])[:, 0]
+
+    state.l = l
+    state.beta = beta
+    state.v = v
+    state.mu = v.T @ beta
+    state.sig2 = torch.clamp(h.var - (v * v).sum(0), min=1e-8)
+    return state
+
+
+def gp_set_query(state: GPState, query_idx: int) -> GPState:
+    """Reset the session to a single positive label at the query image, and refit."""
+    state.idx.zero_()
+    state.idx[0] = int(query_idx)
+    state.y.zero_()
+    state.y[0] = 1.0
+    state.valid.zero_()
+    state.valid[0] = True
+    state.count = 1
+    return gp_fit(state)
+
+
+def gp_update(
+    state: GPState,
+    new_idx: torch.Tensor,
+    new_y: torch.Tensor,
+    new_valid: torch.Tensor,
+) -> GPState:
+    """Absorb a feedback block of ``b`` slots with an incremental Cholesky append.
+
+    O(b * cap * N) instead of a refit; equal to appending to the buffers and
+    calling :func:`gp_fit` (tested to tolerance).  Writes the session-owned
+    buffers of ``state`` in place and returns it.
+
+    Args:
+      new_idx: (b,) corpus indices shown to the user this round.
+      new_y: (b,) labels in {-1, +1} (ignored where ``new_valid`` is False).
+      new_valid: (b,) bool — False where the user skipped the item.
+
+    Raises ``ValueError`` when ``count + b > cap``.
+    """
+    h = state.hyper
+    dt = state.mu.dtype
+    b = new_idx.shape[0]
+    c = state.count
+    if c + b > state.cap:
+        raise ValueError(
+            f"labeled-slot capacity exceeded: {c} used + {b} new > cap={state.cap}"
+        )
+    active_old = state.active
+    new_idx = new_idx.to(torch.int64)
+    new_valid = new_valid.to(torch.bool)
+    new_y = torch.where(new_valid, new_y.to(dt), 0.0)
+
+    xl = state.x[state.idx]  # (cap, D) current slots
+    xb = state.x[new_idx]  # (b, D)
+
+    k_lb = rbf_kernel(xl, xb, h.length_scale, h.var)
+    k_lb = torch.where(active_old[:, None], k_lb, 0.0)
+    k_bb = rbf_kernel(xb, xb, h.length_scale, h.var)
+    _, s, l_b = chol_ops.chol_append_block(state.l, k_lb, k_bb, c, new_valid, h.noise)
+
+    # Extend the whitened quantities by the same block.
+    k_b_all = rbf_kernel(xb, state.x, h.length_scale, h.var, b2=state.x2)
+    k_b_all = torch.where(new_valid[:, None], k_b_all, 0.0)
+    v_b = chol_ops.tri_solve(l_b, k_b_all - s.T @ state.v)  # (b, N)
+    beta_b = chol_ops.tri_solve(l_b, (new_y - s.T @ state.beta)[:, None])[:, 0]
+
+    state.v[c:c + b] = v_b
+    state.beta[c:c + b] = beta_b
+    state.mu += v_b.T @ beta_b
+    state.sig2.sub_((v_b * v_b).sum(0)).clamp_(min=1e-8)
+    state.idx[c:c + b] = new_idx
+    state.y[c:c + b] = new_y
+    state.valid[c:c + b] = new_valid
+    state.count = c + b
+    return state
+
+
+def gp_predict_full(state: GPState, ind: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Posterior mean and full covariance over the subset ``ind`` (k,)."""
+    xi = state.x[ind]
+    k_ii = rbf_kernel(xi, xi, state.hyper.length_scale, state.hyper.var)
+    vi = state.v[:, ind]
+    return state.mu[ind], k_ii - vi.T @ vi
+
+
+def gp_posterior_cov_columns(state: GPState, ind: torch.Tensor) -> torch.Tensor:
+    """Posterior covariance between every corpus point and each of ``ind`` (N, k)."""
+    xi = state.x[ind]
+    k_cross = rbf_kernel(state.x, xi, state.hyper.length_scale, state.hyper.var,
+                         a2=state.x2)
+    return k_cross - state.v.T @ state.v[:, ind]
+
+
+# ---------------------------------------------------------------------------
+# Exchange with NumPy: the reference's GPState leaves, by field name.
+# ---------------------------------------------------------------------------
+
+_TENSOR_FIELDS = ("x", "idx", "y", "valid", "l", "beta", "v", "mu", "sig2")
+_HYPER_FIELDS = ("length_scale", "var", "noise")
+
+
+def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16, as JAX hands it out
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def state_from_arrays(arrays: dict, device) -> GPState:
+    """A port state from NumPy arrays keyed by the reference's field names.
+
+    Keys: ``x``, ``idx``, ``y``, ``valid``, ``count``, ``l``, ``beta``, ``v``,
+    ``mu``, ``sig2``, ``length_scale``, ``var``, ``noise`` and, optionally,
+    ``x2``.  A JAX ``GPState``'s leaves (``np.asarray`` of each, with the
+    hyperparameters flattened) fit as they are, bfloat16 corpora included.
+    """
+    t = {f: _to_tensor(arrays[f], device) for f in _TENSOR_FIELDS}
+    t["idx"] = t["idx"].to(torch.int64)
+    t["valid"] = t["valid"].to(torch.bool)
+    hyper = GPHyper(**{f: _to_tensor(arrays[f], device).reshape(()) for f in _HYPER_FIELDS})
+    x2 = arrays.get("x2")
+    return GPState(
+        count=int(np.asarray(arrays["count"])),
+        hyper=hyper,
+        x2=None if x2 is None else _to_tensor(x2, device),
+        **t,
+    )
+
+
+def state_to_arrays(state: GPState) -> dict:
+    """The inverse of :func:`state_from_arrays`: NumPy arrays on the host.
+
+    ``idx`` comes back as int32 and ``count`` as a 0-d int32, as the
+    reference stores them; a bfloat16 corpus comes back as float32, which
+    holds its values exactly.
+    """
+    def host(t: torch.Tensor) -> np.ndarray:
+        if t.dtype == torch.bfloat16:
+            t = t.to(torch.float32)
+        # A copy: on the CPU .numpy() would alias buffers that updates write.
+        return t.detach().cpu().numpy().copy()
+
+    out = {f: host(getattr(state, f)) for f in _TENSOR_FIELDS}
+    out["idx"] = out["idx"].astype(np.int32)
+    out["count"] = np.asarray(state.count, dtype=np.int32)
+    out.update({f: host(getattr(state.hyper, f)) for f in _HYPER_FIELDS})
+    if state.x2 is not None:
+        out["x2"] = host(state.x2)
+    return out

@@ -1,0 +1,149 @@
+"""Interactive retrieval session — the user-facing API (port of ``ital_tpu.models.session``).
+
+Holds the corpus, the GP state and the labeled sets, applies feedback rounds,
+ranks the corpus, and picks the next batch through the configured selection
+strategy.  Everything runs on the corpus' device; only the returned batches
+and rankings come to the host.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ital_tpu_torch.models import gp as gp_mod
+from ital_tpu_torch.select.base import (
+    StrategyParams,
+    filter_method_kwargs,
+    get_strategy,
+    labeled_mask,
+    validate_method_kwargs,
+)
+from ital_tpu_torch.utils.metrics import top_k_stable
+
+# Feedback blocks are padded up to a multiple of this width (valid=False on
+# the pad slots: mathematically absent, but they consume capacity slots like
+# any skipped item), so the labeled slots line up with the reference's.
+_UPDATE_BUCKET = 4
+
+
+class ActiveRetrieval:
+    """One interactive retrieval session over a fixed corpus.
+
+    Usage::
+
+        sess = ActiveRetrieval(x, length_scale=2.0, var=1.0, noise=0.1, cap=64)
+        sess.update_query(q)
+        batch = sess.fetch_unlabelled(4)          # show these to the user
+        sess.update({batch[0]: 1, batch[1]: -1})  # feedback (missing = skipped)
+        ranking = sess.top_k(20)
+
+    ``x`` is a tensor (its device is the session's) or a NumPy array, which
+    goes to ``device`` (default CPU).
+    """
+
+    def __init__(
+        self,
+        x,
+        *,
+        length_scale: float,
+        var: float = 1.0,
+        noise: float = 0.1,
+        cap: int = 64,
+        strategy: str = "ital",
+        label_prob: float = 1.0,
+        mistake_prob: float = 0.0,
+        seed: int = 0,
+        method_kwargs: Optional[dict] = None,
+        corpus_dtype: Optional[str] = None,
+        device=None,
+    ):
+        if not isinstance(x, torch.Tensor):
+            x = torch.as_tensor(np.asarray(x), device=device or "cpu")
+        elif device is not None:
+            x = x.to(device)
+        self.device = x.device
+        self.state = gp_mod.gp_init(x, length_scale, var, noise, cap,
+                                    corpus_dtype=corpus_dtype or None)
+        self.strategy_name = strategy
+        self.method_kwargs = dict(method_kwargs or {})
+        for name, v in self.method_kwargs.items():
+            if isinstance(v, str) or not isinstance(v, (int, float, bool, type(None))):
+                raise TypeError(
+                    f"method_kwargs[{name!r}] must be a numeric/bool scalar "
+                    f"(int/float/bool/None), got {type(v).__name__}"
+                )
+        get_strategy(strategy)  # fail fast on unknown strategy names
+        validate_method_kwargs(strategy, self.method_kwargs)
+        self._select_kwargs = filter_method_kwargs(strategy, self.method_kwargs)
+        self.params = StrategyParams.create(
+            self.device, label_prob=label_prob, mistake_prob=mistake_prob,
+        )
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.query: Optional[int] = None
+
+    def update_query(self, query_idx: int) -> None:
+        """Reset the session to a new query image (counted as a +1 label)."""
+        self.query = int(query_idx)
+        self.state = gp_mod.gp_set_query(self.state, self.query)
+
+    def fetch_unlabelled(self, k: int) -> np.ndarray:
+        """Next batch of k candidate indices to show the user."""
+        select = get_strategy(self.strategy_name)
+        batch = select(self.state, int(k), self.generator, self.params,
+                       **self._select_kwargs)
+        return batch.cpu().numpy()
+
+    def update(self, feedback: Dict[int, int]) -> None:
+        """Apply one round of user feedback and refresh the posterior.
+
+        ``feedback``: corpus index -> label in {-1, +1}; items mapped to 0 or
+        None are treated as skipped.
+        """
+        if not feedback:
+            return
+        used = self.state.count
+        cap = self.state.cap
+        if used + len(feedback) > cap:
+            raise ValueError(
+                f"labeled-slot capacity exceeded: {used} used + {len(feedback)} new "
+                f"> cap={cap}; construct the session with a larger `cap`"
+            )
+        b = min(-(-len(feedback) // _UPDATE_BUCKET) * _UPDATE_BUCKET, cap - used)
+        idx = np.zeros(b, dtype=np.int64)
+        idx[: len(feedback)] = np.fromiter(feedback.keys(), dtype=np.int64)
+        y = np.zeros(b, dtype=np.float32)
+        y[: len(feedback)] = [0 if v is None else int(v) for v in feedback.values()]
+        dev = self.device
+        self.state = gp_mod.gp_update(
+            self.state,
+            torch.as_tensor(idx, device=dev),
+            torch.as_tensor(y, device=dev),
+            torch.as_tensor(y != 0, device=dev),
+        )
+
+    def scores(self) -> np.ndarray:
+        """Relevance scores (GP posterior mean) for the whole corpus (a copy)."""
+        return self.state.mu.cpu().numpy().copy()
+
+    def top_k(self, k: int, exclude_labeled: bool = True) -> np.ndarray:
+        """Top-k retrieval by posterior mean; ties go to the lower index."""
+        scores = self.state.mu
+        if exclude_labeled:
+            scores = torch.where(labeled_mask(self.state), -torch.inf, scores)
+        return top_k_stable(scores, k)[1].cpu().numpy()
+
+    @property
+    def relevant_ids(self) -> np.ndarray:
+        """Indices the user has labeled relevant."""
+        st = self.state
+        keep = st.active & (st.y > 0)
+        return st.idx[keep].cpu().numpy()
+
+    @property
+    def irrelevant_ids(self) -> np.ndarray:
+        st = self.state
+        keep = st.active & (st.y < 0)
+        return st.idx[keep].cpu().numpy()

@@ -1,0 +1,76 @@
+"""RBF kernel blocks: the plain PyTorch version and the one entry point.
+
+:func:`rbf_kernel` is what every caller uses.  On a CPU tensor it runs the
+plain version below (:func:`rbf_kernel_plain`, the port of
+``ital_tpu.ops.kernels.rbf_kernel``); on a CUDA tensor it launches the
+hand-written kernel of :mod:`ital_tpu_torch.ops.rbf_hopper`, which raises on
+anything it does not take.  No path falls back from the kernel to the plain
+version.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ital_tpu_torch.ops import rbf_hopper
+
+
+def sqdist(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    a2: Optional[torch.Tensor] = None,
+    b2: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Pairwise squared Euclidean distances between rows of ``a`` (M,D) and ``b`` (N,D).
+
+    ``||a-b||^2 = ||a||^2 + ||b||^2 - 2 a.b``, clamped at zero.  ``a2``/``b2``
+    optionally supply precomputed squared row norms ((M,) / (N,)).  Norms and
+    the dot accumulate in at least f32 whatever the storage dtype: a bf16
+    corpus is upcast (exactly) before the product, as the reference's
+    ``preferred_element_type=float32`` does.
+    """
+    nt = torch.promote_types(a.dtype, torch.float32)
+    af = a.to(nt)
+    bf = b.to(nt)
+    if a2 is None:
+        a2 = (af * af).sum(-1)
+    if b2 is None:
+        b2 = (bf * bf).sum(-1)
+    ab = af @ bf.T
+    return torch.clamp(a2[:, None] + b2[None, :] - 2.0 * ab, min=0.0)
+
+
+def rbf_kernel_plain(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    length_scale: torch.Tensor | float,
+    var: torch.Tensor | float = 1.0,
+    *,
+    a2: Optional[torch.Tensor] = None,
+    b2: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``var * exp(-||a-b||^2 / (2 ls^2))`` in plain PyTorch, on any device."""
+    d2 = sqdist(a, b, a2=a2, b2=b2)
+    return var * torch.exp(-d2 / (2.0 * length_scale**2))
+
+
+def rbf_kernel(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    length_scale: torch.Tensor | float,
+    var: torch.Tensor | float = 1.0,
+    *,
+    a2: Optional[torch.Tensor] = None,
+    b2: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """RBF kernel block (M, N); the noise term is not included.
+
+    CPU tensors take the plain version; CUDA tensors take the CUDA kernel
+    (float32 output), which needs contiguous f32 or bf16 inputs.
+    """
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return rbf_kernel_plain(a, b, length_scale, var, a2=a2, b2=b2)
+    return rbf_hopper.rbf_tile(a, b, length_scale, var, a2=a2, b2=b2)

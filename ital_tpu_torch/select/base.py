@@ -1,0 +1,116 @@
+"""Strategy interface and registry (port of ``ital_tpu.select.base``).
+
+A strategy is a function over the GP state::
+
+    select(state: GPState, batch_size, generator, params: StrategyParams) -> (b,) int64
+
+returning the next batch of corpus indices to show the user, on the state's
+device.  ``generator`` (a ``torch.Generator`` on that device) feeds
+strategies with random components; deterministic strategies ignore it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import inspect
+from typing import Callable, Dict
+
+import torch
+
+from ital_tpu_torch.models.gp import GPState
+
+
+@dataclasses.dataclass
+class StrategyParams:
+    """Per-strategy hyperparameters as 0-d float32 tensors on the state's device."""
+
+    label_prob: torch.Tensor
+    mistake_prob: torch.Tensor
+    jitter: torch.Tensor
+
+    @classmethod
+    def create(
+        cls,
+        device,
+        *,
+        label_prob: float = 1.0,
+        mistake_prob: float = 0.0,
+        jitter: float = 1e-6,
+    ) -> "StrategyParams":
+        def t(v):
+            return torch.tensor(v, dtype=torch.float32, device=device)
+
+        return cls(label_prob=t(label_prob), mistake_prob=t(mistake_prob), jitter=t(jitter))
+
+
+SelectFn = Callable[..., torch.Tensor]
+
+STRATEGIES: Dict[str, SelectFn] = {}
+
+
+def register(name: str):
+    def deco(fn: SelectFn) -> SelectFn:
+        STRATEGIES[name] = fn
+        return fn
+
+    return deco
+
+
+def get_strategy(name: str) -> SelectFn:
+    try:
+        return STRATEGIES[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown strategy {name!r}; available: {sorted(STRATEGIES)}"
+        ) from None
+
+
+def declared_method_kwargs(name: str) -> frozenset:
+    """Names of the keyword-only options strategy ``name`` declares."""
+    sig = inspect.signature(get_strategy(name))
+    return frozenset(n for n, p in sig.parameters.items()
+                     if p.kind is inspect.Parameter.KEYWORD_ONLY)
+
+
+def filter_method_kwargs(name: str, kwargs: dict) -> dict:
+    """Drop options strategy ``name`` does not declare (for shared defaults)."""
+    declared = declared_method_kwargs(name)
+    return {k: v for k, v in kwargs.items() if k in declared}
+
+
+def validate_method_kwargs(name: str, kwargs: dict) -> None:
+    """Reject options strategy ``name`` does not declare (a typo fails loudly)."""
+    declared = declared_method_kwargs(name)
+    unknown = sorted(set(kwargs) - declared)
+    if unknown:
+        raise ValueError(
+            f"unknown method_kwargs for strategy {name!r}: {unknown}; "
+            f"declared options: {sorted(declared)}"
+        )
+
+
+def labeled_mask(state: GPState) -> torch.Tensor:
+    """(N,) bool — True at corpus indices that must not be selected again.
+
+    Only valid labels are excluded: skipped items stay in the candidate pool.
+    """
+    n = state.x.shape[0]
+    hits = torch.zeros(n, dtype=torch.int32, device=state.idx.device)
+    return hits.index_add_(0, state.idx, state.active.to(torch.int32)) > 0
+
+
+def greedy_argmax_batch(score_fn, state: GPState, batch_size: int) -> torch.Tensor:
+    """Greedy batch construction: repeatedly argmax a per-candidate score.
+
+    ``score_fn(batch, t) -> (N,) scores`` may depend on ``batch[:t]``;
+    labeled and already-picked candidates are masked to -inf.  Ties go to the
+    lowest index, as ``jnp.argmax``.
+    """
+    excluded = labeled_mask(state)
+    batch = torch.zeros(batch_size, dtype=torch.int64, device=state.idx.device)
+    for t in range(batch_size):
+        scores = torch.where(excluded, -torch.inf, score_fn(batch, t))
+        nxt = torch.argmax(scores)
+        batch[t] = nxt
+        excluded[nxt] = True
+    return batch

@@ -1,0 +1,96 @@
+"""The port's padded Cholesky and block append against ``ital_tpu.ops.chol``."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ital_tpu.ops import chol as jchol
+from ital_tpu_torch.ops import chol as tchol
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _spd(rng, n, dtype):
+    a = rng.normal(size=(n, n))
+    return (a @ a.T / n + 0.5 * np.eye(n)).astype(dtype)
+
+
+@pytest.mark.parametrize("dtype,atol", [(np.float32, 1e-5), (np.float64, 1e-12)])
+def test_padded_cholesky_matches_jax(rng, dtype, atol):
+    k = _spd(rng, 12, dtype)
+    active = np.array([1, 1, 0, 1, 1, 1, 0, 1, 0, 0, 0, 0], bool)
+    with jax.enable_x64(dtype == np.float64):
+        want = np.asarray(jchol.padded_cholesky(jnp.asarray(k), jnp.asarray(active), 0.1))
+    got = tchol.padded_cholesky(torch.from_numpy(k), torch.from_numpy(active), 0.1)
+    assert got.dtype == torch.from_numpy(k).dtype
+    np.testing.assert_allclose(got.numpy(), want, atol=atol)
+
+
+def _append_inputs(rng, dtype, cap=12, count=5, b=4):
+    k_full = _spd(rng, cap, dtype)
+    valid = np.ones(cap, bool)
+    valid[2] = False  # an inert slot among the existing ones
+    active_old = (np.arange(cap) < count) & valid
+    l0 = np.linalg.cholesky(np.where(active_old[:, None] & active_old[None, :],
+                                     k_full + 0.1 * np.eye(cap), np.eye(cap))).astype(dtype)
+    k_lb = np.where(active_old[:, None], k_full[:, count:count + b], 0.0).astype(dtype)
+    k_bb = k_full[count:count + b, count:count + b].copy()
+    active_new = np.array([True, False, True, True])
+    return k_full, valid, l0, k_lb, k_bb, active_new, count
+
+
+# f64: the reference forms S^T S with preferred_element_type=float32, so its
+# factor carries f32 rounding (~1e-8) even under x64.
+@pytest.mark.parametrize("dtype,atol", [(np.float32, 2e-5), (np.float64, 1e-7)])
+def test_chol_append_block_matches_jax(rng, dtype, atol):
+    _, _, l0, k_lb, k_bb, active_new, count = _append_inputs(rng, dtype)
+    with jax.enable_x64(dtype == np.float64):
+        jl, js, jlb = jchol.chol_append_block(
+            jnp.asarray(l0), jnp.asarray(k_lb), jnp.asarray(k_bb),
+            jnp.asarray(count), jnp.asarray(active_new), 0.1)
+        jl, js, jlb = np.asarray(jl), np.asarray(js), np.asarray(jlb)
+    tl, ts, tlb = tchol.chol_append_block(
+        torch.from_numpy(l0.copy()), torch.from_numpy(k_lb), torch.from_numpy(k_bb),
+        count, torch.from_numpy(active_new), 0.1)
+    np.testing.assert_allclose(tl.numpy(), jl, atol=atol)
+    np.testing.assert_allclose(ts.numpy(), js, atol=atol)
+    np.testing.assert_allclose(tlb.numpy(), jlb, atol=atol)
+
+
+@pytest.mark.parametrize("dtype,atol", [(np.float32, 2e-5), (np.float64, 1e-12)])
+def test_chol_append_equals_refactorization(rng, dtype, atol):
+    """Appending a block in place equals refactorizing the padded system."""
+    k_full, valid, l0, k_lb, k_bb, active_new, count = _append_inputs(rng, dtype)
+    l = torch.from_numpy(l0.copy())
+    out, _, _ = tchol.chol_append_block(l, torch.from_numpy(k_lb), torch.from_numpy(k_bb),
+                                        count, torch.from_numpy(active_new), 0.1)
+    assert out.data_ptr() == l.data_ptr()  # written in place
+    valid_after = valid.copy()
+    valid_after[count:count + 4] = active_new
+    active_after = (np.arange(12) < count + 4) & valid_after
+    ref = tchol.padded_cholesky(torch.from_numpy(k_full), torch.from_numpy(active_after), 0.1)
+    np.testing.assert_allclose(l.numpy(), ref.numpy(), atol=atol)
+
+
+def test_chol_append_past_capacity_raises(rng):
+    _, _, l0, k_lb, k_bb, active_new, _ = _append_inputs(rng, np.float32)
+    with pytest.raises(ValueError, match="overflows cap"):
+        tchol.chol_append_block(torch.from_numpy(l0), torch.from_numpy(k_lb),
+                                torch.from_numpy(k_bb), 10, torch.from_numpy(active_new), 0.1)
+
+
+def test_tri_solve_matches_jax(rng):
+    k = _spd(rng, 9, np.float32)
+    l = np.linalg.cholesky(k).astype(np.float32)
+    b = rng.normal(size=(9, 3)).astype(np.float32)
+    want = np.asarray(jchol.tri_solve(jnp.asarray(l), jnp.asarray(b)))
+    got = tchol.tri_solve(torch.from_numpy(l), torch.from_numpy(b))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)

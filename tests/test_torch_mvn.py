@@ -1,0 +1,88 @@
+"""The port's Genz QMC pieces against ``ital_tpu.ops.mvn``."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ital_tpu.ops import mvn as jmvn
+from ital_tpu_torch.ops import mvn as tmvn
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def test_norm_cdf_and_fast_ndtri_match_jax():
+    x = np.linspace(-6.0, 6.0, 401, dtype=np.float32)
+    np.testing.assert_allclose(tmvn.norm_cdf(torch.from_numpy(x)).numpy(),
+                               np.asarray(jmvn.norm_cdf(jnp.asarray(x))), atol=1e-7)
+    p = np.concatenate([np.linspace(1e-6, 0.02425, 50), np.linspace(0.03, 0.97, 101),
+                        np.linspace(0.976, 1 - 1e-6, 50)]).astype(np.float32)
+    np.testing.assert_allclose(tmvn.fast_ndtri(torch.from_numpy(p)).numpy(),
+                               np.asarray(jmvn.fast_ndtri(jnp.asarray(p))), atol=2e-6)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+def test_small_cholesky_matches_jax(rng, m):
+    a = rng.normal(size=(5, m, m))
+    cov = (a @ a.transpose(0, 2, 1) + 0.3 * np.eye(m)).astype(np.float32)
+    want = np.stack([np.asarray(jmvn.small_cholesky(jnp.asarray(c))) for c in cov])
+    got = tmvn.small_cholesky(torch.from_numpy(cov))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), np.linalg.cholesky(cov), atol=1e-5)
+
+
+def _moments(rng, m, n_cand=6):
+    a = rng.normal(size=(n_cand, m, m))
+    cov = a @ a.transpose(0, 2, 1) / m + 0.2 * np.eye(m)
+    mu = 0.7 * rng.normal(size=(n_cand, m))
+    return mu, np.linalg.cholesky(cov)
+
+
+@pytest.mark.parametrize("n_qmc", [32, 512])
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+def test_orthant_tree_matches_jax_f32(rng, m, n_qmc, shifted):
+    """All 2^m orthant probabilities, in sign_table order, per candidate."""
+    mu, chol = _moments(rng, m)
+    mu, chol = mu.astype(np.float32), chol.astype(np.float32)
+    shift = rng.random(m - 1).astype(np.float32) if shifted else None
+    want = np.stack([
+        np.asarray(jmvn.orthant_probs_all_configs_tree(
+            jnp.asarray(mu[i]), jnp.asarray(chol[i]), n_points=n_qmc,
+            shift=None if shift is None else jnp.asarray(shift)))
+        for i in range(mu.shape[0])
+    ])
+    got = tmvn.orthant_probs_all_configs_tree(
+        torch.from_numpy(mu), torch.from_numpy(chol), n_points=n_qmc,
+        shift=None if shift is None else torch.from_numpy(shift))
+    assert got.shape == (mu.shape[0], 2 ** m)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
+@pytest.mark.parametrize("m", [2, 4])
+def test_orthant_tree_matches_jax_f64(rng, m):
+    mu, chol = _moments(rng, m, n_cand=3)
+    with jax.enable_x64(True):
+        want = np.stack([
+            np.asarray(jmvn.orthant_probs_all_configs_tree(
+                jnp.asarray(mu[i]), jnp.asarray(chol[i]), n_points=64))
+            for i in range(mu.shape[0])
+        ])
+    got = tmvn.orthant_probs_all_configs_tree(torch.from_numpy(mu), torch.from_numpy(chol),
+                                              n_points=64)
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-10)
+
+
+@pytest.mark.parametrize("n_points,dim", [(32, 0), (32, 3), (512, 7)])
+def test_lattice_and_shift_tables_bit_equal(n_points, dim):
+    np.testing.assert_array_equal(tmvn.richtmyer_lattice(n_points, dim),
+                                  jmvn.richtmyer_lattice(n_points, dim))
+    np.testing.assert_array_equal(tmvn.shift_table(5, dim, 3), jmvn.shift_table(5, dim, 3))
