@@ -14,9 +14,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    loads the library; prints the seconds it took and the compiler's
    register/shared-memory report.
 3. kernel vs plain: the CUDA RBF kernel against its plain PyTorch version on
-   the card, at the shapes the session gives it, on MIRFLICKR-surrogate
-   features; both timed in turns with CUDA events (median of 20 calls each after
-   warm-up).
+   the card, at the shapes the session and the harness give it, on
+   MIRFLICKR-surrogate features; each timed as runs of 50 launches between
+   two CUDA events, in turns with the plain version, per-launch mean (median
+   of 5 runs each, after warm-up).
 4. session: the production configuration (``configs/mirflickr_production.ini``)
    on the 25 000 x 512 MIRFLICKR surrogate: ``update_query`` and 10 rounds of
    fetch / simulated user / update / AP through ``ActiveRetrieval``.  The
@@ -24,6 +25,14 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 5. card vs CPU: a mid-session state copied to the CPU picks the same batch (up
    to MI ties at f32 resolution, checked step by step) and reaches the same
    posterior mean on the plain path.
+6. harness: ``ital_tpu_torch.runner.run_experiment`` on ``configs/mirflickr.ini``
+   (25 000 x 512, depth cut to 2 classes x 5 rounds) for eight strategies:
+   ITAL with the production options, EMOC, batch EMOC, MCMI[min], SUD, RBMAL,
+   uncertainty and random sampling.  The launch count is reset just before;
+   every selection of the five strategies that build kernel blocks must
+   launch the kernel.  The EMOC run checkpoints every round; its round-2
+   checkpoint is restored on the CPU through ``load_session`` and must pick
+   the card's batch up to EMOC-score ties.
 
 The second-to-last line is a JSON object describing the kernel; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -31,7 +40,11 @@ is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import functools
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -41,6 +54,17 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "mirflickr_production.ini"
+HARNESS_CONFIG = ROOT / "configs" / "mirflickr.ini"
+# Depth cut to 2 classes x 5 rounds; the labeled buffers keep the width the
+# 10-round configuration sizes automatically (1 + 10 x 4 slots -> 48).
+HARNESS_OVERRIDES = ("EXPERIMENT.max_classes=2", "EXPERIMENT.n_rounds=5", "GP.cap=48")
+HARNESS_METHODS = ("ital", "emoc", "emoc_batch", "mcmi_min", "sud", "rbmal",
+                   "uncertainty_sampling", "random")
+# Strategies whose every selection forms RBF blocks (pool cross-kernels,
+# EMOC/MCMI column blocks, similarity penalties).
+KERNEL_SELECTING = {"ital", "emoc", "emoc_batch", "mcmi_min", "rbmal"}
+REPLAY_ROUND = 2  # the EMOC checkpoint replayed on the CPU
+WORK_DIR = ROOT / "build" / "chip_smoke"
 SEED = 0
 CAP = 64
 MID_ROUND = 5  # round whose state is replayed on the CPU in phase 5
@@ -51,6 +75,10 @@ CPU_MU_ATOL = 1e-4  # posterior mean, card vs CPU after one update
 # CPU (f32, different transcendental implementations); a pick that differs by
 # less than this is a tie.
 MI_TIE_ATOL = 1e-5
+# An EMOC score sums 25 000 |k_post| entries; card and CPU sum them in other
+# orders, with kernel errors of up to ~2e-6 x var per entry, so picks whose
+# scores differ by less than this fraction of the step's best score are ties.
+EMOC_TIE_RTOL = 1e-4
 
 
 def check(cond: bool, what: str) -> None:
@@ -87,21 +115,29 @@ def build_phase() -> float:
     return secs
 
 
-def _time_pair_ms(torch, fn_a, fn_b, reps: int = 20, warmup: int = 3) -> tuple[float, float]:
-    """Median CUDA-event times of ``fn_a`` and ``fn_b``, timed in turns."""
+def _time_pair_ms(torch, fn_a, fn_b, launches: int = 50, runs: int = 5,
+                  warmup: int = 3) -> tuple[float, float]:
+    """Per-launch CUDA-event times of ``fn_a`` and ``fn_b``.
+
+    Each run records two events around ``launches`` back-to-back launches and
+    divides by their count; the two versions alternate runs, each going
+    first in every other one.  Returns the medians over ``runs`` runs.
+    """
     for _ in range(warmup):
         fn_a()
         fn_b()
     times = ([], [])
-    for _ in range(reps):
-        for fn, out in ((fn_a, times[0]), (fn_b, times[1])):
+    for r in range(runs):
+        order = ((fn_a, times[0]), (fn_b, times[1]))
+        for fn, out in (order if r % 2 == 0 else order[::-1]):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            fn()
+            for _ in range(launches):
+                fn()
             end.record()
             end.synchronize()
-            out.append(start.elapsed_time(end))
+            out.append(start.elapsed_time(end) / launches)
     return float(np.median(times[0])), float(np.median(times[1]))
 
 
@@ -119,6 +155,7 @@ def kernel_phase(torch, ds) -> dict:
     rng = np.random.default_rng(SEED)
     pick = lambda k: torch.from_numpy(rng.choice(n, size=k, replace=False)).to(dev)
     i64, i4, i3, i4096 = pick(64), pick(4), pick(3), pick(4096)
+    i2048, i512, i48 = pick(2048), pick(512), pick(48)
     ls = torch.tensor(50.0, device=dev)
     var = torch.tensor(1.0, device=dev)
     # name, a, b, norms, length scale, var, atol (times var)
@@ -131,6 +168,12 @@ def kernel_phase(torch, ds) -> dict:
         ("ragged (100, 300, 8)", x[:100, :8].contiguous(), x[100:400, :8].contiguous(), {},
          torch.tensor(4.0, device=dev), torch.tensor(0.9, device=dev), F32_ATOL),
         ("bf16 (64, 25000, 512) b2", xb[i64], xb, {"b2": xb2}, ls, var, BF16_ATOL),
+        ("emoc block (25000, 2048, 512) a2 b2", x, x[i2048], {"a2": x2, "b2": x2[i2048]},
+         ls, var, F32_ATOL),
+        ("mcmi block (25000, 512, 512) a2", x, x[i512], {"a2": x2}, ls, var, F32_ATOL),
+        ("density block (2048, 25000, 512) a2 b2", x[:2048], x, {"a2": x2[:2048], "b2": x2},
+         ls, var, F32_ATOL),
+        ("similarity (25000, 48, 512) a2", x, x[i48], {"a2": x2}, ls, var, F32_ATOL),
     ]
     worst = 0.0
     main = None
@@ -143,7 +186,7 @@ def kernel_phase(torch, ds) -> dict:
         tol = atol * float(v)
         ms, plain_ms = _time_pair_ms(torch, lambda: rbf_kernel(a, b, l, v, **norms),
                                      lambda: rbf_kernel_plain(a, b, l, v, **norms))
-        print(f"kernel: {name}: max_abs_err {err:.3e} (atol {tol:.1e}); "
+        print(f"kernel: {name}: max_abs_err {err:.3e} (atol {tol:.1e}); per launch "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         check(err <= tol, f"{name}: max_abs_err {err} > {tol}")
         worst = max(worst, err)
@@ -300,6 +343,119 @@ def cpu_phase(torch, ds, cfg, mid) -> None:
     check(err <= CPU_MU_ATOL, f"mu card vs CPU {err} > {CPU_MU_ATOL}")
 
 
+@contextlib.contextmanager
+def _watch_selections(name: str, on_call):
+    """Call ``on_call(launches, batch)`` after each selection of strategy ``name``,
+    with the kernel launches that selection made."""
+    from ital_tpu_torch.ops import rbf_hopper
+    from ital_tpu_torch.select.base import STRATEGIES
+
+    orig = STRATEGIES[name]
+
+    @functools.wraps(orig)
+    def watched(*args, **kwargs):
+        before = rbf_hopper.LAUNCHES
+        batch = orig(*args, **kwargs)
+        on_call(rbf_hopper.LAUNCHES - before, batch)
+        return batch
+
+    STRATEGIES[name] = watched
+    try:
+        yield
+    finally:
+        STRATEGIES[name] = orig
+
+
+def harness_phase(torch, ds, dev) -> dict:
+    """The experiment harness on ``dev`` for each of ``HARNESS_METHODS``.
+
+    Returns the kernel launches of the phase and what the CPU replay needs:
+    a copy of the EMOC session's round-``REPLAY_ROUND`` checkpoint and the
+    batch the card picked from it.
+    """
+    from ital_tpu_torch import runner
+    from ital_tpu_torch.ops import rbf_hopper
+    from ital_tpu_torch.utils.config import load_config
+
+    base = load_config(str(HARNESS_CONFIG), HARNESS_OVERRIDES)
+    production = load_config(str(CONFIG))
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+    ckpt_dir = WORK_DIR / "checkpoints"
+    replay = {"path": WORK_DIR / f"emoc_round{REPLAY_ROUND}.npz", "cfg": None, "batch": None}
+    n_sessions = base.max_classes * base.queries_per_class * base.repetitions
+    torch.cuda.synchronize()
+
+    rbf_hopper.LAUNCHES = 0  # the main path's count starts here
+    for method in HARNESS_METHODS:
+        cfg = dataclasses.replace(
+            base, method=method,
+            method_kwargs=dict(production.method_kwargs) if method == "ital" else {},
+            checkpoint_dir=str(ckpt_dir) if method == "emoc" else None,
+        )
+        calls = []
+
+        def on_call(launches, batch, cfg=cfg, calls=calls):
+            if cfg.checkpoint_dir and len(calls) == REPLAY_ROUND:
+                # The first session's checkpoint now holds the state this pick came from.
+                (saved,) = Path(cfg.checkpoint_dir).glob("*.npz")
+                shutil.copy(saved, replay["path"])
+                replay.update(cfg=cfg, batch=batch.cpu().numpy())
+            calls.append(launches)
+
+        before = rbf_hopper.LAUNCHES
+        with _watch_selections(method, on_call):
+            res = runner.run_experiment(cfg, ds, device=dev)
+        launches = rbf_hopper.LAUNCHES - before
+        check(res["ap"].shape == (n_sessions, cfg.n_rounds), f"{method}: AP shape {res['ap'].shape}")
+        check(bool(np.isfinite(res["ap"]).all()), f"{method}: AP finite")
+        check(len(calls) == n_sessions * cfg.n_rounds, f"{method}: {len(calls)} selections")
+        if method in KERNEL_SELECTING:
+            check(all(c > 0 for c in calls), f"{method}: the kernel launched in every selection")
+        print(f"harness {method}: MAP {[round(float(m), 6) for m in res['map']]}; select "
+              f"{res['select_ms']:.3f} ms mean, {res['select_ms_steady']:.3f} ms steady; update "
+              f"{res['update_ms']:.3f} ms mean, {res['update_ms_steady']:.3f} ms steady; first "
+              f"round {res['first_round_ms']:.1f} ms; launches {launches} "
+              f"({min(calls)}-{max(calls)} per selection) on {res['device']}")
+    launches = rbf_hopper.LAUNCHES
+    check(replay["batch"] is not None, "the EMOC round-2 checkpoint was captured")
+    return {"launches": launches, "replay": replay}
+
+
+def emoc_replay_phase(torch, ds, replay) -> None:
+    """Restore the card's EMOC checkpoint on the CPU and pick from it on the plain path."""
+    from ital_tpu_torch.models import gp as gp_mod
+    from ital_tpu_torch.ops.kernels import blockwise_reduce_abs_kpost
+    from ital_tpu_torch.select import baselines
+    from ital_tpu_torch.select.base import StrategyParams, labeled_mask
+    from ital_tpu_torch.utils import checkpoint
+
+    cfg, card = replay["cfg"], replay["batch"]
+    template = gp_mod.gp_init(torch.from_numpy(ds.x), cfg.gp.length_scale, cfg.gp.var,
+                              cfg.gp.noise, cfg.cap)
+    state, extras = checkpoint.load_session(str(replay["path"]), template)
+    check(int(extras["next_round"]) == REPLAY_ROUND, f"checkpoint of round {REPLAY_ROUND}")
+    params = StrategyParams.create("cpu", label_prob=cfg.user.label_prob,
+                                   mistake_prob=cfg.user.mistake_prob)
+    batch = baselines.select_emoc(state, cfg.batch_size, None, params).numpy()
+
+    colabs = blockwise_reduce_abs_kpost(
+        state.x, state.v, torch.arange(ds.n), state.hyper.length_scale, state.hyper.var,
+        x2=state.x2)
+    scores = baselines.emoc_scores_from_moments(state.mu, state.sig2, state.hyper.noise, colabs)
+    excluded = labeled_mask(state)
+    gaps = []
+    for pick in card:
+        best = float(torch.where(excluded, -torch.inf, scores).max())
+        gaps.append((best - float(scores[int(pick)])) / abs(best))
+        excluded[int(pick)] = True
+    print(f"emoc replay: round {REPLAY_ROUND} batch on the CPU {batch.tolist()}, on the card "
+          f"{card.tolist()}, equal: {bool(np.array_equal(batch, card))}; per-step score gap of "
+          f"the card's pick below the CPU's best, relative: {gaps} (tie rtol {EMOC_TIE_RTOL})")
+    check(len(set(card.tolist())) == cfg.batch_size, "the card's batch is distinct")
+    check(all(0.0 <= g <= EMOC_TIE_RTOL for g in gaps),
+          "the card's EMOC picks are the CPU's up to score ties")
+
+
 def main() -> int:
     import torch
 
@@ -316,12 +472,14 @@ def main() -> int:
     kern = kernel_phase(torch, ds)
     sess = session_phase(torch, ds, cfg, torch.device("cuda"))
     cpu_phase(torch, ds, cfg, sess["mid"])
+    harness = harness_phase(torch, ds, torch.device("cuda"))
+    emoc_replay_phase(torch, ds, harness["replay"])
     print(json.dumps({"kernels": [{
         "name": "rbf_tile",
         "route": "cuda",
         "source": "ital_tpu_torch/csrc/rbf_tile.cu",
         "replaces": "ital_tpu/ops/pallas_rbf.py:90",
-        "launches": sess["launches"],
+        "launches": sess["launches"] + harness["launches"],
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"],
         "plain_ms": kern["plain_ms"],

@@ -3,7 +3,8 @@
 Interactive content-based image retrieval with information-theoretic active
 learning: a Gaussian-process relevance model over a fixed image-feature
 corpus, greedy mutual-information batch selection against a noisy simulated
-user, incremental Cholesky updates and ranking by posterior mean.
+user, incremental Cholesky updates and ranking by posterior mean, and the
+experiment harness that compares it with the classical baselines.
 
 The package keeps ``ital_tpu``'s module layout and public names, imports
 ``torch`` and never ``jax`` or ``ital_tpu``.  Plain tensor code is PyTorch;
@@ -15,10 +16,13 @@ Package layout
 ``ops``       RBF kernel (plain version + CUDA wrapper), padded Cholesky with
               the block append, Genz QMC orthant probabilities, blocking.
 ``models``    The GP relevance model (``GPState``) and the session API.
-``select``    ITAL mutual-information batch selection and the registry.
+``select``    The strategy registry: ITAL mutual-information batch selection,
+              the 15 baselines and the regression variant.
 ``data``      Dataset loaders and the simulated noisy user.
-``utils``     Configs and metrics (AP, recall@k).
+``utils``     Configs, metrics (AP, recall@k), checkpoints, JSONL logging
+              and timers.
 ``round``     One full feedback round.
+``runner``    The experiment harness (MAP-vs-rounds); ``cli`` its command line.
 """
 
 __version__ = "0.1.0"

@@ -1,9 +1,12 @@
-"""Dataset loaders: toy Gaussians and MIRFLICKR-25K (with its surrogate).
+"""Dataset loaders: toy Gaussians, digits/USPS, Natural Scenes, MIRFLICKR-25K,
+the 100k scale corpus and the regression toy.
 
 A copy of the NumPy-only loaders of ``ital_tpu.data.datasets`` (importing
 ``ital_tpu`` would import JAX).  The arrays are bit-identical to the
-reference's for the same arguments; ``tests/test_torch_session.py`` checks
-it.  Loaders return NumPy arrays: callers move them to their device.
+reference's for the same arguments; ``tests/test_torch_session.py`` and
+``tests/test_torch_data.py`` check it.  Loaders return NumPy arrays: callers
+move them to their device.  Stored-feature loaders fall back to a flagged
+synthetic surrogate of the same shape when their files are absent.
 
 Feature matrices are float32; relevance for a query of class c is "same
 class" (multi-label for MIRFLICKR-style topic matrices).
@@ -68,6 +71,21 @@ def toy_gaussians(
     return Dataset("toy", x, labels, _class_relevance(labels, classes), classes)
 
 
+def digits() -> Dataset:
+    """scikit-learn's bundled 8x8 digits, an offline USPS stand-in (1797 x 64),
+    scaled to [0, 1].
+
+    Needs scikit-learn, which is imported only here.
+    """
+    from sklearn.datasets import load_digits
+
+    d = load_digits()
+    x = d.data.astype(np.float32) / 16.0
+    classes = np.arange(10)
+    return Dataset("digits", x, d.target.astype(np.int64),
+                   _class_relevance(d.target, classes), classes)
+
+
 def _synthetic_surrogate(
     name: str, n: int, dim: int, n_classes: int, seed: int = 0
 ) -> Dataset:
@@ -121,15 +139,60 @@ def _load_stored(
     return _synthetic_surrogate(name, n, dim, n_classes)
 
 
+def usps(path: Optional[str] = None) -> Dataset:
+    """USPS digit features (stored .npy); surrogate: 7291 x 256, 10 classes."""
+    return _load_stored("usps", path, "usps_features.npy", "usps_labels.npy",
+                        (7291, 256, 10))
+
+
+def natural_scenes(path: Optional[str] = None) -> Dataset:
+    """Natural Scenes features; surrogate: 6600 x 512, 13 scene topics."""
+    return _load_stored("natural_scenes", path, "scenes_features.npy",
+                        "scenes_labels.npy", (6600, 512, 13))
+
+
 def mirflickr(path: Optional[str] = None) -> Dataset:
     """MIRFLICKR-25K precomputed CNN features; surrogate: 25000 x 512, 14 topics."""
     return _load_stored("mirflickr", path, "mirflickr_features.npy",
                         "mirflickr_labels.npy", (25000, 512, 14))
 
 
+@dataclasses.dataclass
+class RegressionDataset:
+    """Active-regression corpus: features + continuous targets."""
+
+    name: str
+    x: np.ndarray  # (N, D) float32
+    y: np.ndarray  # (N,) float32 true latent values
+
+    @property
+    def n(self) -> int:
+        return self.x.shape[0]
+
+
+def regression_toy(
+    n: int = 500, dim: int = 1, seed: int = 0, noise: float = 0.05
+) -> RegressionDataset:
+    """Smooth synthetic function for the GP-regression active-learning variant."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-3.0, 3.0, size=(n, dim)).astype(np.float32)
+    r = np.linalg.norm(x, axis=1)
+    y = (np.sin(2.0 * r) + 0.3 * x[:, 0] + noise * rng.normal(size=n)).astype(np.float32)
+    return RegressionDataset("regression_toy", x, y)
+
+
+def corpus100k(n: int = 100_000, dim: int = 512, n_classes: int = 20, seed: int = 0) -> Dataset:
+    """Synthetic 100k-image corpus for the scale-out scenario."""
+    return _synthetic_surrogate("corpus100k", n, dim, n_classes, seed)
+
+
 _FACTORIES = {
     "toy": toy_gaussians,
+    "digits": digits,
+    "usps": usps,
+    "natural_scenes": natural_scenes,
     "mirflickr": mirflickr,
+    "corpus100k": corpus100k,
 }
 
 

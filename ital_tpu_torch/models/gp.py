@@ -12,10 +12,13 @@ the state carries the whitened cross-kernel ``v = L^-1 K_l,corpus`` (cap, N)::
 New labels are absorbed with the incremental block Cholesky append
 (:func:`gp_update`), equal to a refit (:func:`gp_fit`) to tolerance.
 
-Where the reference needed pure functions, :func:`gp_update` writes the
-session-owned buffers (``idx``, ``y``, ``valid``, ``l``, ``beta``, ``v``,
-``mu``, ``sig2``) in place.  It never writes the corpus ``x`` or its norms
-``x2``: those may be shared by every session over the same corpus.
+Where the reference needed pure functions, :func:`gp_set_query` and
+:func:`gp_update` write the session-owned buffers (``idx``, ``y``, ``valid``,
+``l``, ``beta``, ``v``, ``mu``, ``sig2``) in place.  They never write the
+corpus ``x``, its norms ``x2`` or its ``density``: those may be shared by
+every session over the same corpus, and :func:`gp_session_copy` gives a new
+session its own buffers.  The prediction surface and the hypothetical
+updates (:func:`gp_updated_prediction` and its kin) write nothing.
 """
 
 from __future__ import annotations
@@ -45,12 +48,14 @@ class GPState:
 
     Shapes (cap = labeled-slot capacity, N = corpus rows):
       x (N, D) | idx (cap,) int64 | y (cap,) | valid (cap,) bool | count int |
-      l (cap, cap) | beta (cap,) | v (cap, N) | mu (N,) | sig2 (N,) | x2 (N,)
+      l (cap, cap) | beta (cap,) | v (cap, N) | mu (N,) | sig2 (N,) |
+      density (N,) or None | x2 (N,)
 
     ``count`` is a host integer.  Slots < ``count`` with ``valid == False``
-    are occupied-but-inert (the user skipped that item).  ``x2`` caches the
-    corpus' squared row norms in f32 (or wider), computed from the stored
-    values.
+    are occupied-but-inert (the user skipped that item).  ``density`` is the
+    optional corpus information density of the density-weighted baselines
+    (:func:`corpus_density`).  ``x2`` caches the corpus' squared row norms in
+    f32 (or wider), computed from the stored values.
     """
 
     x: torch.Tensor
@@ -64,6 +69,7 @@ class GPState:
     mu: torch.Tensor
     sig2: torch.Tensor
     hyper: GPHyper
+    density: Optional[torch.Tensor] = None
     x2: Optional[torch.Tensor] = None
 
     @property
@@ -75,6 +81,9 @@ class GPState:
     @property
     def cap(self) -> int:
         return self.idx.shape[0]
+
+
+_SESSION_FIELDS = ("idx", "y", "valid", "l", "beta", "v", "mu", "sig2")
 
 
 def _state_dtype(x: torch.Tensor) -> torch.dtype:
@@ -120,6 +129,18 @@ def gp_init(
         sig2=torch.full((n,), float(var), dtype=dt, device=dev),
         hyper=hyper,
         x2=(xf * xf).sum(-1),
+    )
+
+
+def gp_session_copy(state: GPState) -> GPState:
+    """``state`` with its own session buffers; the corpus stays shared.
+
+    :func:`gp_set_query` and :func:`gp_update` write the session buffers in
+    place, so each session started from one template state takes a copy
+    first.  ``x``, ``x2``, ``density`` and ``hyper`` are not copied.
+    """
+    return dataclasses.replace(
+        state, **{f: getattr(state, f).clone() for f in _SESSION_FIELDS}
     )
 
 
@@ -234,12 +255,106 @@ def gp_posterior_cov_columns(state: GPState, ind: torch.Tensor) -> torch.Tensor:
     return k_cross - state.v.T @ state.v[:, ind]
 
 
+def gp_predict_mean(state: GPState, ind: torch.Tensor) -> torch.Tensor:
+    """Posterior mean at corpus indices ``ind``."""
+    return state.mu[ind]
+
+
+def gp_predict_diag(state: GPState, ind: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Posterior mean and marginal variance at ``ind``."""
+    return state.mu[ind], state.sig2[ind]
+
+
+def corpus_density(state: GPState, *, block_rows: int = 2048) -> torch.Tensor:
+    """(N,) information density: mean RBF similarity (var 1) of each point to the corpus.
+
+    Depends only on the features: compute it once per corpus and attach it
+    as ``state.density``.  Streams over blocks of ``block_rows`` rows, so the
+    N x N similarity is never held at once; the cached norms ``x2`` ride along.
+    """
+    x = state.x
+    x2 = state.x2
+    if x2 is None:
+        xf = x.to(_state_dtype(x))
+        x2 = (xf * xf).sum(-1)
+    ls = state.hyper.length_scale
+    return torch.cat([
+        rbf_kernel(blk, x, ls, 1.0, a2=blk2, b2=x2).mean(1)
+        for blk, blk2 in zip(x.split(block_rows), x2.split(block_rows))
+    ])
+
+
+def gp_updated_whitening(
+    state: GPState,
+    ind: torch.Tensor,
+    y_hyp: torch.Tensor,
+    valid: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Whitened form of the k-point block hypothetical update; writes nothing.
+
+    Labelling ``(ind, y_hyp)`` with the GP's noise adds k rows to ``v``::
+
+        A  = K_post(ind, ind) + noise * I = La La^T        (k, k)
+        w  = La^-1 K_post(ind, corpus)                      (k, N)
+        g  = La^-1 (y_hyp - mu[ind])                        (k,)
+        mu'   = mu   + w^T g
+        sig2' = sig2 - sum_r w_r^2
+        v_aug = cat([v, w])
+
+    ``valid``: optional (k,) bool; False rows get a zero ``w`` row and no
+    mean shift, as skipped items in :func:`gp_update`.  Returns ``(g, w)``.
+    """
+    h = state.hyper
+    _, cov = gp_predict_full(state, ind)  # (k, k) posterior block
+    cross = gp_posterior_cov_columns(state, ind).T  # (k, N)
+    resid = y_hyp.to(state.mu.dtype) - state.mu[ind]
+    if valid is None:
+        valid = torch.ones(ind.shape[0], dtype=torch.bool, device=ind.device)
+    cross = torch.where(valid[:, None], cross, 0.0)
+    resid = torch.where(valid, resid, 0.0)
+    la = chol_ops.padded_cholesky(cov, valid, h.noise)
+    w = chol_ops.tri_solve(la, cross)
+    g = chol_ops.tri_solve(la, resid[:, None])[:, 0]
+    return g, w
+
+
+def gp_updated_prediction(
+    state: GPState,
+    ind: torch.Tensor,
+    y_hyp: torch.Tensor,
+    valid: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Corpus-wide ``(mu', sig2')`` if the block ``(ind, y_hyp)`` were labeled.
+
+    Closed form against the whitened state; equals :func:`gp_update` of the
+    same block to tolerance, and writes nothing.
+    """
+    g, w = gp_updated_whitening(state, ind, y_hyp, valid)
+    mu = state.mu + w.T @ g
+    sig2 = torch.clamp(state.sig2 - (w * w).sum(0), min=1e-8)
+    return mu, sig2
+
+
+def gp_updated_mean_delta(
+    state: GPState, cand: torch.Tensor | int, y_hyp: torch.Tensor | float
+) -> torch.Tensor:
+    """(N,) change of the posterior mean if the one point ``cand`` were labeled ``y_hyp``.
+
+    ``delta_mu(x) = k_post(x, c) * (y - mu_c) / (sig2_c + noise)``; writes nothing.
+    """
+    cand = torch.as_tensor(cand, device=state.mu.device).reshape(1)
+    kcol = gp_posterior_cov_columns(state, cand)[:, 0]
+    gain = (y_hyp - state.mu[cand]) / (state.sig2[cand] + state.hyper.noise)
+    return kcol * gain
+
+
 # ---------------------------------------------------------------------------
 # Exchange with NumPy: the reference's GPState leaves, by field name.
 # ---------------------------------------------------------------------------
 
 _TENSOR_FIELDS = ("x", "idx", "y", "valid", "l", "beta", "v", "mu", "sig2")
 _HYPER_FIELDS = ("length_scale", "var", "noise")
+_OPTIONAL_FIELDS = ("density", "x2")
 
 
 def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -254,20 +369,17 @@ def state_from_arrays(arrays: dict, device) -> GPState:
 
     Keys: ``x``, ``idx``, ``y``, ``valid``, ``count``, ``l``, ``beta``, ``v``,
     ``mu``, ``sig2``, ``length_scale``, ``var``, ``noise`` and, optionally,
-    ``x2``.  A JAX ``GPState``'s leaves (``np.asarray`` of each, with the
-    hyperparameters flattened) fit as they are, bfloat16 corpora included.
+    ``density`` and ``x2``.  A JAX ``GPState``'s leaves (``np.asarray`` of
+    each, with the hyperparameters flattened) fit as they are, bfloat16
+    corpora included.
     """
     t = {f: _to_tensor(arrays[f], device) for f in _TENSOR_FIELDS}
     t["idx"] = t["idx"].to(torch.int64)
     t["valid"] = t["valid"].to(torch.bool)
     hyper = GPHyper(**{f: _to_tensor(arrays[f], device).reshape(()) for f in _HYPER_FIELDS})
-    x2 = arrays.get("x2")
-    return GPState(
-        count=int(np.asarray(arrays["count"])),
-        hyper=hyper,
-        x2=None if x2 is None else _to_tensor(x2, device),
-        **t,
-    )
+    optional = {f: (None if arrays.get(f) is None else _to_tensor(arrays[f], device))
+                for f in _OPTIONAL_FIELDS}
+    return GPState(count=int(np.asarray(arrays["count"])), hyper=hyper, **optional, **t)
 
 
 def state_to_arrays(state: GPState) -> dict:
@@ -287,6 +399,6 @@ def state_to_arrays(state: GPState) -> dict:
     out["idx"] = out["idx"].astype(np.int32)
     out["count"] = np.asarray(state.count, dtype=np.int32)
     out.update({f: host(getattr(state.hyper, f)) for f in _HYPER_FIELDS})
-    if state.x2 is not None:
-        out["x2"] = host(state.x2)
+    out.update({f: host(getattr(state, f)) for f in _OPTIONAL_FIELDS
+                if getattr(state, f) is not None})
     return out

@@ -5,7 +5,8 @@ plain version below (:func:`rbf_kernel_plain`, the port of
 ``ital_tpu.ops.kernels.rbf_kernel``); on a CUDA tensor it launches the
 hand-written kernel of :mod:`ital_tpu_torch.ops.rbf_hopper`, which raises on
 anything it does not take.  No path falls back from the kernel to the plain
-version.
+version.  The blockwise consumers below (:func:`rbf_kernel_blockwise`,
+:func:`blockwise_reduce_abs_kpost`) form their blocks through it.
 """
 
 from __future__ import annotations
@@ -74,3 +75,50 @@ def rbf_kernel(
     if a.device.type == "cpu" and b.device.type == "cpu":
         return rbf_kernel_plain(a, b, length_scale, var, a2=a2, b2=b2)
     return rbf_hopper.rbf_tile(a, b, length_scale, var, a2=a2, b2=b2)
+
+
+# The reference routes between its Pallas kernel and XLA by TPU-measured
+# shape thresholds (``ital_tpu/ops/pallas_rbf.py::rbf_kernel_auto``); here the
+# device alone picks the route, so the router is the entry point itself.
+rbf_kernel_auto = rbf_kernel
+
+
+def rbf_kernel_blockwise(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    length_scale: torch.Tensor | float,
+    var: torch.Tensor | float = 1.0,
+    *,
+    block_rows: int = 1024,
+) -> torch.Tensor:
+    """:func:`rbf_kernel` computed over row blocks of ``a``: the same values,
+    with the distance intermediates bounded to ``block_rows`` rows."""
+    return torch.cat([rbf_kernel(blk, b, length_scale, var) for blk in a.split(block_rows)])
+
+
+def blockwise_reduce_abs_kpost(
+    x: torch.Tensor,
+    v: torch.Tensor,
+    cand_idx: torch.Tensor,
+    length_scale: torch.Tensor | float,
+    var: torch.Tensor | float,
+    *,
+    x2: Optional[torch.Tensor] = None,
+    block: int = 2048,
+) -> torch.Tensor:
+    """For each candidate c: ``sum_x |k_post(x, c)|``, in candidate blocks.
+
+    ``k_post(x, c) = k(x, c) - v[:, x] . v[:, c]`` is the GP posterior
+    covariance (``v`` the (cap, N) whitened cross-kernel), the column sums of
+    which the EMOC baselines need.  Each block forms one (N, block) kernel
+    block (the CUDA kernel on the card), subtracts ``v^T v[:, block]`` with a
+    matmul and reduces it; the N x N matrix is never held.  ``x2``: the
+    corpus' cached f32 squared norms, so a bf16 corpus gets norms from its
+    stored values.
+    """
+    def one_block(idx_blk):
+        norms = {} if x2 is None else {"a2": x2, "b2": x2[idx_blk]}
+        k_cross = rbf_kernel(x, x[idx_blk], length_scale, var, **norms)  # (N, block)
+        return (k_cross - v.T @ v[:, idx_blk]).abs_().sum(0)
+
+    return torch.cat([one_block(blk) for blk in cand_idx.split(block)])

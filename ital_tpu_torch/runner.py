@@ -1,0 +1,315 @@
+"""Experiment harness: simulated-feedback retrieval experiments, MAP-vs-rounds
+(port of the serial path of ``ital_tpu.runner``).
+
+For each repetition x class x query: reset the GP to the query, then loop
+``select -> simulated user -> update -> AP`` for ``n_rounds``, and average
+the AP curves into a MAP-vs-rounds curve with per-round timing.  Everything
+runs on one explicit device; on a CUDA device every RBF block goes through
+the hand-written kernel.
+
+Random draws are a function of (seed, repetition, class, query, round)
+alone (:func:`round_draws`), never carried from round to round, so a session
+resumed from its checkpoint is bit-identical to an uninterrupted one.  Tests
+replace that function with one that hands over JAX's draws.
+
+Not ported yet, and refused with ``NotImplementedError``: ``mesh_devices``,
+``query_batch``, ``fused_sessions`` and ``GP.learn_every``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from ital_tpu_torch.data import datasets as ds_mod
+from ital_tpu_torch.data.user import feedback_from_uniforms
+from ital_tpu_torch.models import gp as gp_mod
+from ital_tpu_torch.select.base import StrategyParams, get_strategy
+from ital_tpu_torch.utils import checkpoint as ckpt
+from ital_tpu_torch.utils.config import ExperimentConfig, apply_matmul_precision
+from ital_tpu_torch.utils.logging import JsonlLogger, Timer, device_mem_mb
+from ital_tpu_torch.utils.metrics import average_precision, recall_at_k
+
+# Strategies that read the corpus density (computed once per dataset).
+DENSITY_STRATEGIES = {"sud", "tcal", "adapt_al"}
+
+# Recall@k cutoffs logged beside AP each round.
+RECALL_KS = (10, 50)
+
+# Modes of the reference's runner that the port does not run yet, with the
+# ROADMAP.md item that ports each.
+_UNPORTED = {
+    "mesh_devices": "queue 1 item 15 (parallel/)",
+    "query_batch": "queue 1 item 10 (vmapped cohorts)",
+    "fused_sessions": "queue 1 item 10 (fused sessions)",
+    "GP.learn_every": "queue 1 item 13 (models/hyperopt.py)",
+}
+
+
+def _refuse_unported(cfg: ExperimentConfig, names) -> None:
+    requested = {
+        "mesh_devices": bool(cfg.mesh_devices),
+        "query_batch": (cfg.query_batch or 0) > 1,
+        "fused_sessions": bool(cfg.fused_sessions),
+        "GP.learn_every": bool(cfg.gp.learn_every),
+    }
+    for name in names:
+        if requested[name]:
+            raise NotImplementedError(
+                f"{name} is not ported to ital_tpu_torch yet: see ROADMAP.md, {_UNPORTED[name]}"
+            )
+
+
+def _steady_ms(val):
+    """round(val, 3), passing through None (no steady span recorded)."""
+    return None if val is None else round(val, 3)
+
+
+def _check_capacity(cfg: ExperimentConfig, *, query_slots: int = 1) -> None:
+    """Fail fast when the labeled buffers cannot hold the whole experiment
+    (``query_slots=0`` for the regression task, which has no query image)."""
+    needed = query_slots + cfg.n_rounds * cfg.batch_size
+    if needed > cfg.cap:
+        raise ValueError(
+            f"labeled-slot capacity too small: {query_slots} query slot(s) + "
+            f"{cfg.n_rounds} rounds x batch {cfg.batch_size} needs {needed} "
+            f"slots but GP.cap={cfg.cap}; set [GP] cap >= {needed} "
+            f"(or cap = 0 for auto-sizing)"
+        )
+
+
+def _seed(*keys: int) -> int:
+    """A 63-bit generator seed that depends on ``keys`` and nothing else."""
+    return int(np.random.SeedSequence(list(keys)).generate_state(1, np.uint64)[0] >> 1)
+
+
+def round_draws(seed: int, rep: int, cls: int, query: int, rnd: int, batch_size: int,
+                device) -> tuple[torch.Generator, torch.Tensor, torch.Tensor]:
+    """Round ``rnd``'s random draws: ``(generator, u_label, u_flip)``.
+
+    ``generator`` (on ``device``) feeds the strategy's own draws; ``u_label``
+    and ``u_flip`` ((batch_size,) on ``device``) decide the simulated user's
+    skips and mistakes.  The user's uniforms come from a CPU generator, so a
+    run on the card and one on the CPU see the same user.
+    """
+    user = torch.Generator().manual_seed(_seed(seed, rep, cls, query, rnd, 1))
+    u = torch.rand(2, batch_size, generator=user).to(device)
+    sel = torch.Generator(device=device).manual_seed(_seed(seed, rep, cls, query, rnd, 0))
+    return sel, u[0], u[1]
+
+
+def regression_draws(seed: int, rep: int, rnd: int, batch_size: int,
+                     device) -> tuple[torch.Generator, torch.Tensor, torch.Tensor]:
+    """A regression round's draws: ``(generator, u_label, eps)``, with ``eps``
+    the (batch_size,) standard normals of the observation noise."""
+    user = torch.Generator().manual_seed(_seed(seed, rep, rnd, 1))
+    u_label = torch.rand(batch_size, generator=user).to(device)
+    eps = torch.randn(batch_size, generator=user).to(device)
+    sel = torch.Generator(device=device).manual_seed(_seed(seed, rep, rnd, 0))
+    return sel, u_label, eps
+
+
+def _session_plan(cfg: ExperimentConfig, dataset: ds_mod.Dataset) -> list[tuple[int, int, int]]:
+    """The (rep, class, query) list, queries drawn as the reference draws them."""
+    classes = dataset.classes
+    if cfg.max_classes:
+        classes = classes[: cfg.max_classes]
+    rng = np.random.default_rng(cfg.seed)
+    return [(rep, int(c), int(q))
+            for rep in range(cfg.repetitions)
+            for c in classes
+            for q in dataset.queries_for_class(int(c), rng, cfg.queries_per_class)]
+
+
+def _device_name(dev: torch.device) -> str:
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+@contextlib.contextmanager
+def _profiled(profile_dir: Optional[str], dev: torch.device):
+    """Trace the block with ``torch.profiler`` into ``<profile_dir>/trace.json``."""
+    if not profile_dir:
+        yield
+        return
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+    os.makedirs(profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+
+
+def run_experiment(
+    cfg: ExperimentConfig, dataset: Optional[ds_mod.Dataset] = None, *, device
+) -> Dict[str, Any]:
+    """Run the experiment on ``device``; returns curves and timing, logs JSONL per round.
+
+    The result holds ``ap`` (n_sessions, n_rounds), the ``map`` curve, mean
+    ``select_ms``/``update_ms``, their steady medians (first round excluded),
+    ``first_round_ms``, the session list and the device's name.
+    """
+    _refuse_unported(cfg, _UNPORTED)
+    dev = torch.device(device)
+    if dataset is None:
+        dataset = ds_mod.load_dataset(cfg.dataset, **cfg.dataset_kwargs)
+    _check_capacity(cfg)
+    apply_matmul_precision(cfg)
+
+    x = torch.from_numpy(dataset.x).to(dev)
+    state0 = gp_mod.gp_init(x, cfg.gp.length_scale, cfg.gp.var, cfg.gp.noise, cfg.cap,
+                            corpus_dtype=cfg.gp.corpus_dtype or None)
+    if cfg.method in DENSITY_STRATEGIES:
+        state0.density = gp_mod.corpus_density(state0)
+
+    # "tradeoff" rides in StrategyParams; the rest of method_kwargs are the
+    # strategy's keyword options (n_qmc, pool_size, ...).
+    params = StrategyParams.create(
+        dev, label_prob=cfg.user.label_prob, mistake_prob=cfg.user.mistake_prob,
+        tradeoff=float(cfg.method_kwargs.get("tradeoff", 0.5)),
+    )
+    select_kwargs = {k: v for k, v in cfg.method_kwargs.items() if k != "tradeoff"}
+    select = get_strategy(cfg.method)
+
+    logger = JsonlLogger(cfg.log_jsonl)
+    timer = Timer(dev)
+    plan = _session_plan(cfg, dataset)
+    ap_curves = []
+    try:
+        with _profiled(cfg.profile_dir, dev):
+            for rep, c, q in plan:
+                ap_curves.append(_run_session(
+                    cfg, state0, params, select, select_kwargs, dataset, rep, c, q,
+                    timer, logger,
+                ))
+    finally:
+        logger.close()
+
+    ap = np.asarray(ap_curves)
+    return {
+        "ap": ap,
+        "map": ap.mean(axis=0) if ap.size else np.zeros(cfg.n_rounds),
+        "select_ms": timer.ms("select"),
+        "update_ms": timer.ms("update"),
+        "select_ms_steady": _steady_ms(timer.median_ms("select")),
+        "update_ms_steady": _steady_ms(timer.median_ms("update")),
+        "first_round_ms": round(timer.first_ms("select") + timer.first_ms("update"), 3),
+        "sessions": [{"rep": rep, "cls": c, "query": q} for rep, c, q in plan],
+        "dataset": dataset.name,
+        "method": cfg.method,
+        "device": _device_name(dev),
+    }
+
+
+def _run_session(cfg, state0, params, select, select_kwargs, dataset, rep, c, q,
+                 timer, logger) -> list[float]:
+    """One query session of ``n_rounds`` rounds, with checkpoint/resume.
+
+    With ``cfg.checkpoint_dir`` every round snapshots the session;
+    ``cfg.resume`` continues an interrupted session from its last completed
+    round.  ``state0`` is the shared template: the session takes its own
+    buffers before writing any.
+    """
+    dev = state0.mu.device
+    n = dataset.n
+    relevant = torch.from_numpy(np.ascontiguousarray(dataset.relevance[:, c])).to(dev)
+    exclude = torch.zeros(n, dtype=torch.bool, device=dev)
+    exclude[q] = True
+
+    state = gp_mod.gp_set_query(gp_mod.gp_session_copy(state0), q)
+    curve: list[float] = []
+    start_round = 0
+    ckpt_path = None
+    if cfg.checkpoint_dir:
+        ckpt_path = os.path.join(cfg.checkpoint_dir, f"r{rep}_c{c}_q{q}.npz")
+        if cfg.resume and os.path.exists(ckpt_path):
+            state, extras = ckpt.load_session(ckpt_path, state)
+            curve = [float(v) for v in extras["curve"]]
+            start_round = int(extras["next_round"])
+
+    for rnd in range(start_round, cfg.n_rounds):
+        generator, u_label, u_flip = round_draws(cfg.seed, rep, c, q, rnd, cfg.batch_size, dev)
+        with timer.span("select"):
+            batch = select(state, cfg.batch_size, generator, params, **select_kwargs)
+        with timer.span("update"):
+            y, valid = feedback_from_uniforms(u_label, u_flip, batch, relevant,
+                                              params.label_prob, params.mistake_prob)
+            state = gp_mod.gp_update(state, batch, y, valid)
+            ap = average_precision(state.mu, relevant, exclude)
+            recalls = [recall_at_k(state.mu, relevant, min(k, n), exclude) for k in RECALL_KS]
+        if cfg.gp.refit_every and (rnd + 1) % cfg.gp.refit_every == 0:
+            # Periodic from-scratch refit: bounds long-horizon f32 append drift.
+            state = gp_mod.gp_fit(state)
+        curve.append(float(ap))
+        logger.log(
+            rep=rep, cls=c, query=q, round=rnd, ap=curve[-1],
+            select_ms=timer.last_ms("select"), update_ms=timer.last_ms("update"),
+            labeled=int(state.active.sum()),
+            device_mem_mb=round(device_mem_mb(dev), 1),
+            **{f"recall@{k}": float(r) for k, r in zip(RECALL_KS, recalls)},
+        )
+        if ckpt_path:
+            ckpt.save_session(ckpt_path, state,
+                              extra={"curve": np.asarray(curve), "next_round": rnd + 1})
+        _maybe_inject_fault(rnd)
+    return curve
+
+
+def _maybe_inject_fault(rnd: int) -> None:
+    """``ITAL_TPU_FAULT_AFTER_ROUND=r`` hard-kills the process (``os._exit(17)``,
+    no cleanup) after round ``r`` completes: the crash-resume drill, the same
+    variable for both packages."""
+    fault = os.environ.get("ITAL_TPU_FAULT_AFTER_ROUND")
+    if fault is not None and rnd == int(fault):
+        print(f"# fault injection: dying after round {rnd}", flush=True)
+        os._exit(17)
+
+
+def run_regression_experiment(cfg: ExperimentConfig, *, device) -> Dict[str, Any]:
+    """Active GP-regression experiment on ``device``: RMSE of the posterior mean per round.
+
+    No query image: each session starts with an empty labeled set; each
+    round the strategy (``ital_regression`` by default) picks a batch, and the
+    simulated user reports the true value with probability ``label_prob``,
+    plus N(0, USER.obs_noise) error (GP.noise when unset).
+    """
+    _refuse_unported(cfg, ("GP.learn_every",))
+    dev = torch.device(device)
+    _check_capacity(cfg, query_slots=0)
+    apply_matmul_precision(cfg)
+    ds = ds_mod.regression_toy(**cfg.dataset_kwargs)
+    x = torch.from_numpy(ds.x).to(dev)
+    y_true = torch.from_numpy(ds.y).to(dev)
+
+    state0 = gp_mod.gp_init(x, cfg.gp.length_scale, cfg.gp.var, cfg.gp.noise, cfg.cap,
+                            corpus_dtype=cfg.gp.corpus_dtype or None)
+    select = get_strategy(cfg.method)
+    params = StrategyParams.create(dev, label_prob=cfg.user.label_prob,
+                                   mistake_prob=cfg.user.mistake_prob)
+    # The generative noise is a constant of the simulation, never the model's.
+    gen_sd = torch.sqrt(torch.tensor(cfg.user.obs_noise or cfg.gp.noise,
+                                     dtype=state0.mu.dtype, device=dev))
+
+    curves = []
+    for rep in range(cfg.repetitions):
+        state = gp_mod.gp_session_copy(state0)
+        curve = []
+        for rnd in range(cfg.n_rounds):
+            generator, u_label, eps = regression_draws(cfg.seed, rep, rnd, cfg.batch_size, dev)
+            batch = select(state, cfg.batch_size, generator, params)
+            y_obs = y_true[batch] + gen_sd * eps
+            state = gp_mod.gp_update(state, batch, y_obs, u_label < params.label_prob)
+            curve.append(float(torch.sqrt(torch.mean((state.mu - y_true) ** 2))))
+        curves.append(curve)
+    rmse = np.asarray(curves)
+    return {
+        "rmse": rmse,
+        "mean_rmse": rmse.mean(axis=0),
+        "dataset": ds.name,
+        "method": cfg.method,
+        "device": _device_name(dev),
+    }

@@ -22,11 +22,15 @@ from ital_tpu_torch.models.gp import GPState
 
 @dataclasses.dataclass
 class StrategyParams:
-    """Per-strategy hyperparameters as 0-d float32 tensors on the state's device."""
+    """Per-strategy hyperparameters as 0-d float32 tensors on the state's device.
+
+    ``tradeoff`` weighs the two criteria of the density/diversity baselines.
+    """
 
     label_prob: torch.Tensor
     mistake_prob: torch.Tensor
     jitter: torch.Tensor
+    tradeoff: torch.Tensor
 
     @classmethod
     def create(
@@ -36,11 +40,13 @@ class StrategyParams:
         label_prob: float = 1.0,
         mistake_prob: float = 0.0,
         jitter: float = 1e-6,
+        tradeoff: float = 0.5,
     ) -> "StrategyParams":
         def t(v):
             return torch.tensor(v, dtype=torch.float32, device=device)
 
-        return cls(label_prob=t(label_prob), mistake_prob=t(mistake_prob), jitter=t(jitter))
+        return cls(label_prob=t(label_prob), mistake_prob=t(mistake_prob), jitter=t(jitter),
+                   tradeoff=t(tradeoff))
 
 
 SelectFn = Callable[..., torch.Tensor]

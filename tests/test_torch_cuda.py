@@ -51,6 +51,32 @@ def test_cuda_kernel_matches_plain(shape, norms, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_blockwise_reduce_abs_kpost_matches_plain(dtype):
+    """The EMOC column sums on the card, one kernel launch per candidate block,
+    against the same function on the CPU's plain path.  Each |k_post| entry
+    differs by a few f32 ulps of var; a column sums N of them (atol 4e-7 x N);
+    bf16 inputs are the same stored values on both sides."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from ital_tpu_torch.ops.kernels import blockwise_reduce_abs_kpost
+
+    rng = np.random.default_rng(1)
+    n, d, cap = 3000, 64, 24
+    x = torch.from_numpy(rng.random((n, d), dtype=np.float32)).to(dtype)
+    x2 = (x.float() ** 2).sum(-1)
+    v = torch.from_numpy(rng.normal(scale=0.1, size=(cap, n)).astype(np.float32))
+    cand = torch.arange(5, n, 3)
+    want = blockwise_reduce_abs_kpost(x, v, cand, 4.0, 0.9, x2=x2, block=256)
+    before = rbf_hopper.LAUNCHES
+    got = blockwise_reduce_abs_kpost(x.cuda(), v.cuda(), cand.cuda(), 4.0, 0.9, x2=x2.cuda(),
+                                     block=256)
+    torch.cuda.synchronize()
+    assert rbf_hopper.LAUNCHES == before + -(-cand.shape[0] // 256)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5, atol=4e-7 * n)
+
+
+@pytest.mark.cuda
 def test_cuda_empty_output_launches_nothing():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")

@@ -152,7 +152,7 @@ def test_datasets_bit_equal_to_jax_package(name, kwargs):
 
 
 def test_port_imports_neither_jax_nor_ital_tpu():
-    """Importing the port, every module of the slice, loads no JAX."""
+    """Importing the port, every module of it, loads no JAX."""
     code = (
         "import sys\n"
         "import ital_tpu_torch, ital_tpu_torch.round, ital_tpu_torch.models.session\n"
@@ -162,6 +162,9 @@ def test_port_imports_neither_jax_nor_ital_tpu():
         "import ital_tpu_torch.ops.chol, ital_tpu_torch.ops.mvn, ital_tpu_torch.ops.blocking\n"
         "import ital_tpu_torch.data.datasets, ital_tpu_torch.data.user\n"
         "import ital_tpu_torch.utils.config, ital_tpu_torch.utils.metrics\n"
+        "import ital_tpu_torch.select.baselines, ital_tpu_torch.select.regression\n"
+        "import ital_tpu_torch.runner, ital_tpu_torch.cli, ital_tpu_torch.utils.checkpoint\n"
+        "import ital_tpu_torch.utils.logging\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ital_tpu'))\n"
         "print(','.join(bad))\n"
     )
