@@ -10,14 +10,19 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 1. device: the card's name and power limit (``nvidia-smi``), torch and CUDA
    versions.  Exits non-zero at once when ``torch.cuda.is_available()`` is
    False.
-2. build: compiles ``ital_tpu_torch/csrc/*.cu`` for sm_90a with ``nvcc`` and
-   loads the library; prints the seconds it took and the compiler's
-   register/shared-memory report.
-3. kernel vs plain: the CUDA RBF kernel against its plain PyTorch version on
-   the card, at the shapes the session and the harness give it, on
-   MIRFLICKR-surrogate features; each timed as runs of 50 launches between
-   two CUDA events, in turns with the plain version, per-launch mean (median
-   of 5 runs each, after warm-up).
+2. build: compiles ``ital_tpu_torch/csrc/*.cu`` for sm_90a with ``nvcc`` (one
+   process per source, all at once) and loads the library; prints the
+   seconds it took and the compiler's register/shared-memory report.
+3. kernel vs plain: both routes of the CUDA RBF kernel (the tensor-core
+   route ``rbf_wgmma.cu`` and the FMA tile kernel ``rbf_tile.cu``) against
+   their plain PyTorch version on the card, at the shapes the session and
+   the harness give them plus two more, on MIRFLICKR-surrogate features.
+   For each shape: the route the router picks, each route's error, and the
+   per-launch times of both routes (each forced) and the plain version, as
+   runs of 50 launches between two CUDA events taken in turns (median of 5
+   runs each, after warm-up), and each route's device time per launch from
+   ``torch.profiler``.  The picked route must not be slower than the
+   tile kernel beyond the runs' spread.
 4. session: the production configuration (``configs/mirflickr_production.ini``)
    on the 25 000 x 512 MIRFLICKR surrogate: ``update_query`` and 10 rounds of
    fetch / simulated user / update / AP through ``ActiveRetrieval``.  The
@@ -28,14 +33,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 6. harness: ``ital_tpu_torch.runner.run_experiment`` on ``configs/mirflickr.ini``
    (25 000 x 512, depth cut to 2 classes x 5 rounds) for eight strategies:
    ITAL with the production options, EMOC, batch EMOC, MCMI[min], SUD, RBMAL,
-   uncertainty and random sampling.  The launch count is reset just before;
-   every selection of the five strategies that build kernel blocks must
-   launch the kernel.  The EMOC run checkpoints every round; its round-2
+   uncertainty and random sampling.  The launch counts are reset just
+   before; every selection of the five strategies that build kernel blocks
+   must launch the kernel, and every EMOC, batch-EMOC and MCMI selection the
+   tensor-core route.  The EMOC run checkpoints every round; its round-2
    checkpoint is restored on the CPU through ``load_session`` and must pick
    the card's batch up to EMOC-score ties.
 
-The second-to-last line is a JSON object describing the kernel; the last line
-is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+The second-to-last line is a JSON object describing the kernel (launches on
+the main path in all and per route); the last line is
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -63,6 +70,9 @@ HARNESS_METHODS = ("ital", "emoc", "emoc_batch", "mcmi_min", "sud", "rbmal",
 # Strategies whose every selection forms RBF blocks (pool cross-kernels,
 # EMOC/MCMI column blocks, similarity penalties).
 KERNEL_SELECTING = {"ital", "emoc", "emoc_batch", "mcmi_min", "rbmal"}
+# ... and those whose every selection forms whole-corpus blocks, which the
+# tensor-core route takes.
+WGMMA_SELECTING = {"emoc", "emoc_batch", "mcmi_min"}
 REPLAY_ROUND = 2  # the EMOC checkpoint replayed on the CPU
 WORK_DIR = ROOT / "build" / "chip_smoke"
 SEED = 0
@@ -115,34 +125,53 @@ def build_phase() -> float:
     return secs
 
 
-def _time_pair_ms(torch, fn_a, fn_b, launches: int = 50, runs: int = 5,
-                  warmup: int = 3) -> tuple[float, float]:
-    """Per-launch CUDA-event times of ``fn_a`` and ``fn_b``.
+def _time_turns_ms(torch, fns, launches: int = 50, runs: int = 5,
+                   warmup: int = 3) -> list[tuple[float, float]]:
+    """Per-launch CUDA-event times of each of ``fns``, taken in turns.
 
-    Each run records two events around ``launches`` back-to-back launches and
-    divides by their count; the two versions alternate runs, each going
-    first in every other one.  Returns the medians over ``runs`` runs.
+    Each run records two events around ``launches`` back-to-back launches of
+    one version and divides by their count; every run goes through all the
+    versions, the order rotated from run to run.  Returns, per version, the
+    median over ``runs`` runs and their spread (max - min).
     """
     for _ in range(warmup):
-        fn_a()
-        fn_b()
-    times = ([], [])
+        for fn in fns:
+            fn()
+    times = [[] for _ in fns]
     for r in range(runs):
-        order = ((fn_a, times[0]), (fn_b, times[1]))
-        for fn, out in (order if r % 2 == 0 else order[::-1]):
+        for i in [(r + j) % len(fns) for j in range(len(fns))]:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             for _ in range(launches):
-                fn()
+                fns[i]()
             end.record()
             end.synchronize()
-            out.append(start.elapsed_time(end) / launches)
-    return float(np.median(times[0])), float(np.median(times[1]))
+            times[i].append(start.elapsed_time(end) / launches)
+    return [(float(np.median(t)), float(max(t) - min(t))) for t in times]
+
+
+def _device_us(torch, fn, launches: int = 20) -> float:
+    """Device time per launch of the RBF kernels that ``fn`` launches, from
+    ``torch.profiler``'s CUDA activity (kernels named ``rbf_*``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for evt in prof.key_averages():
+        if "rbf_" in evt.key:
+            total += getattr(evt, "device_time_total", 0.0) or evt.cuda_time_total
+    return total / launches
 
 
 def kernel_phase(torch, ds) -> dict:
-    """Kernel vs plain at the session's shapes; returns the JSON record's numbers."""
+    """Both routes and the plain version at the session's and the harness's
+    shapes; returns the JSON record's numbers."""
     from ital_tpu_torch.ops import rbf_hopper
     from ital_tpu_torch.ops.kernels import rbf_kernel, rbf_kernel_plain
 
@@ -174,25 +203,49 @@ def kernel_phase(torch, ds) -> dict:
         ("density block (2048, 25000, 512) a2 b2", x[:2048], x, {"a2": x2[:2048], "b2": x2},
          ls, var, F32_ATOL),
         ("similarity (25000, 48, 512) a2", x, x[i48], {"a2": x2}, ls, var, F32_ATOL),
+        ("ragged (129, 257, 100)", x[:129, :100].contiguous(), x[200:457, :100].contiguous(), {},
+         torch.tensor(20.0, device=dev), torch.tensor(0.9, device=dev), F32_ATOL),
+        ("bf16 emoc block (25000, 2048, 512) a2 b2", xb, xb[i2048],
+         {"a2": xb2, "b2": xb2[i2048]}, ls, var, BF16_ATOL),
     ]
     worst = 0.0
     main = None
     for name, a, b, norms, l, v, atol in cases:
+        m, d = a.shape
+        route = rbf_hopper.choose_route(m, b.shape[0], d, a.dtype, a.data_ptr(), b.data_ptr())
+        fns = {"plain": lambda: rbf_kernel_plain(a, b, l, v, **norms),
+               "tile": lambda: rbf_hopper.rbf_tile(a, b, l, v, _route="tile", **norms)}
+        if rbf_hopper.wgmma_takes(m, b.shape[0], d, a.dtype, a.data_ptr(), b.data_ptr()):
+            fns["wgmma"] = lambda: rbf_hopper.rbf_tile(a, b, l, v, _route="wgmma", **norms)
+        before = dict(rbf_hopper.ROUTE_LAUNCHES)
         got = rbf_kernel(a, b, l, v, **norms)
-        want = rbf_kernel_plain(a, b, l, v, **norms)
+        check(rbf_hopper.ROUTE_LAUNCHES[route.name] == before[route.name] + 1,
+              f"{name}: rbf_kernel launched the {route.name} route")
+        want = fns["plain"]()
         torch.cuda.synchronize()
         check(got.shape == want.shape and got.dtype == torch.float32, f"{name}: shape/dtype")
-        err = float((got - want).abs().max())
         tol = atol * float(v)
-        ms, plain_ms = _time_pair_ms(torch, lambda: rbf_kernel(a, b, l, v, **norms),
-                                     lambda: rbf_kernel_plain(a, b, l, v, **norms))
-        print(f"kernel: {name}: max_abs_err {err:.3e} (atol {tol:.1e}); per launch "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        errs = {r: float((fns[r]() - want).abs().max()) for r in fns if r != "plain"}
+        err = float((got - want).abs().max())
+        timed = dict(zip(fns, _time_turns_ms(torch, list(fns.values()))))
+        dev_us = {r: _device_us(torch, fns[r]) for r in errs}
+        ms, spread = timed[route.name]
+        print(f"kernel: {name}: route {route.name} (variant {route.variant}, transposed "
+              f"{route.transposed}); max_abs_err {err:.3e} (atol {tol:.1e}; per route "
+              + ", ".join(f"{r} {e:.3e}" for r, e in errs.items()) + "); per launch ms "
+              + ", ".join(f"{r} {t:.4f} (spread {sp:.4f})" for r, (t, sp) in timed.items())
+              + "; device us per launch " + ", ".join(f"{r} {u:.2f}" for r, u in dev_us.items()))
+        for r, e in errs.items():
+            check(e <= tol, f"{name}: {r} route max_abs_err {e} > {tol}")
         check(err <= tol, f"{name}: max_abs_err {err} > {tol}")
-        worst = max(worst, err)
+        tile_ms, tile_spread = timed["tile"]
+        check(ms <= tile_ms + max(spread, tile_spread),
+              f"{name}: the chosen route ({ms} ms) is not slower than the tile kernel "
+              f"({tile_ms} ms) beyond the runs' spread")
+        worst = max(worst, err, *errs.values())
         if main is None:
-            main = (ms, plain_ms)
-    check(rbf_hopper.LAUNCHES > 0, "the kernel launched in phase 3")
+            main = (ms, timed["plain"][0])
+    check(all(c > 0 for c in rbf_hopper.ROUTE_LAUNCHES.values()), "both routes launched in phase 3")
     return {"max_abs_err": worst, "ms": main[0], "plain_ms": main[1]}
 
 
@@ -220,7 +273,7 @@ def session_phase(torch, ds, cfg, dev) -> dict:
     k = cfg.batch_size
     torch.cuda.synchronize()
 
-    rbf_hopper.LAUNCHES = 0  # the main path's count starts here
+    _reset_counts()  # the main path's count starts here
     t0 = time.perf_counter()
     sess.update_query(q)
     torch.cuda.synchronize()
@@ -260,7 +313,7 @@ def session_phase(torch, ds, cfg, dev) -> dict:
         if snapshot is not None:
             mid = {"arrays": snapshot, "batch": batch, "feedback": fb,
                    "mu": sess.scores()}
-    launches = rbf_hopper.LAUNCHES
+    launches = dict(rbf_hopper.ROUTE_LAUNCHES)
 
     st = sess.state
     check(st.count == 1 + cfg.n_rounds * k, f"count {st.count} == {1 + cfg.n_rounds * k}")
@@ -271,7 +324,7 @@ def session_phase(torch, ds, cfg, dev) -> dict:
     print(f"session: fetch ms {[round(t, 3) for t in fetch_ms]}")
     print(f"session: update ms {[round(t, 3) for t in update_ms]}")
     print(f"session: median fetch {np.median(fetch_ms):.3f} ms, median update "
-          f"{np.median(update_ms):.3f} ms, launches {launches}")
+          f"{np.median(update_ms):.3f} ms, launches by route {launches}")
     return {"launches": launches, "mid": mid}
 
 
@@ -343,10 +396,19 @@ def cpu_phase(torch, ds, cfg, mid) -> None:
     check(err <= CPU_MU_ATOL, f"mu card vs CPU {err} > {CPU_MU_ATOL}")
 
 
+def _reset_counts() -> None:
+    from ital_tpu_torch.ops import rbf_hopper
+
+    rbf_hopper.LAUNCHES = 0
+    for route in rbf_hopper.ROUTE_LAUNCHES:
+        rbf_hopper.ROUTE_LAUNCHES[route] = 0
+
+
 @contextlib.contextmanager
 def _watch_selections(name: str, on_call):
-    """Call ``on_call(launches, batch)`` after each selection of strategy ``name``,
-    with the kernel launches that selection made."""
+    """Call ``on_call(launches, wgmma_launches, batch)`` after each selection of
+    strategy ``name``, with the kernel launches that selection made (all, and
+    those of the tensor-core route)."""
     from ital_tpu_torch.ops import rbf_hopper
     from ital_tpu_torch.select.base import STRATEGIES
 
@@ -355,8 +417,10 @@ def _watch_selections(name: str, on_call):
     @functools.wraps(orig)
     def watched(*args, **kwargs):
         before = rbf_hopper.LAUNCHES
+        before_wgmma = rbf_hopper.ROUTE_LAUNCHES["wgmma"]
         batch = orig(*args, **kwargs)
-        on_call(rbf_hopper.LAUNCHES - before, batch)
+        on_call(rbf_hopper.LAUNCHES - before, rbf_hopper.ROUTE_LAUNCHES["wgmma"] - before_wgmma,
+                batch)
         return batch
 
     STRATEGIES[name] = watched
@@ -385,22 +449,23 @@ def harness_phase(torch, ds, dev) -> dict:
     n_sessions = base.max_classes * base.queries_per_class * base.repetitions
     torch.cuda.synchronize()
 
-    rbf_hopper.LAUNCHES = 0  # the main path's count starts here
+    _reset_counts()  # the main path's count starts here
     for method in HARNESS_METHODS:
         cfg = dataclasses.replace(
             base, method=method,
             method_kwargs=dict(production.method_kwargs) if method == "ital" else {},
             checkpoint_dir=str(ckpt_dir) if method == "emoc" else None,
         )
-        calls = []
+        calls, wgmma_calls = [], []
 
-        def on_call(launches, batch, cfg=cfg, calls=calls):
+        def on_call(launches, wgmma, batch, cfg=cfg, calls=calls, wgmma_calls=wgmma_calls):
             if cfg.checkpoint_dir and len(calls) == REPLAY_ROUND:
                 # The first session's checkpoint now holds the state this pick came from.
                 (saved,) = Path(cfg.checkpoint_dir).glob("*.npz")
                 shutil.copy(saved, replay["path"])
                 replay.update(cfg=cfg, batch=batch.cpu().numpy())
             calls.append(launches)
+            wgmma_calls.append(wgmma)
 
         before = rbf_hopper.LAUNCHES
         with _watch_selections(method, on_call):
@@ -411,12 +476,16 @@ def harness_phase(torch, ds, dev) -> dict:
         check(len(calls) == n_sessions * cfg.n_rounds, f"{method}: {len(calls)} selections")
         if method in KERNEL_SELECTING:
             check(all(c > 0 for c in calls), f"{method}: the kernel launched in every selection")
+        if method in WGMMA_SELECTING:
+            check(all(c > 0 for c in wgmma_calls),
+                  f"{method}: the tensor-core route launched in every selection")
         print(f"harness {method}: MAP {[round(float(m), 6) for m in res['map']]}; select "
               f"{res['select_ms']:.3f} ms mean, {res['select_ms_steady']:.3f} ms steady; update "
               f"{res['update_ms']:.3f} ms mean, {res['update_ms_steady']:.3f} ms steady; first "
               f"round {res['first_round_ms']:.1f} ms; launches {launches} "
-              f"({min(calls)}-{max(calls)} per selection) on {res['device']}")
-    launches = rbf_hopper.LAUNCHES
+              f"({min(calls)}-{max(calls)} per selection, {min(wgmma_calls)}-{max(wgmma_calls)} "
+              f"on the tensor-core route) on {res['device']}")
+    launches = dict(rbf_hopper.ROUTE_LAUNCHES)
     check(replay["batch"] is not None, "the EMOC round-2 checkpoint was captured")
     return {"launches": launches, "replay": replay}
 
@@ -474,12 +543,20 @@ def main() -> int:
     cpu_phase(torch, ds, cfg, sess["mid"])
     harness = harness_phase(torch, ds, torch.device("cuda"))
     emoc_replay_phase(torch, ds, harness["replay"])
+    # At 512 features every RBF call of the path takes the tensor-core route
+    # (the router's rule, PERF.md); the tile kernel serves narrower or
+    # unaligned features and is held against the plain version in phase 3.
+    by_route = {r: sess["launches"][r] + harness["launches"][r] for r in sess["launches"]}
+    check(by_route["wgmma"] > 0, f"the tensor-core route launched on the main path: {by_route}")
     print(json.dumps({"kernels": [{
         "name": "rbf_tile",
         "route": "cuda",
-        "source": "ital_tpu_torch/csrc/rbf_tile.cu",
+        "source": "ital_tpu_torch/csrc/rbf_wgmma.cu",
         "replaces": "ital_tpu/ops/pallas_rbf.py:90",
-        "launches": sess["launches"] + harness["launches"],
+        "launches": sum(by_route.values()),
+        "launches_by_route": by_route,
+        "sources_by_route": {"wgmma": "ital_tpu_torch/csrc/rbf_wgmma.cu",
+                             "tile": "ital_tpu_torch/csrc/rbf_tile.cu"},
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"],
         "plain_ms": kern["plain_ms"],

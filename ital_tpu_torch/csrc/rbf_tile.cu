@@ -28,9 +28,10 @@
 // the block accumulates that side's norms in f32 from the staged values, so a
 // bf16 corpus still gets f32 norms.  The distance and exp epilogue run in
 // registers; ragged edges are masked, never padded.  length_scale and var are
-// read from device memory, so a call never waits on the host.  The kernel
-// allocates nothing: the caller passes the output.  Tensor cores (wgmma with
-// TMA, 3xTF32 for f32) are later work.
+// read from device memory (or passed by value), so a call never waits on the
+// host.  The kernel allocates nothing: the caller passes the output.  The
+// wide calls take the tensor-core route instead (rbf_wgmma.cu); this kernel
+// keeps the skinny and unaligned ones.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,7 +54,7 @@ __global__ void __launch_bounds__(kThreads)
 rbf_tile_kernel(const T* __restrict__ a, const T* __restrict__ b,
                 const float* __restrict__ a2, const float* __restrict__ b2,
                 const float* __restrict__ length_scale, const float* __restrict__ var,
-                float* __restrict__ out, int M, int N, int D) {
+                float ls_value, float var_value, float* __restrict__ out, int M, int N, int D) {
   constexpr int TX = TN / RN;
   constexpr int TY = TM / RM;
   static_assert(TX * TY == kThreads, "tile shape must use every thread");
@@ -124,9 +125,9 @@ rbf_tile_kernel(const T* __restrict__ a, const T* __restrict__ b,
   if (tid < TN) sb2[tid] = own_b2 ? nb : (n0 + tid < N ? b2[n0 + tid] : 0.f);
   __syncthreads();
 
-  const float ls = length_scale[0];
+  const float ls = length_scale ? length_scale[0] : ls_value;
   const float inv2l2 = 1.f / (2.f * ls * ls);
-  const float v = var[0];
+  const float v = var ? var[0] : var_value;
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
     const int r = ty + i * TY;
@@ -145,8 +146,8 @@ rbf_tile_kernel(const T* __restrict__ a, const T* __restrict__ b,
 
 template <typename T>
 void launch(const void* a, const void* b, const void* a2, const void* b2,
-            const void* length_scale, const void* var, void* out,
-            int M, int N, int D, cudaStream_t stream) {
+            const void* length_scale, const void* var, float ls_value, float var_value,
+            void* out, int M, int N, int D, cudaStream_t stream) {
   const T* ta = static_cast<const T*>(a);
   const T* tb = static_cast<const T*>(b);
   const float* fa2 = static_cast<const float*>(a2);
@@ -158,15 +159,15 @@ void launch(const void* a, const void* b, const void* a2, const void* b2,
   if (M <= 16) {
     const dim3 grid((N + 63) / 64, (M + 15) / 16);
     rbf_tile_kernel<T, 16, 64, 1, 4><<<grid, block, 0, stream>>>(
-        ta, tb, fa2, fb2, fls, fvar, fout, M, N, D);
+        ta, tb, fa2, fb2, fls, fvar, ls_value, var_value, fout, M, N, D);
   } else if (N <= 16) {
     const dim3 grid((N + 15) / 16, (M + 63) / 64);
     rbf_tile_kernel<T, 64, 16, 4, 1><<<grid, block, 0, stream>>>(
-        ta, tb, fa2, fb2, fls, fvar, fout, M, N, D);
+        ta, tb, fa2, fb2, fls, fvar, ls_value, var_value, fout, M, N, D);
   } else {
     const dim3 grid((N + 63) / 64, (M + 63) / 64);
     rbf_tile_kernel<T, 64, 64, 4, 4><<<grid, block, 0, stream>>>(
-        ta, tb, fa2, fb2, fls, fvar, fout, M, N, D);
+        ta, tb, fa2, fb2, fls, fvar, ls_value, var_value, fout, M, N, D);
   }
 }
 
@@ -174,18 +175,21 @@ void launch(const void* a, const void* b, const void* a2, const void* b2,
 
 // C entry point, loaded with ctypes.  a: (M, D), b: (N, D), row-major and
 // contiguous, both float32 (dtype 0) or both bfloat16 (dtype 1).  a2 (M,) and
-// b2 (N,) are float32 squared row norms or null.  length_scale and var point
-// to one float32 each on the device.  out: (M, N) float32.  Launches on
-// `stream` and returns cudaGetLastError() of the launch (0 on success).
+// b2 (N,) are float32 squared row norms or null.  length_scale and var each
+// point to one float32 on the device, or are null and then taken from
+// ls_value / var_value.  out: (M, N) float32.  Launches on `stream` and
+// returns cudaGetLastError() of the launch (0 on success).
 extern "C" int ital_rbf_tile(const void* a, const void* b, const void* a2, const void* b2,
-                             const void* length_scale, const void* var, void* out,
-                             int M, int N, int D, int dtype, void* stream) {
+                             const void* length_scale, const void* var, float ls_value,
+                             float var_value, void* out, int M, int N, int D, int dtype,
+                             void* stream) {
   if (M <= 0 || N <= 0 || D <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    launch<float>(a, b, a2, b2, length_scale, var, out, M, N, D, s);
+    launch<float>(a, b, a2, b2, length_scale, var, ls_value, var_value, out, M, N, D, s);
   } else if (dtype == 1) {
-    launch<__nv_bfloat16>(a, b, a2, b2, length_scale, var, out, M, N, D, s);
+    launch<__nv_bfloat16>(a, b, a2, b2, length_scale, var, ls_value, var_value, out, M, N, D,
+                           s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

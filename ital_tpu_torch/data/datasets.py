@@ -71,16 +71,18 @@ def toy_gaussians(
     return Dataset("toy", x, labels, _class_relevance(labels, classes), classes)
 
 
-def digits() -> Dataset:
+def digits(normalize: bool = True) -> Dataset:
     """scikit-learn's bundled 8x8 digits, an offline USPS stand-in (1797 x 64),
-    scaled to [0, 1].
+    scaled to [0, 1] when ``normalize`` (raw 0-16 counts otherwise).
 
     Needs scikit-learn, which is imported only here.
     """
     from sklearn.datasets import load_digits
 
     d = load_digits()
-    x = d.data.astype(np.float32) / 16.0
+    x = d.data.astype(np.float32)
+    if normalize:
+        x = x / 16.0
     classes = np.arange(10)
     return Dataset("digits", x, d.target.astype(np.int64),
                    _class_relevance(d.target, classes), classes)

@@ -1,7 +1,8 @@
 """Build the package's CUDA kernels from ``csrc/*.cu`` at first use.
 
-``nvcc`` compiles every source into one shared library with a plain C
-interface (no PyTorch headers, so the build takes seconds), which
+``nvcc`` compiles every source at once, one process each, and links the
+objects into one shared library with a plain C interface (no PyTorch
+headers, so the build takes seconds), which
 :mod:`ital_tpu_torch.ops.rbf_hopper` loads with ``ctypes``.  The library
 lands in ``build/ital_tpu_torch/`` at the repository root, named by a hash of
 the sources and flags, so an edited source builds anew and an unchanged one
@@ -23,7 +24,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "ital_tpu_torch"
 # sm_90a: Hopper with its architecture-specific features (wgmma, setmaxnreg).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -69,14 +70,27 @@ def build() -> Path:
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    sources = [str(s) for s in sorted(CSRC_DIR.glob("*.cu"))]
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), *sources],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
+    objects, procs = [], []
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        obj = BUILD_DIR / f"{lib.stem}.{src.stem}.{os.getpid()}.o"
+        objects.append(obj)
+        procs.append(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    logs = [p.communicate()[0] for p in procs]
+    steps = [(p.returncode, log) for p, log in zip(procs, logs)]
+    if all(rc == 0 for rc, _ in steps):
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objects)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        steps.append((link.returncode, link.stdout))
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    failed = [(rc, log) for rc, log in steps if rc != 0]
+    if failed:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{proc.stdout}{proc.stderr}"
+            f"nvcc failed with exit code {failed[0][0]}:\n{failed[0][1]}"
         )
-    lib.with_suffix(".so.log").write_text(proc.stdout + proc.stderr)
+    lib.with_suffix(".so.log").write_text("".join(log for _, log in steps))
     os.replace(tmp, lib)  # atomic: a concurrent process never loads half a file
     return lib

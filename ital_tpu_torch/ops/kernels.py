@@ -2,11 +2,12 @@
 
 :func:`rbf_kernel` is what every caller uses.  On a CPU tensor it runs the
 plain version below (:func:`rbf_kernel_plain`, the port of
-``ital_tpu.ops.kernels.rbf_kernel``); on a CUDA tensor it launches the
-hand-written kernel of :mod:`ital_tpu_torch.ops.rbf_hopper`, which raises on
-anything it does not take.  No path falls back from the kernel to the plain
-version.  The blockwise consumers below (:func:`rbf_kernel_blockwise`,
-:func:`blockwise_reduce_abs_kpost`) form their blocks through it.
+``ital_tpu.ops.kernels.rbf_kernel``); on a CUDA tensor it launches one of the
+hand-written kernels of :mod:`ital_tpu_torch.ops.rbf_hopper`, which picks the
+route and raises on anything the kernels do not take.  No path falls back
+from a kernel to the plain version.  The blockwise consumers below
+(:func:`rbf_kernel_blockwise`, :func:`blockwise_reduce_abs_kpost`) form their
+blocks through it.
 """
 
 from __future__ import annotations
@@ -69,7 +70,7 @@ def rbf_kernel(
 ) -> torch.Tensor:
     """RBF kernel block (M, N); the noise term is not included.
 
-    CPU tensors take the plain version; CUDA tensors take the CUDA kernel
+    CPU tensors take the plain version; CUDA tensors take a CUDA kernel
     (float32 output), which needs contiguous f32 or bf16 inputs.
     """
     if a.device.type == "cpu" and b.device.type == "cpu":
@@ -79,7 +80,9 @@ def rbf_kernel(
 
 # The reference routes between its Pallas kernel and XLA by TPU-measured
 # shape thresholds (``ital_tpu/ops/pallas_rbf.py::rbf_kernel_auto``); here the
-# device alone picks the route, so the router is the entry point itself.
+# device picks plain or kernel, and ``rbf_hopper.choose_route`` picks the
+# kernel by thresholds measured on the H100, so the router is the entry point
+# itself.
 rbf_kernel_auto = rbf_kernel
 
 
@@ -103,22 +106,26 @@ def blockwise_reduce_abs_kpost(
     length_scale: torch.Tensor | float,
     var: torch.Tensor | float,
     *,
+    weights: Optional[torch.Tensor] = None,
     x2: Optional[torch.Tensor] = None,
     block: int = 2048,
 ) -> torch.Tensor:
-    """For each candidate c: ``sum_x |k_post(x, c)|``, in candidate blocks.
+    """For each candidate c: ``sum_x w(x) |k_post(x, c)|``, in candidate blocks.
 
     ``k_post(x, c) = k(x, c) - v[:, x] . v[:, c]`` is the GP posterior
     covariance (``v`` the (cap, N) whitened cross-kernel), the column sums of
-    which the EMOC baselines need.  Each block forms one (N, block) kernel
-    block (the CUDA kernel on the card), subtracts ``v^T v[:, block]`` with a
-    matmul and reduces it; the N x N matrix is never held.  ``x2``: the
-    corpus' cached f32 squared norms, so a bf16 corpus gets norms from its
-    stored values.
+    which the EMOC baselines need.  ``weights``: the optional (N,) ``w(x)``,
+    1 where absent.  Each block forms one (N, block) kernel block (a CUDA
+    kernel on the card), subtracts ``v^T v[:, block]`` with a matmul and
+    reduces it; the N x N matrix is never held.  ``x2``: the corpus' cached
+    f32 squared norms, so a bf16 corpus gets norms from its stored values.
     """
     def one_block(idx_blk):
         norms = {} if x2 is None else {"a2": x2, "b2": x2[idx_blk]}
         k_cross = rbf_kernel(x, x[idx_blk], length_scale, var, **norms)  # (N, block)
-        return (k_cross - v.T @ v[:, idx_blk]).abs_().sum(0)
+        k_post = (k_cross - v.T @ v[:, idx_blk]).abs_()
+        if weights is not None:
+            k_post.mul_(weights[:, None])
+        return k_post.sum(0)
 
     return torch.cat([one_block(blk) for blk in cand_idx.split(block)])

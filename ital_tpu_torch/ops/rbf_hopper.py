@@ -1,51 +1,125 @@
-"""Wrapper of the hand-written CUDA RBF kernel (``csrc/rbf_tile.cu``).
+"""Wrapper of the hand-written CUDA RBF kernels (``csrc/*.cu``).
 
-The port of ``ital_tpu/ops/pallas_rbf.py::rbf_kernel_pallas``.  The library
-is built from the repository's sources at first use (:mod:`._build`) and
-bound with ``ctypes``.  :func:`rbf_tile` takes CUDA tensors only and raises on
-anything the kernel does not take; :func:`ital_tpu_torch.ops.kernels.rbf_kernel`
-is the entry point callers use, and sends CPU tensors to the plain version.
+The port of ``ital_tpu/ops/pallas_rbf.py::rbf_kernel_pallas``, in two routes
+built into one library from the repository's sources at first use
+(:mod:`._build`) and bound with ``ctypes``:
 
-``LAUNCHES`` counts the kernel's launches, so a run can show that its main
-path went through the kernel.
+- ``"wgmma"`` (``csrc/rbf_wgmma.cu``): tensor-core tiles fed by a TMA ring,
+  3xTF32 for f32 and one bf16 pass for a bf16 corpus; for calls with a wide
+  feature axis or a large output whose rows TMA can address.
+- ``"tile"`` (``csrc/rbf_tile.cu``): f32 FMA tiles on the CUDA cores, for
+  everything else (narrow features, unaligned rows or pointers).
+
+:func:`choose_route` picks the route before the launch from shape, dtype and
+alignment alone; no route is ever taken because another failed.
+:func:`rbf_tile` takes CUDA tensors only and raises on anything the kernels do
+not take; :func:`ital_tpu_torch.ops.kernels.rbf_kernel` is the entry point
+callers use, and sends CPU tensors to the plain version.
+
+``LAUNCHES`` counts the launches of both routes and ``ROUTE_LAUNCHES`` each
+route's, so a run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from ital_tpu_torch.ops import _build
 
 LAUNCHES = 0
+ROUTE_LAUNCHES = {"wgmma": 0, "tile": 0}
+
+# Where the tensor-core route's device time beats the tile kernel's, from a
+# sweep on an H100 (PERF.md): the tile kernel walks D in a serial loop of
+# 32-wide chunks, so the feature width D sets the crossover more than M or N
+# do.  The tensor-core route takes calls with D >= 128 at any M and N (even
+# (4, 25000, 512) and (4096, 3, 512)), and any D once the output has 2^20
+# entries.
+WGMMA_MIN_DEPTH = 128
+WGMMA_MIN_OUTPUT = 1 << 20
+# The tensor-core tile's short side: a call with a side this narrow gets one
+# 64-row slab on that side.
+WGMMA_SLAB_ROWS = 64
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _lib: Optional[ctypes.CDLL] = None
+
+
+class Route(NamedTuple):
+    """A launch plan: ``name`` ``"wgmma"`` or ``"tile"``; for ``"wgmma"`` the
+    tile ``variant`` (0: 128 x 128; 1: a 64-row slab x 128) and whether the
+    product is taken with a and b swapped (the slab on N) and stored
+    ``transposed``."""
+
+    name: str
+    variant: int = 0
+    transposed: bool = False
+
+
+def wgmma_takes(m: int, n: int, d: int, dtype: torch.dtype, a_ptr: int, b_ptr: int) -> bool:
+    """Whether the tensor-core route can take the call: TMA needs 16-byte
+    aligned base pointers and a row stride (D x element size) that is a
+    multiple of 16 bytes."""
+    width_ok = (d * dtype.itemsize) % 16 == 0
+    return m > 0 and n > 0 and d > 0 and width_ok and a_ptr % 16 == 0 and b_ptr % 16 == 0
+
+
+def choose_route(m: int, n: int, d: int, dtype: torch.dtype, a_ptr: int, b_ptr: int,
+                 force: Optional[str] = None) -> Route:
+    """The route of an (M, N, D) call, from shape, dtype and alignment alone.
+
+    ``force`` (``"wgmma"`` or ``"tile"``) overrides the size thresholds, for
+    timing one route against the other; forcing ``"wgmma"`` on a call it
+    cannot take raises.
+    """
+    takes = wgmma_takes(m, n, d, dtype, a_ptr, b_ptr)
+    if force == "tile":
+        return Route("tile")
+    if force == "wgmma":
+        if not takes:
+            raise ValueError(
+                f"the tensor-core route cannot take ({m}, {n}, {d}) {dtype} at pointers "
+                f"{a_ptr:#x}, {b_ptr:#x}: it needs 16-byte aligned rows and pointers")
+    elif force is not None:
+        raise ValueError(f"unknown route {force!r}")
+    elif not (takes and (d >= WGMMA_MIN_DEPTH or m * n >= WGMMA_MIN_OUTPUT)):
+        return Route("tile")
+    transposed = n <= WGMMA_SLAB_ROWS < m
+    rows = n if transposed else m
+    return Route("wgmma", 1 if rows <= WGMMA_SLAB_ROWS else 0, transposed)
 
 
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(_build.build()))
-        fn = lib.ital_rbf_tile
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.ital_rbf_tile.argtypes = [ptr] * 6 + [f32, f32, ptr] + [i32] * 4 + [ptr]
+        lib.ital_rbf_tile.restype = i32
+        lib.ital_rbf_wgmma.argtypes = [ptr] * 6 + [f32, f32, ptr] + [i32] * 6 + [ptr]
+        lib.ital_rbf_wgmma.restype = i32
         _lib = lib
     return _lib
 
 
-def _device_scalar(value, device: torch.device, name: str) -> torch.Tensor:
-    """A float32 scalar on ``device`` (the kernel reads it from device memory)."""
+def _scalar_arg(value, device: torch.device, name: str):
+    """(tensor or None, number) for a scalar the kernel reads: a Python number
+    goes by value; a 0-d f32 tensor on ``device`` is read from device memory
+    as it is; another one-element tensor on ``device`` is made one first."""
     if not isinstance(value, torch.Tensor):
-        return torch.full((), float(value), dtype=torch.float32, device=device)
+        return None, float(value)
     if value.device != device or value.numel() != 1:
         raise ValueError(
             f"{name} must be a number or a one-element tensor on {device}, "
             f"got shape {tuple(value.shape)} on {value.device}"
         )
-    return value.reshape(()).to(torch.float32).contiguous()
+    if value.dim() != 0 or value.dtype != torch.float32:
+        value = value.reshape(()).to(torch.float32).contiguous()
+    return value, 0.0
 
 
 def _check_norms(n2: Optional[torch.Tensor], rows: int, device, name: str):
@@ -68,12 +142,14 @@ def rbf_tile(
     *,
     a2: Optional[torch.Tensor] = None,
     b2: Optional[torch.Tensor] = None,
+    _route: Optional[str] = None,
 ) -> torch.Tensor:
     """(M, N) float32 ``var * exp(-||a_i - b_j||^2 / (2 ls^2))`` on the card.
 
     ``a`` (M, D) and ``b`` (N, D): contiguous CUDA tensors of one dtype,
     float32 or bfloat16.  ``a2``/``b2``: optional float32 squared row norms;
     where absent the kernel computes them in f32 from the stored values.
+    ``_route`` forces a route (see :func:`choose_route`), for timing.
     """
     global LAUNCHES
     if a.dtype not in _DTYPE_CODE or b.dtype != a.dtype:
@@ -101,19 +177,28 @@ def rbf_tile(
         return out
     if d == 0:
         raise ValueError("rbf_tile needs a feature axis of width >= 1")
-    ls_t = _device_scalar(length_scale, a.device, "length_scale")
-    var_t = _device_scalar(var, a.device, "var")
-    fn = _library().ital_rbf_tile
-    with torch.cuda.device(a.device):
+    ls_t, ls_v = _scalar_arg(length_scale, a.device, "length_scale")
+    var_t, var_v = _scalar_arg(var, a.device, "var")
+    route = choose_route(m, n, d, a.dtype, a.data_ptr(), b.data_ptr(), force=_route)
+    lib = _library()
+    args = (
+        a.data_ptr(), b.data_ptr(),
+        None if a2 is None else a2.data_ptr(),
+        None if b2 is None else b2.data_ptr(),
+        None if ls_t is None else ls_t.data_ptr(),
+        None if var_t is None else var_t.data_ptr(),
+        ls_v, var_v, out.data_ptr(), m, n, d, _DTYPE_CODE[a.dtype],
+    )
+    guard = (torch.cuda.device(a.device) if a.device.index != torch.cuda.current_device()
+             else contextlib.nullcontext())
+    with guard:
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = fn(
-            a.data_ptr(), b.data_ptr(),
-            None if a2 is None else a2.data_ptr(),
-            None if b2 is None else b2.data_ptr(),
-            ls_t.data_ptr(), var_t.data_ptr(), out.data_ptr(),
-            m, n, d, _DTYPE_CODE[a.dtype], stream,
-        )
+        if route.name == "wgmma":
+            err = lib.ital_rbf_wgmma(*args, route.variant, int(route.transposed), stream)
+        else:
+            err = lib.ital_rbf_tile(*args, stream)
     if err != 0:
-        raise RuntimeError(f"rbf_tile kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"rbf_tile {route.name} kernel launch failed with error {err}")
     LAUNCHES += 1
+    ROUTE_LAUNCHES[route.name] += 1
     return out

@@ -144,6 +144,24 @@ def test_blockwise_reduce_abs_kpost_matches_jax(states):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=SCORE_RTOL, atol=4e-7 * n)
 
 
+def test_blockwise_reduce_abs_kpost_weighted_matches_jax(states):
+    """``weights`` w(x) > 0 scale each corpus row's |k_post| before the column
+    sum, as the reference's ``weights``; the tolerance of the unweighted test,
+    scaled by the largest weight."""
+    js, ts = states
+    n = ts.x.shape[0]
+    cand = np.arange(1, n, 3)
+    w = np.random.default_rng(4).uniform(0.1, 2.0, size=n).astype(np.float32)
+    want = jkernels.blockwise_reduce_abs_kpost(
+        js.x, js.v, jnp.asarray(cand), js.hyper.length_scale, js.hyper.var,
+        weights=jnp.asarray(w), block=32)
+    got = tkernels.blockwise_reduce_abs_kpost(
+        ts.x, ts.v, torch.from_numpy(cand), ts.hyper.length_scale, ts.hyper.var,
+        weights=torch.from_numpy(w), x2=ts.x2, block=32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=SCORE_RTOL,
+                               atol=4e-7 * n * 2.0)
+
+
 def test_rbf_kernel_blockwise_equals_rbf_kernel(states):
     _, ts = states
     a, b = ts.x[:70], ts.x[100:130]

@@ -1,4 +1,4 @@
-"""The CUDA RBF kernel against its plain version, on a card.
+"""The CUDA RBF kernels (both routes) against their plain version, on a card.
 
 No JAX here, so this file also runs where only the port is installed:
 
@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from ital_tpu_torch.data.datasets import _synthetic_surrogate
 from ital_tpu_torch.ops import rbf_hopper
 from ital_tpu_torch.ops.kernels import rbf_kernel, rbf_kernel_plain
 
@@ -50,12 +51,128 @@ def test_cuda_kernel_matches_plain(shape, norms, dtype):
     assert float((got - want).abs().max()) <= atol
 
 
+def _inputs(shape, norms, dtype, seed=0):
+    """Rows of the MIRFLICKR surrogate at width D (ReLU features, squared
+    norms ~10 D), and ls = sqrt(5 D) (50 at D = 512, the production
+    setting): dot products in the thousands, where one TF32 pass or a long
+    tensor-core accumulation misses 1e-5 x var."""
+    m, n, d = shape
+    x = _synthetic_surrogate("mirflickr", m + n, d, 14, seed=seed).x
+    a = torch.from_numpy(x[:m]).cuda().to(dtype)
+    b = torch.from_numpy(x[m:]).cuda().to(dtype)
+    kw = {}
+    if norms in ("a2", "both"):
+        kw["a2"] = (a.float() ** 2).sum(-1)
+    if norms in ("b2", "both"):
+        kw["b2"] = (b.float() ** 2).sum(-1)
+    return a, b, kw, torch.tensor(float(np.sqrt(5 * d)), device="cuda")
+
+
+def _atol(dtype, var):
+    return (1e-4 if dtype == torch.bfloat16 else 1e-5) * var
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,norms,dtype", [
+    ((300, 700, 512), "none", torch.float32),
+    ((129, 257, 100), "none", torch.float32),
+    ((2500, 300, 512), "both", torch.float32),
+    ((64, 2500, 512), "b2", torch.float32),
+    ((2500, 64, 512), "a2", torch.float32),
+    ((64, 2500, 512), "b2", torch.bfloat16),
+    ((200, 300, 64), "none", torch.bfloat16),
+])
+def test_cuda_tensor_core_route_matches_plain(shape, norms, dtype):
+    """The tensor-core route (forced where the router would pick the tile
+    kernel: D < 128 at these sizes) against the plain version with the tile
+    kernel's tolerances (1e-5 x var f32 through 3xTF32, 1e-4 x var bf16)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    a, b, kw, ls = _inputs(shape, norms, dtype)
+    before = rbf_hopper.ROUTE_LAUNCHES["wgmma"]
+    got = rbf_hopper.rbf_tile(a, b, ls, 0.8, _route="wgmma", **kw)
+    want = rbf_kernel_plain(a, b, ls, 0.8, **kw)
+    torch.cuda.synchronize()
+    assert rbf_hopper.ROUTE_LAUNCHES["wgmma"] == before + 1
+    assert float((got - want).abs().max()) <= _atol(dtype, 0.8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,norms,dtype", [
+    ((300, 700, 512), "none", torch.float32),
+    ((100, 300, 8), "both", torch.float32),
+    ((64, 2500, 512), "b2", torch.float32),
+    ((2500, 48, 512), "a2", torch.float32),
+    ((48, 40, 128), "none", torch.float32),
+    ((16, 2500, 512), "none", torch.float32),
+    ((200, 300, 64), "none", torch.bfloat16),
+    ((2500, 3, 512), "none", torch.bfloat16),
+])
+def test_cuda_routes_agree(shape, norms, dtype):
+    """Each route forced on a call both can take: within the tolerance of the
+    other, and of the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    a, b, kw, ls = _inputs(shape, norms, dtype, seed=2)
+    wg = rbf_hopper.rbf_tile(a, b, ls, 0.8, _route="wgmma", **kw)
+    tile = rbf_hopper.rbf_tile(a, b, ls, 0.8, _route="tile", **kw)
+    want = rbf_kernel_plain(a, b, ls, 0.8, **kw)
+    torch.cuda.synchronize()
+    tol = _atol(dtype, 0.8)
+    assert float((wg - tile).abs().max()) <= tol
+    assert float((wg - want).abs().max()) <= tol
+    assert float((tile - want).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,route", [
+    ((2500, 2048, 512), torch.float32, "wgmma"),
+    ((64, 2500, 512), torch.float32, "wgmma"),
+    ((2500, 3, 512), torch.float32, "wgmma"),
+    ((100, 300, 8), torch.float32, "tile"),
+    ((64, 2500, 510), torch.float32, "tile"),
+    ((64, 2500, 512), torch.bfloat16, "wgmma"),
+])
+def test_cuda_rbf_kernel_launches_the_chosen_route(shape, dtype, route):
+    """rbf_kernel launches the route choose_route names, once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    a, b, kw, ls = _inputs(shape, "none", dtype, seed=4)
+    assert rbf_hopper.choose_route(*shape, dtype, a.data_ptr(), b.data_ptr()).name == route
+    before = dict(rbf_hopper.ROUTE_LAUNCHES)
+    got = rbf_kernel(a, b, ls, 0.8)
+    want = rbf_kernel_plain(a, b, ls, 0.8)
+    torch.cuda.synchronize()
+    after = dict(rbf_hopper.ROUTE_LAUNCHES)
+    assert after == {r: before[r] + (r == route) for r in before}
+    assert float((got - want).abs().max()) <= _atol(dtype, 0.8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["wgmma", "tile"])
+def test_cuda_scalars_by_value_or_on_device(route):
+    """ls and var as Python numbers (passed by value), as 0-d f32 tensors on
+    the card (read in place) and as other one-element tensors: one result."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    a, b, _, _ = _inputs((128, 256, 64), "none", torch.float32, seed=3)
+    by_value = rbf_hopper.rbf_tile(a, b, 8.0, 0.7, _route=route)
+    on_device = rbf_hopper.rbf_tile(a, b, torch.tensor(8.0, device="cuda"),
+                                    torch.tensor(0.7, device="cuda"), _route=route)
+    other = rbf_hopper.rbf_tile(a, b, torch.tensor([8.0], device="cuda", dtype=torch.float64),
+                                torch.tensor([[0.7]], device="cuda"), _route=route)
+    torch.cuda.synchronize()
+    assert torch.equal(by_value, on_device) and torch.equal(by_value, other)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_blockwise_reduce_abs_kpost_matches_plain(dtype):
+@pytest.mark.parametrize("weighted", [False, True])
+def test_cuda_blockwise_reduce_abs_kpost_matches_plain(dtype, weighted):
     """The EMOC column sums on the card, one kernel launch per candidate block,
-    against the same function on the CPU's plain path.  Each |k_post| entry
-    differs by a few f32 ulps of var; a column sums N of them (atol 4e-7 x N);
+    against the same function on the CPU's plain path, with and without
+    positive weights w(x) <= 2.  Each |k_post| entry differs by a few f32 ulps
+    of var; a column sums N of them (atol 4e-7 x N, times the largest weight);
     bf16 inputs are the same stored values on both sides."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
@@ -67,13 +184,16 @@ def test_cuda_blockwise_reduce_abs_kpost_matches_plain(dtype):
     x2 = (x.float() ** 2).sum(-1)
     v = torch.from_numpy(rng.normal(scale=0.1, size=(cap, n)).astype(np.float32))
     cand = torch.arange(5, n, 3)
-    want = blockwise_reduce_abs_kpost(x, v, cand, 4.0, 0.9, x2=x2, block=256)
+    w = torch.from_numpy(rng.uniform(0.1, 2.0, size=n).astype(np.float32)) if weighted else None
+    want = blockwise_reduce_abs_kpost(x, v, cand, 4.0, 0.9, weights=w, x2=x2, block=256)
     before = rbf_hopper.LAUNCHES
-    got = blockwise_reduce_abs_kpost(x.cuda(), v.cuda(), cand.cuda(), 4.0, 0.9, x2=x2.cuda(),
+    got = blockwise_reduce_abs_kpost(x.cuda(), v.cuda(), cand.cuda(), 4.0, 0.9,
+                                     weights=None if w is None else w.cuda(), x2=x2.cuda(),
                                      block=256)
     torch.cuda.synchronize()
     assert rbf_hopper.LAUNCHES == before + -(-cand.shape[0] // 256)
-    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5, atol=4e-7 * n)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
+                               atol=4e-7 * n * (2.0 if weighted else 1.0))
 
 
 @pytest.mark.cuda

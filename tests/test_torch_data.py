@@ -13,6 +13,8 @@ def test_factories_are_the_reference_ones():
 
 @pytest.mark.parametrize("name,kwargs", [
     ("digits", {}),
+    ("digits", {"normalize": True}),
+    ("digits", {"normalize": False}),
     ("usps", {}),
     ("natural_scenes", {}),
     ("corpus100k", {"n": 3000, "dim": 64, "n_classes": 7, "seed": 3}),
