@@ -38,11 +38,29 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    must launch the kernel, and every EMOC, batch-EMOC and MCMI selection the
    tensor-core route.  The EMOC run checkpoints every round; its round-2
    checkpoint is restored on the CPU through ``load_session`` and must pick
-   the card's batch up to EMOC-score ties.
+   the card's batch up to EMOC-score ties.  One more run, ITAL with
+   ``GP.learn_every=2`` (1 class x 4 rounds), must log finite learned
+   hyperparameters and move the length scale.
+7. serving: ``ital_tpu_torch.serve`` on the same corpus with the production
+   [GP]/[USER]/[METHOD] settings and cap 64, served over HTTP on an
+   ephemeral port from a daemon thread and driven with ``urllib``: four ITAL
+   sessions on queries of two classes (two of them with one history, one
+   through the cohort endpoints and one through ``GET /batch`` and
+   ``POST /feedback``, whose batches must agree up to MI ties; one with
+   ``randomize_qmc``; one on a random 4096-item subsample) and a ``sud``
+   session, three rounds of ``/batch_select``, a seeded simulated user and
+   ``/batch_feedback``, then ``/ranking``, ``/snapshot`` restored into a CPU
+   service (posterior mean within ``CPU_MU_ATOL`` after one more update on
+   both) and ``/learn`` (50 steps) on the card and on the CPU from that
+   state: the length scale and variance must move, and agree within
+   ``LEARN_RTOL``.  Every request kind that forms RBF blocks must launch the
+   kernel; each kind's synchronized host latency is printed with the card's
+   name and power limit.
 
 The second-to-last line is a JSON object describing the kernel (launches on
-the main path in all and per route); the last line is
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+the main paths in all and per route, its bound, its time and the plain
+version's); the last line is ``{"ok": true, "device": {...}}``.  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -54,7 +72,10 @@ import json
 import shutil
 import subprocess
 import sys
+import threading
 import time
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -89,6 +110,22 @@ MI_TIE_ATOL = 1e-5
 # orders, with kernel errors of up to ~2e-6 x var per entry, so picks whose
 # scores differ by less than this fraction of the step's best score are ties.
 EMOC_TIE_RTOL = 1e-4
+# Phase 7: three serving rounds of batch 4; hyperparameters learned from one
+# state on the card and on the CPU agree to this relative tolerance (the
+# kernel's ~1e-6 relative error in K moves Adam's iterate by far less).
+SERVE_ROUNDS = 3
+SERVE_K = 4
+LEARN_STEPS = 50
+LEARN_RTOL = 1e-3
+# Request kinds whose every request forms RBF blocks on the card.
+KERNEL_REQUESTS = ("create with density", "query", "batch_select", "batch",
+                   "batch_feedback", "feedback", "learn")
+# The card's published peaks (H100 SXM, dense), for the kernel's bound: HBM
+# bytes per second, and TF32 and bf16 tensor operations per second (the f32
+# route does its products as 3xTF32: three TF32 products per f32 one).
+HBM_BYTES_PER_S = 3.35e12
+TF32_OPS_PER_S = 495e12
+BF16_OPS_PER_S = 989e12
 
 
 def check(cond: bool, what: str) -> None:
@@ -96,7 +133,24 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def device_phase(torch) -> str:
+def rbf_bound_ms(m: int, n: int, d: int, bf16: bool, norms: int) -> tuple[float, str]:
+    """The least time the card could take for one (M, N, D) RBF block, and
+    which of bytes and operations sets it.
+
+    Bytes: a and b read once, the ``norms`` given f32 norm vectors (their
+    entries) read once, the f32 output written once.  Operations: the 2 M N D
+    of the product, three times over in TF32 for f32 inputs (3xTF32), once
+    in bf16 for a bf16 corpus.
+    """
+    item = 2 if bf16 else 4
+    nbytes = (m + n) * d * item + 4 * norms + 4 * m * n
+    ops = 2.0 * m * n * d * (1 if bf16 else 3)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / (BF16_OPS_PER_S if bf16 else TF32_OPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_phase(torch) -> tuple[str, str]:
     check(torch.cuda.is_available(), "torch.cuda.is_available() (a CUDA device is required)")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -106,7 +160,7 @@ def device_phase(torch) -> str:
     kind = torch.cuda.get_device_name(0)
     print(f"device: {kind}; torch {torch.__version__}; CUDA {torch.version.cuda}; "
           f"devices {torch.cuda.device_count()}")
-    return kind
+    return kind, smi
 
 
 def build_phase() -> float:
@@ -230,7 +284,10 @@ def kernel_phase(torch, ds) -> dict:
         timed = dict(zip(fns, _time_turns_ms(torch, list(fns.values()))))
         dev_us = {r: _device_us(torch, fns[r]) for r in errs}
         ms, spread = timed[route.name]
-        print(f"kernel: {name}: route {route.name} (variant {route.variant}, transposed "
+        bound, bound_by = rbf_bound_ms(m, b.shape[0], d, a.dtype == torch.bfloat16,
+                                       sum(v.numel() for v in norms.values()))
+        print(f"kernel: {name}: bound {bound * 1e3:.2f} us ({bound_by}); "
+              f"route {route.name} (variant {route.variant}, transposed "
               f"{route.transposed}); max_abs_err {err:.3e} (atol {tol:.1e}; per route "
               + ", ".join(f"{r} {e:.3e}" for r, e in errs.items()) + "); per launch ms "
               + ", ".join(f"{r} {t:.4f} (spread {sp:.4f})" for r, (t, sp) in timed.items())
@@ -244,9 +301,10 @@ def kernel_phase(torch, ds) -> dict:
               f"({tile_ms} ms) beyond the runs' spread")
         worst = max(worst, err, *errs.values())
         if main is None:
-            main = (ms, timed["plain"][0])
+            main = (ms, timed["plain"][0], bound, bound_by)
     check(all(c > 0 for c in rbf_hopper.ROUTE_LAUNCHES.values()), "both routes launched in phase 3")
-    return {"max_abs_err": worst, "ms": main[0], "plain_ms": main[1]}
+    return {"max_abs_err": worst, "ms": main[0], "plain_ms": main[1], "bound_ms": main[2],
+            "bound_by": main[3]}
 
 
 def session_phase(torch, ds, cfg, dev) -> dict:
@@ -344,7 +402,7 @@ def _tie_gaps(sess, card_batch, kw) -> list[float]:
     local = {g: i for i, g in enumerate(pool_idx.tolist())}
     x_pool, v_pool = st.x[pool_idx], st.v[:, pool_idx]
     mu_pool, sig2_pool = st.mu[pool_idx], st.sig2[pool_idx] + p.jitter
-    card = torch.as_tensor(card_batch)
+    card = torch.as_tensor(card_batch, device=st.idx.device)
     gaps = []
     for t in range(card.shape[0]):
         theirs = local.get(int(card[t]))
@@ -358,7 +416,7 @@ def _tie_gaps(sess, card_batch, kw) -> list[float]:
                                     refine_top=kw["refine_top"], refine_n_qmc=kw["refine_n_qmc"]))
         gap = 0.0
         if own != theirs:
-            pair = torch.tensor([own, theirs])
+            pair = torch.tensor([own, theirs], device=st.idx.device)
             r = ital.mi_scores_from_moments(mu_pool[pair], sig2_pool[pair], cross[pair], mu_b,
                                             cov_bb, p, t=t, n_qmc=kw["refine_n_qmc"])
             gap = float(r[0] - r[1])
@@ -399,9 +457,7 @@ def cpu_phase(torch, ds, cfg, mid) -> None:
 def _reset_counts() -> None:
     from ital_tpu_torch.ops import rbf_hopper
 
-    rbf_hopper.LAUNCHES = 0
-    for route in rbf_hopper.ROUTE_LAUNCHES:
-        rbf_hopper.ROUTE_LAUNCHES[route] = 0
+    rbf_hopper.reset_launch_counts()
 
 
 @contextlib.contextmanager
@@ -485,9 +541,185 @@ def harness_phase(torch, ds, dev) -> dict:
               f"round {res['first_round_ms']:.1f} ms; launches {launches} "
               f"({min(calls)}-{max(calls)} per selection, {min(wgmma_calls)}-{max(wgmma_calls)} "
               f"on the tensor-core route) on {res['device']}")
+    _learn_run(runner, base, production, ds, dev)
     launches = dict(rbf_hopper.ROUTE_LAUNCHES)
     check(replay["batch"] is not None, "the EMOC round-2 checkpoint was captured")
     return {"launches": launches, "replay": replay}
+
+
+def _learn_run(runner, base, production, ds, dev) -> None:
+    """ITAL with ``GP.learn_every=2``, 1 class x 4 rounds: the logged
+    hyperparameters must be finite and the length scale must move."""
+    from ital_tpu_torch.ops import rbf_hopper
+
+    log = WORK_DIR / "learn_every.jsonl"
+    cfg = dataclasses.replace(
+        base, method="ital", method_kwargs=dict(production.method_kwargs), max_classes=1,
+        n_rounds=4, gp=dataclasses.replace(base.gp, learn_every=2), log_jsonl=str(log))
+    before = rbf_hopper.LAUNCHES
+    res = runner.run_experiment(cfg, ds, device=dev)
+    rows = [json.loads(line) for line in log.read_text().splitlines()]
+    hyper = [(r["length_scale"], r["gp_var"], r["gp_noise"]) for r in rows]
+    print(f"harness ital learn_every=2: MAP {[round(float(m), 6) for m in res['map']]}; "
+          f"(length_scale, var, noise) per round {hyper}; launches "
+          f"{rbf_hopper.LAUNCHES - before}")
+    check(len(rows) == cfg.n_rounds and bool(np.isfinite(res["ap"]).all()), "learn_every: AP rows")
+    check(all(np.isfinite(h).all() and min(h) > 0 for h in hyper),
+          "learn_every: finite positive hyperparameters")
+    check(hyper[-1][0] != cfg.gp.length_scale, "learn_every: the length scale moved")
+
+
+def _user(rng, ds, label_prob: float, mistake_prob: float):
+    """The simulated user's answers for a batch, as ``/feedback`` labels:
+    each item labeled with ``label_prob`` (else skipped, 0), its relevance to
+    class ``c`` flipped with ``mistake_prob``; draws from ``rng`` in order."""
+    def answer(batch, c):
+        out = {}
+        for i in batch:
+            y = 0
+            if rng.random() < label_prob:
+                y = 1 if ds.relevance[i, c] else -1
+                if rng.random() < mistake_prob:
+                    y = -y
+            out[str(i)] = y
+        return out
+
+    return answer
+
+
+def serve_phase(torch, ds, cfg, dev, smi: str) -> dict:
+    """The serving layer over HTTP on ``dev``, with a CPU service beside it."""
+    from ital_tpu_torch import serve
+    from ital_tpu_torch.ops import rbf_hopper
+
+    svc = serve.service_from_config(cfg, device=dev)
+    cpu_svc = serve.service_from_config(cfg, device="cpu")
+    srv = serve.make_server(svc, port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    times, launches = {}, {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def call(kind, method, path, body=None, raw=False):
+        """One request; its host time runs until the device is idle again."""
+        data = json.dumps(body).encode() if body is not None else None
+        req = urllib.request.Request(base + path, data=data, method=method,
+                                     headers={"Content-Type": "application/json"})
+        before = rbf_hopper.LAUNCHES
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                payload = resp.read()
+        except urllib.error.HTTPError as e:
+            raise RuntimeError(f"{method} {path}: HTTP {e.code} {e.read()!r}") from e
+        sync()
+        times.setdefault(kind, []).append((time.perf_counter() - t0) * 1e3)
+        launches.setdefault(kind, []).append(rbf_hopper.LAUNCHES - before)
+        return payload if raw else json.loads(payload)
+
+    try:
+        rng = np.random.default_rng(SEED + 7)
+        c1, c2 = (int(c) for c in rng.choice(ds.classes, 2, replace=False))
+        q1 = int(ds.queries_for_class(c1, rng, 1)[0])
+        q2 = int(ds.queries_for_class(c2, rng, 1)[0])
+        user = _user(rng, ds, cfg.user.label_prob, cfg.user.mistake_prob)
+        sync()
+        _reset_counts()  # this path's count starts here
+        health = call("healthz", "GET", "/healthz")
+        check(health["n"] == ds.n and health["device"].startswith(dev.type), f"healthz {health}")
+        sessions = {  # name -> (POST /sessions body, query, class)
+            "twin_cohort": ({}, q1, c1),
+            "twin_single": ({}, q1, c1),
+            "randomize_qmc": ({"method_kwargs": {"randomize_qmc": True}}, q2, c2),
+            "subsample": ({"method_kwargs": {"subsample_size": 4096, "pool_size": 0}}, q2, c2),
+            "sud": ({"strategy": "sud"}, q1, c1),
+        }
+        sid = {}
+        for name, (body, q, _) in sessions.items():
+            kind = "create with density" if body.get("strategy") == "sud" else "create"
+            sid[name] = call(kind, "POST", "/sessions", body)["session_id"]
+            call("query", "POST", f"/sessions/{sid[name]}/query", {"index": q})
+        labeled = {name: {q} for name, (_, q, _) in sessions.items()}
+        cohort = [n for n in sessions if n != "twin_single"]
+        for r in range(SERVE_ROUNDS):
+            picks = call("batch_select", "POST", "/batch_select",
+                         {"session_ids": [sid[n] for n in cohort], "k": SERVE_K})["batches"]
+            picks = {n: picks[sid[n]] for n in cohort}
+            single = call("batch", "GET", f"/sessions/{sid['twin_single']}/batch?k={SERVE_K}")
+            picks["twin_single"] = single["batch"]
+            for name, batch in picks.items():
+                check(len(set(batch)) == SERVE_K and all(0 <= i < ds.n for i in batch),
+                      f"round {r} {name}: {SERVE_K} distinct indices in range {batch}")
+                check(not set(batch) & labeled[name], f"round {r} {name}: batch avoids labels")
+            if picks["twin_cohort"] != picks["twin_single"]:
+                twin, _ = svc._entry(sid["twin_single"])
+                gaps = _tie_gaps(twin, picks["twin_cohort"], twin.method_kwargs)
+                print(f"serve round {r}: cohort {picks['twin_cohort']} vs single "
+                      f"{picks['twin_single']}; refined-MI gaps {gaps} (tie atol {MI_TIE_ATOL})")
+                check(all(abs(g) <= MI_TIE_ATOL for g in gaps),
+                      "cohort and single twin batches differ only by ties")
+            answers = {n: user(picks[n], sessions[n][2]) for n in cohort}
+            got = call("batch_feedback", "POST", "/batch_feedback",
+                       {"feedback": {sid[n]: answers[n] for n in cohort}})["sessions"]
+            # The twin absorbs the cohort twin's answers: one history for both.
+            answers["twin_single"] = answers["twin_cohort"]
+            got_single = call("feedback", "POST", f"/sessions/{sid['twin_single']}/feedback",
+                              {"labels": answers["twin_single"]})
+            want = 1 + (r + 1) * SERVE_K
+            check(all(got[sid[n]] == {"labeled": want} for n in cohort)
+                  and got_single == {"labeled": want}, f"round {r}: labeled {got} {got_single}")
+            for name, ans in answers.items():
+                labeled[name] |= {int(i) for i, y in ans.items() if y}
+            print(f"serve round {r}: " + "; ".join(
+                f"{n} {picks[n]} {list(answers[n].values())}" for n in sessions))
+
+        a = sid["twin_cohort"]
+        rank = call("ranking", "GET", f"/sessions/{a}/ranking?k=20")
+        check(len(rank["top"]) == 20 and all(np.isfinite(rank["scores"]))
+              and rank["scores"] == sorted(rank["scores"], reverse=True), f"ranking {rank}")
+        blob = call("snapshot", "GET", f"/sessions/{a}/snapshot", raw=True)
+        card, _ = svc._entry(a)
+        h0 = {f: float(getattr(card.state.hyper, f)) for f in ("length_scale", "var", "noise")}
+        cpu_sid = cpu_svc.restore(blob)
+        cpu, _ = cpu_svc._entry(cpu_sid)
+        err_restored = float(np.abs(cpu.scores() - card.scores()).max())
+        nxt = call("batch", "GET", f"/sessions/{a}/batch?k={SERVE_K}")["batch"]
+        ans = user(nxt, c1)
+        call("feedback", "POST", f"/sessions/{a}/feedback", {"labels": ans})
+        cpu_svc.feedback(cpu_sid, ans)
+        err = float(np.abs(cpu.scores() - card.scores()).max())
+        print(f"serve snapshot: {len(blob)} bytes; restored on the CPU, max |mu_cpu - mu_card| "
+              f"{err_restored:.3e}, after one more update {err:.3e} (atol {CPU_MU_ATOL})")
+        check(err_restored <= CPU_MU_ATOL and err <= CPU_MU_ATOL,
+              f"mu card vs CPU from the snapshot {err_restored}, {err} > {CPU_MU_ATOL}")
+        learned = call("learn", "POST", f"/sessions/{a}/learn", {"steps": LEARN_STEPS})
+        cpu_learned = cpu_svc.learn(cpu_sid, LEARN_STEPS)
+        rel = {f: abs(learned[f] - cpu_learned[f]) / abs(cpu_learned[f]) for f in h0}
+        print(f"serve learn ({card.state.count} labeled slots, {LEARN_STEPS} steps): from {h0} "
+              f"to {learned} on the card, {cpu_learned} on the CPU; relative gaps {rel} "
+              f"(rtol {LEARN_RTOL})")
+        check(all(np.isfinite(v) and v > 0 for v in learned.values()), "learned values finite")
+        check(learned["length_scale"] != h0["length_scale"] and learned["var"] != h0["var"],
+              "the length scale and the variance moved on the card")
+        check(all(r <= LEARN_RTOL for r in rel.values()), "card and CPU learn agree")
+        check(bool(torch.isfinite(card.state.mu).all()), "mu finite after learn")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    route_launches = dict(rbf_hopper.ROUTE_LAUNCHES)
+    for kind in KERNEL_REQUESTS:
+        check(all(n > 0 for n in launches[kind]),
+              f"serve {kind}: the kernel launched in every request {launches[kind]}")
+    for kind, ms in times.items():
+        print(f"serve {kind}: {len(ms)} requests, host ms median {np.median(ms):.3f} "
+              f"min {min(ms):.3f} max {max(ms):.3f}; kernel launches per request "
+              f"{min(launches[kind])}-{max(launches[kind])} [{smi}]")
+    return {"launches": route_launches}
 
 
 def emoc_replay_phase(torch, ds, replay) -> None:
@@ -528,7 +760,7 @@ def emoc_replay_phase(torch, ds, replay) -> None:
 def main() -> int:
     import torch
 
-    kind = device_phase(torch)
+    kind, smi = device_phase(torch)
     sys.path.insert(0, str(ROOT))
     from ital_tpu_torch.data.datasets import load_dataset
     from ital_tpu_torch.utils.config import apply_matmul_precision, load_config
@@ -543,10 +775,12 @@ def main() -> int:
     cpu_phase(torch, ds, cfg, sess["mid"])
     harness = harness_phase(torch, ds, torch.device("cuda"))
     emoc_replay_phase(torch, ds, harness["replay"])
-    # At 512 features every RBF call of the path takes the tensor-core route
+    served = serve_phase(torch, ds, cfg, torch.device("cuda"), smi)
+    # At 512 features every RBF call of the paths takes the tensor-core route
     # (the router's rule, PERF.md); the tile kernel serves narrower or
     # unaligned features and is held against the plain version in phase 3.
-    by_route = {r: sess["launches"][r] + harness["launches"][r] for r in sess["launches"]}
+    by_route = {r: sess["launches"][r] + harness["launches"][r] + served["launches"][r]
+                for r in sess["launches"]}
     check(by_route["wgmma"] > 0, f"the tensor-core route launched on the main path: {by_route}")
     print(json.dumps({"kernels": [{
         "name": "rbf_tile",
@@ -557,9 +791,17 @@ def main() -> int:
         "launches_by_route": by_route,
         "sources_by_route": {"wgmma": "ital_tpu_torch/csrc/rbf_wgmma.cu",
                              "tile": "ital_tpu_torch/csrc/rbf_tile.cu"},
+        "launches_by_path": {"session": sum(sess["launches"].values()),
+                             "harness": sum(harness["launches"].values()),
+                             "serving": sum(served["launches"].values())},
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"],
         "plain_ms": kern["plain_ms"],
+        "bound_ms": kern["bound_ms"],
+        "bound_by": kern["bound_by"],
+        # No one PyTorch call computes var * exp(-d2 / (2 ls^2)) (cdist
+        # stops at the distances).
+        "library_ms": None,
         "shape": "64x25000x512 f32",
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -132,15 +132,18 @@ def gp_init(
     )
 
 
-def gp_session_copy(state: GPState) -> GPState:
+def gp_session_copy(state: GPState, device=None) -> GPState:
     """``state`` with its own session buffers; the corpus stays shared.
 
     :func:`gp_set_query` and :func:`gp_update` write the session buffers in
     place, so each session started from one template state takes a copy
-    first.  ``x``, ``x2``, ``density`` and ``hyper`` are not copied.
+    first, and a snapshot copies them to the host (``device="cpu"``) before
+    another update can write them.  ``x``, ``x2``, ``density`` and ``hyper``
+    are not copied: nothing writes them in place.
     """
     return dataclasses.replace(
-        state, **{f: getattr(state, f).clone() for f in _SESSION_FIELDS}
+        state, **{f: getattr(state, f).to(device or getattr(state, f).device, copy=True)
+                  for f in _SESSION_FIELDS}
     )
 
 

@@ -8,6 +8,7 @@ and rankings come to the host.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional
 
 import numpy as np
@@ -29,6 +30,20 @@ from ital_tpu_torch.utils.metrics import top_k_stable
 _UPDATE_BUCKET = 4
 
 
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``, ``cuda`` where it is None.
+
+    A CUDA device without a card raises; nothing moves to the CPU unless the
+    caller asks for it.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {dev}: no CUDA device is available (pass device='cpu' to run on the CPU)"
+        )
+    return dev
+
+
 class ActiveRetrieval:
     """One interactive retrieval session over a fixed corpus.
 
@@ -40,8 +55,11 @@ class ActiveRetrieval:
         sess.update({batch[0]: 1, batch[1]: -1})  # feedback (missing = skipped)
         ranking = sess.top_k(20)
 
-    ``x`` is a tensor (its device is the session's) or a NumPy array, which
-    goes to ``device`` (default CPU).
+    ``x`` is a tensor, whose device is the session's unless ``device`` is
+    given, or a NumPy array, which goes to ``device`` (default ``cuda``;
+    without a card that raises).  ``tradeoff`` weighs the two criteria of the
+    density/diversity baselines; ``with_density`` attaches the corpus
+    density (:func:`ital_tpu_torch.models.gp.corpus_density`) they read.
     """
 
     def __init__(
@@ -55,18 +73,22 @@ class ActiveRetrieval:
         strategy: str = "ital",
         label_prob: float = 1.0,
         mistake_prob: float = 0.0,
+        tradeoff: float = 0.5,
+        with_density: bool = False,
         seed: int = 0,
         method_kwargs: Optional[dict] = None,
         corpus_dtype: Optional[str] = None,
         device=None,
     ):
         if not isinstance(x, torch.Tensor):
-            x = torch.as_tensor(np.asarray(x), device=device or "cpu")
+            x = torch.as_tensor(np.asarray(x), device=resolve_device(device))
         elif device is not None:
-            x = x.to(device)
+            x = x.to(resolve_device(device))
         self.device = x.device
         self.state = gp_mod.gp_init(x, length_scale, var, noise, cap,
                                     corpus_dtype=corpus_dtype or None)
+        if with_density:
+            self.state.density = gp_mod.corpus_density(self.state)
         self.strategy_name = strategy
         self.method_kwargs = dict(method_kwargs or {})
         for name, v in self.method_kwargs.items():
@@ -77,9 +99,9 @@ class ActiveRetrieval:
                 )
         get_strategy(strategy)  # fail fast on unknown strategy names
         validate_method_kwargs(strategy, self.method_kwargs)
-        self._select_kwargs = filter_method_kwargs(strategy, self.method_kwargs)
         self.params = StrategyParams.create(
             self.device, label_prob=label_prob, mistake_prob=mistake_prob,
+            tradeoff=tradeoff,
         )
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.query: Optional[int] = None
@@ -92,8 +114,10 @@ class ActiveRetrieval:
     def fetch_unlabelled(self, k: int) -> np.ndarray:
         """Next batch of k candidate indices to show the user."""
         select = get_strategy(self.strategy_name)
-        batch = select(self.state, int(k), self.generator, self.params,
-                       **self._select_kwargs)
+        # Filtered on every call: a restored session's options replace
+        # method_kwargs, and may name options another strategy declares.
+        kw = filter_method_kwargs(self.strategy_name, self.method_kwargs)
+        batch = select(self.state, int(k), self.generator, self.params, **kw)
         return batch.cpu().numpy()
 
     def update(self, feedback: Dict[int, int]) -> None:
@@ -147,3 +171,37 @@ class ActiveRetrieval:
         st = self.state
         keep = st.active & (st.y < 0)
         return st.idx[keep].cpu().numpy()
+
+    def learn_hyperparams(
+        self,
+        *,
+        steps: int = 50,
+        lr: float = 0.05,
+        learn_noise: bool = True,
+        prior_strength: float = 0.0,
+        noise_floor: float = 0.0,
+    ) -> Dict[str, float]:
+        """Re-learn the GP hyperparameters from this session's labels and refit.
+
+        Type-II maximum likelihood (:mod:`ital_tpu_torch.models.hyperopt`), or
+        MAP type-II with ``prior_strength``/``noise_floor``, anchored at the
+        current hyperparameters.  Returns the new values.  Should the fit or
+        the refit raise (a labeled block that is not positive definite), the
+        session keeps its state as it was.
+        """
+        from ital_tpu_torch.models.hyperopt import fit_hyperparams
+
+        st = self.state
+        hyper = fit_hyperparams(
+            st.x[st.idx], st.y, st.active, st.hyper,
+            steps=steps, lr=lr, learn_noise=learn_noise,
+            prior_strength=prior_strength, noise_floor=noise_floor,
+        )
+        # gp_fit rebinds the posterior fields of the copy it is given, so
+        # self.state changes only once the refit has succeeded.
+        self.state = gp_mod.gp_fit(dataclasses.replace(st, hyper=hyper))
+        return {
+            "length_scale": float(hyper.length_scale),
+            "var": float(hyper.var),
+            "noise": float(hyper.noise),
+        }

@@ -5,7 +5,9 @@ plain version below (:func:`rbf_kernel_plain`, the port of
 ``ital_tpu.ops.kernels.rbf_kernel``); on a CUDA tensor it launches one of the
 hand-written kernels of :mod:`ital_tpu_torch.ops.rbf_hopper`, which picks the
 route and raises on anything the kernels do not take.  No path falls back
-from a kernel to the plain version.  The blockwise consumers below
+from a kernel to the plain version.  Where the length scale or the variance
+requires grad (hyperparameter learning), :class:`RBFHyperGrad` carries the
+gradient past the kernel.  The blockwise consumers below
 (:func:`rbf_kernel_blockwise`, :func:`blockwise_reduce_abs_kpost`) form their
 blocks through it.
 """
@@ -59,6 +61,56 @@ def rbf_kernel_plain(
     return var * torch.exp(-d2 / (2.0 * length_scale**2))
 
 
+def _rbf_forward(a, b, length_scale, var, a2, b2) -> torch.Tensor:
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return rbf_kernel_plain(a, b, length_scale, var, a2=a2, b2=b2)
+    return rbf_hopper.rbf_tile(a, b, length_scale, var, a2=a2, b2=b2)
+
+
+def _requires_grad(v) -> bool:
+    return isinstance(v, torch.Tensor) and v.requires_grad
+
+
+class RBFHyperGrad(torch.autograd.Function):
+    """The RBF block with gradients for its length scale and variance.
+
+    Forward is :func:`rbf_kernel`'s own: the plain version on CPU tensors, a
+    hand-written kernel on CUDA tensors (whose output carries no autograd
+    history of its own).  Backward, with ``G`` the output's gradient::
+
+        d/d var = sum(G K) / var,    d/d ls = sum(G K d2) / ls^3
+
+    with ``d2`` recomputed by :func:`sqdist` from the saved inputs (cheaper
+    to trust than ``log(K / var)``, which breaks where K underflows).  The
+    features take no gradient: nothing differentiates with respect to them.
+    """
+
+    @staticmethod
+    def forward(ctx, a, b, length_scale, var, a2, b2):
+        if a.requires_grad or b.requires_grad:
+            raise ValueError(
+                "rbf_kernel differentiates with respect to length_scale and var "
+                "only; its inputs a and b must not require grad")
+        k = _rbf_forward(a, b, length_scale, var, a2, b2)
+        ctx.save_for_backward(a, b, a2, b2, k)
+        ctx.hyper = tuple(v.detach() if isinstance(v, torch.Tensor) else v
+                          for v in (length_scale, var))
+        return k
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b, a2, b2, k = ctx.saved_tensors
+        ls, var = ctx.hyper
+        gk = g * k
+        grad_ls = grad_var = None
+        if ctx.needs_input_grad[2]:
+            d2 = sqdist(a, b, a2=a2, b2=b2)
+            grad_ls = ((gk * d2).sum() / ls**3).to(ls.dtype).reshape(ls.shape)
+        if ctx.needs_input_grad[3]:
+            grad_var = (gk.sum() / var).to(var.dtype).reshape(var.shape)
+        return None, None, grad_ls, grad_var, None, None
+
+
 def rbf_kernel(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -71,11 +123,13 @@ def rbf_kernel(
     """RBF kernel block (M, N); the noise term is not included.
 
     CPU tensors take the plain version; CUDA tensors take a CUDA kernel
-    (float32 output), which needs contiguous f32 or bf16 inputs.
+    (float32 output), which needs contiguous f32 or bf16 inputs.  Where
+    ``length_scale`` or ``var`` requires grad, the call goes through
+    :class:`RBFHyperGrad`, so the gradient reaches them on either device.
     """
-    if a.device.type == "cpu" and b.device.type == "cpu":
-        return rbf_kernel_plain(a, b, length_scale, var, a2=a2, b2=b2)
-    return rbf_hopper.rbf_tile(a, b, length_scale, var, a2=a2, b2=b2)
+    if _requires_grad(length_scale) or _requires_grad(var):
+        return RBFHyperGrad.apply(a, b, length_scale, var, a2, b2)
+    return _rbf_forward(a, b, length_scale, var, a2, b2)
 
 
 # The reference routes between its Pallas kernel and XLA by TPU-measured

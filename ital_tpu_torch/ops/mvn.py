@@ -2,8 +2,9 @@
 
 Port of the parts of ``ital_tpu.ops.mvn`` that ITAL's selection runs: the
 clamped normal CDF, Acklam's inverse normal, an unrolled small Cholesky, the
-Richtmyer lattice and shift tables, and the sign-prefix tree that yields all
-2^m orthant probabilities of a candidate batch at once.  The reference
+Richtmyer lattice and shift tables, the sign-prefix tree that yields all
+2^m orthant probabilities of a candidate batch at once, and its multi-shift
+error estimate (:func:`orthant_probs_with_error`).  The reference
 vmaps one candidate; here every function takes leading batch dimensions.
 
 Algorithm (rectangle P(a < z < b), z ~ N(0, Sigma), C = chol(Sigma)), per QMC
@@ -133,33 +134,41 @@ def orthant_probs_all_configs_tree(
     *,
     n_points: int = 128,
     shift: torch.Tensor | None = None,
+    normalize: bool = True,
 ) -> torch.Tensor:
     """All 2^m orthant probabilities via a sign-prefix tree — shared conditioning.
 
     ``mu`` (..., m) and ``chol_cov`` (..., m, m) over any leading batch dims;
-    ``shift``: optional (m-1,) Cranley-Patterson shift shared by the batch.
+    ``shift``: optional Cranley-Patterson shift, (m-1,) shared by the batch or
+    (..., m-1) with the batch's leading dims (one shift per batch element).
     Two sign configurations that agree on their first i signs share the Genz
     chain up to dimension i, so level i holds 2^i nodes and the tree costs
-    2^m - 2 sampled-dimension evaluations.  Returns (..., 2^m) probabilities,
-    normalized to sum to one, in ``sign_table(m)`` order (-1 before +1, first dimension slowest): the
-    children of node n are 2n (sign -1) and 2n+1 (sign +1).
+    2^m - 2 sampled-dimension evaluations.  Returns (..., 2^m) probabilities
+    in ``sign_table(m)`` order (-1 before +1, first dimension slowest), normalized
+    to sum to one unless ``normalize`` is False: the children of node n are 2n
+    (sign -1) and 2n+1 (sign +1).
     """
     m = mu.shape[-1]
     c = chol_cov
     lim = -mu
     cdiag = torch.clamp(torch.diagonal(c, dim1=-2, dim2=-1), min=1e-6)
 
+    def finish(probs):
+        if not normalize:
+            return probs
+        return probs / torch.clamp(probs.sum(-1, keepdim=True), min=1e-12)
+
     p0 = norm_cdf(lim[..., 0] / cdiag[..., 0])
     d = torch.stack([torch.zeros_like(p0), p0], dim=-1)  # (..., 2)
     e = torch.stack([p0, torch.ones_like(p0)], dim=-1)
     f = e - d
     if m == 1:
-        return f / torch.clamp(f.sum(-1, keepdim=True), min=1e-12)
+        return finish(f)
 
     w = torch.as_tensor(richtmyer_lattice(n_points, m - 1), dtype=mu.dtype,
                         device=mu.device)  # (P, m-1)
     if shift is not None:
-        w = torch.remainder(w + shift[None, :], 1.0)
+        w = torch.remainder(w + shift[..., None, :], 1.0)  # (..., P, m-1)
 
     batch = mu.shape[:-1]
     d = d[..., None].expand(*batch, 2, n_points)
@@ -168,7 +177,7 @@ def orthant_probs_all_configs_tree(
     ys = []  # y history per node, one (..., nodes, P) tensor per level
     nodes = 2
     for i in range(1, m):
-        u = torch.clamp(d + w[:, i - 1] * (e - d), _EPS, 1.0 - _EPS)
+        u = torch.clamp(d + w[..., None, :, i - 1] * (e - d), _EPS, 1.0 - _EPS)
         ys.append(fast_ndtri(u))  # (..., nodes, P)
         acc = ys[0] * c[..., i, 0, None, None]
         for j in range(1, i):
@@ -182,5 +191,65 @@ def orthant_probs_all_configs_tree(
         ys = [torch.repeat_interleave(y, 2, dim=-2) for y in ys]
         nodes *= 2
 
-    probs = f.mean(-1)  # (..., 2^m)
-    return probs / torch.clamp(probs.sum(-1, keepdim=True), min=1e-12)
+    return finish(f.mean(-1))  # (..., 2^m)
+
+
+def shifted_replicates(
+    mu: torch.Tensor,
+    chol_cov: torch.Tensor,
+    *,
+    n_points: int,
+    n_shifts: int,
+    seed: int,
+    normalize: bool = True,
+) -> torch.Tensor:
+    """(R, 2^m) orthant probabilities of one batch under Cranley-Patterson shifts.
+
+    R = ``n_shifts - 1``: the random shifts of ``shift_table(n_shifts, m - 1,
+    seed)``, all in one batched tree; shift 0, the zero shift, is not a draw
+    from the shift family and is left out.  ``n_shifts = 1`` gives the one
+    unshifted estimate (R = 1).  ``n_shifts = 2`` would leave one random
+    replicate, which has no sample std, and raises.
+    """
+    if n_shifts == 2:
+        raise ValueError(
+            "n_shifts=2 leaves a single random replicate — no sample std "
+            "exists; use n_shifts=1 (unshifted, err=0) or n_shifts >= 3"
+        )
+    m = mu.shape[-1]
+    shifts = torch.as_tensor(shift_table(n_shifts, m - 1, seed), dtype=mu.dtype,
+                             device=mu.device)
+    if n_shifts > 1:
+        shifts = shifts[1:]
+    r = shifts.shape[0]
+    return orthant_probs_all_configs_tree(mu.expand(r, m), chol_cov.expand(r, m, m),
+                                          n_points=n_points, shift=shifts, normalize=normalize)
+
+
+def replicate_mean_and_error(rep: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mean over the leading replicate axis and its standard error,
+    ``std(ddof=1) / sqrt(R)``; 0 for a single replicate."""
+    if rep.shape[0] == 1:
+        return rep[0], torch.zeros_like(rep[0])
+    return rep.mean(0), rep.std(0, correction=1) / math.sqrt(rep.shape[0])
+
+
+def orthant_probs_with_error(
+    mu: torch.Tensor,
+    chol_cov: torch.Tensor,
+    *,
+    n_points: int = 128,
+    n_shifts: int = 4,
+    seed: int = 0,
+    normalize: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """All 2^m orthant probabilities of one batch (``mu`` (m,), ``chol_cov``
+    (m, m)) plus a QMC error estimate.
+
+    Returns ``(probs (2^m,), err (2^m,))``: the mean over the random-shift
+    replicates of :func:`shifted_replicates` and its standard error,
+    ``std(ddof=1) / sqrt(n_shifts - 1)``.  ``n_shifts = 1`` returns the
+    unshifted estimate with ``err = 0``; ``n_shifts = 2`` raises.
+    """
+    return replicate_mean_and_error(shifted_replicates(
+        mu, chol_cov, n_points=n_points, n_shifts=n_shifts, seed=seed, normalize=normalize))

@@ -17,13 +17,16 @@ not take; :func:`ital_tpu_torch.ops.kernels.rbf_kernel` is the entry point
 callers use, and sends CPU tensors to the plain version.
 
 ``LAUNCHES`` counts the launches of both routes and ``ROUTE_LAUNCHES`` each
-route's, so a run can show that its main path went through the kernels.
+route's, so a run can show that its main path went through the kernels.  The
+counts are taken under a lock, so launches from a server's handler threads
+are never lost; :func:`reset_launch_counts` sets them to 0.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import threading
 from typing import NamedTuple, Optional
 
 import torch
@@ -32,6 +35,7 @@ from ital_tpu_torch.ops import _build
 
 LAUNCHES = 0
 ROUTE_LAUNCHES = {"wgmma": 0, "tile": 0}
+_COUNT_LOCK = threading.Lock()
 
 # Where the tensor-core route's device time beats the tile kernel's, from a
 # sweep on an H100 (PERF.md): the tile kernel walks D in a serial loop of
@@ -58,6 +62,22 @@ class Route(NamedTuple):
     name: str
     variant: int = 0
     transposed: bool = False
+
+
+def reset_launch_counts() -> None:
+    """Set ``LAUNCHES`` and every route's count to 0."""
+    global LAUNCHES
+    with _COUNT_LOCK:
+        LAUNCHES = 0
+        for route in ROUTE_LAUNCHES:
+            ROUTE_LAUNCHES[route] = 0
+
+
+def _count_launch(route: str) -> None:
+    global LAUNCHES
+    with _COUNT_LOCK:
+        LAUNCHES += 1
+        ROUTE_LAUNCHES[route] += 1
 
 
 def wgmma_takes(m: int, n: int, d: int, dtype: torch.dtype, a_ptr: int, b_ptr: int) -> bool:
@@ -151,7 +171,6 @@ def rbf_tile(
     where absent the kernel computes them in f32 from the stored values.
     ``_route`` forces a route (see :func:`choose_route`), for timing.
     """
-    global LAUNCHES
     if a.dtype not in _DTYPE_CODE or b.dtype != a.dtype:
         raise TypeError(
             f"rbf_tile takes float32 or bfloat16 inputs of one dtype, got "
@@ -199,6 +218,5 @@ def rbf_tile(
             err = lib.ital_rbf_tile(*args, stream)
     if err != 0:
         raise RuntimeError(f"rbf_tile {route.name} kernel launch failed with error {err}")
-    LAUNCHES += 1
-    ROUTE_LAUNCHES[route.name] += 1
+    _count_launch(route.name)
     return out

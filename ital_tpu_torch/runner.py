@@ -12,8 +12,10 @@ alone (:func:`round_draws`), never carried from round to round, so a session
 resumed from its checkpoint is bit-identical to an uninterrupted one.  Tests
 replace that function with one that hands over JAX's draws.
 
-Not ported yet, and refused with ``NotImplementedError``: ``mesh_devices``,
-``query_batch``, ``fused_sessions`` and ``GP.learn_every``.
+``GP.learn_every`` re-learns the hyperparameters from the session's labels
+(:mod:`ital_tpu_torch.models.hyperopt`) every k rounds.  Not ported yet, and
+refused with ``NotImplementedError``: ``mesh_devices``, ``query_batch`` and
+``fused_sessions``.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 from ital_tpu_torch.data import datasets as ds_mod
 from ital_tpu_torch.data.user import feedback_from_uniforms
 from ital_tpu_torch.models import gp as gp_mod
+from ital_tpu_torch.models.hyperopt import fit_hyperparams
 from ital_tpu_torch.select.base import StrategyParams, get_strategy
 from ital_tpu_torch.utils import checkpoint as ckpt
 from ital_tpu_torch.utils.config import ExperimentConfig, apply_matmul_precision
@@ -46,7 +49,6 @@ _UNPORTED = {
     "mesh_devices": "queue 1 item 15 (parallel/)",
     "query_batch": "queue 1 item 10 (vmapped cohorts)",
     "fused_sessions": "queue 1 item 10 (fused sessions)",
-    "GP.learn_every": "queue 1 item 13 (models/hyperopt.py)",
 }
 
 
@@ -55,7 +57,6 @@ def _refuse_unported(cfg: ExperimentConfig, names) -> None:
         "mesh_devices": bool(cfg.mesh_devices),
         "query_batch": (cfg.query_batch or 0) > 1,
         "fused_sessions": bool(cfg.fused_sessions),
-        "GP.learn_every": bool(cfg.gp.learn_every),
     }
     for name in names:
         if requested[name]:
@@ -241,7 +242,9 @@ def _run_session(cfg, state0, params, select, select_kwargs, dataset, rep, c, q,
             state = gp_mod.gp_update(state, batch, y, valid)
             ap = average_precision(state.mu, relevant, exclude)
             recalls = [recall_at_k(state.mu, relevant, min(k, n), exclude) for k in RECALL_KS]
-        if cfg.gp.refit_every and (rnd + 1) % cfg.gp.refit_every == 0:
+        if cfg.gp.learn_every and (rnd + 1) % cfg.gp.learn_every == 0:
+            state = _relearn_hyperparams(state, cfg)
+        elif cfg.gp.refit_every and (rnd + 1) % cfg.gp.refit_every == 0:
             # Periodic from-scratch refit: bounds long-horizon f32 append drift.
             state = gp_mod.gp_fit(state)
         curve.append(float(ap))
@@ -251,12 +254,49 @@ def _run_session(cfg, state0, params, select, select_kwargs, dataset, rep, c, q,
             labeled=int(state.active.sum()),
             device_mem_mb=round(device_mem_mb(dev), 1),
             **{f"recall@{k}": float(r) for k, r in zip(RECALL_KS, recalls)},
+            **_hyper_log_fields(state, cfg),
         )
         if ckpt_path:
             ckpt.save_session(ckpt_path, state,
                               extra={"curve": np.asarray(curve), "next_round": rnd + 1})
         _maybe_inject_fault(rnd)
     return curve
+
+
+def _learn_kwargs(cfg: ExperimentConfig, state: gp_mod.GPState) -> Dict[str, Any]:
+    """``fit_hyperparams`` options from the config.  The MAP type-II prior
+    (``GP.learn_prior_strength``) is anchored at the config's initial
+    hyperparameters, not the current iterate, which would let it wander."""
+    kw: Dict[str, Any] = dict(
+        steps=cfg.gp.learn_steps, lr=cfg.gp.learn_lr, learn_noise=cfg.gp.learn_noise,
+        prior_strength=float(cfg.gp.learn_prior_strength),
+        noise_floor=float(cfg.gp.learn_noise_floor),
+    )
+    if kw["prior_strength"]:
+        def t(v):
+            return torch.tensor(v, dtype=state.mu.dtype, device=state.mu.device)
+
+        kw["prior_center"] = gp_mod.GPHyper(length_scale=t(cfg.gp.length_scale),
+                                            var=t(cfg.gp.var), noise=t(cfg.gp.noise))
+    return kw
+
+
+def _relearn_hyperparams(state: gp_mod.GPState, cfg: ExperimentConfig) -> gp_mod.GPState:
+    """Re-learn the hyperparameters from the session's labels so far (type-II
+    ML, or MAP type-II with the ``GP.learn_*`` knobs), then refit the posterior."""
+    state.hyper = fit_hyperparams(state.x[state.idx], state.y, state.active, state.hyper,
+                                  **_learn_kwargs(cfg, state))
+    return gp_mod.gp_fit(state)
+
+
+def _hyper_log_fields(state: gp_mod.GPState, cfg: ExperimentConfig) -> Dict[str, float]:
+    """The learned hyperparameters' JSONL fields (none when learning is off)."""
+    if not cfg.gp.learn_every:
+        return {}
+    h = state.hyper
+    return {"length_scale": round(float(h.length_scale), 4),
+            "gp_var": round(float(h.var), 4),
+            "gp_noise": round(float(h.noise), 4)}
 
 
 def _maybe_inject_fault(rnd: int) -> None:
@@ -275,9 +315,10 @@ def run_regression_experiment(cfg: ExperimentConfig, *, device) -> Dict[str, Any
     No query image: each session starts with an empty labeled set; each
     round the strategy (``ital_regression`` by default) picks a batch, and the
     simulated user reports the true value with probability ``label_prob``,
-    plus N(0, USER.obs_noise) error (GP.noise when unset).
+    plus N(0, USER.obs_noise) error (GP.noise when unset).  ``GP.learn_every``
+    re-learns the hyperparameters as in :func:`run_experiment`; the result
+    then carries the last repetition's final values under ``"hyper"``.
     """
-    _refuse_unported(cfg, ("GP.learn_every",))
     dev = torch.device(device)
     _check_capacity(cfg, query_slots=0)
     apply_matmul_precision(cfg)
@@ -304,12 +345,19 @@ def run_regression_experiment(cfg: ExperimentConfig, *, device) -> Dict[str, Any
             y_obs = y_true[batch] + gen_sd * eps
             state = gp_mod.gp_update(state, batch, y_obs, u_label < params.label_prob)
             curve.append(float(torch.sqrt(torch.mean((state.mu - y_true) ** 2))))
+            if cfg.gp.learn_every and (rnd + 1) % cfg.gp.learn_every == 0:
+                state = _relearn_hyperparams(state, cfg)
         curves.append(curve)
     rmse = np.asarray(curves)
-    return {
+    out = {
         "rmse": rmse,
         "mean_rmse": rmse.mean(axis=0),
         "dataset": ds.name,
         "method": cfg.method,
         "device": _device_name(dev),
     }
+    if cfg.gp.learn_every:
+        h = state.hyper
+        out["hyper"] = {"length_scale": float(h.length_scale), "var": float(h.var),
+                        "noise": float(h.noise)}
+    return out

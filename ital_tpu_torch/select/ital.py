@@ -10,11 +10,12 @@ Gaussian over the batch (:mod:`ital_tpu_torch.ops.mvn`); P(F|R) is the user
 model, factorized across the batch.  The batch grows greedily; each step
 scores every candidate at once, in blocks of ``block`` candidates.
 
-Ported modes: the compact pool (``pool_size``) with and without two-stage
-refinement (``refine_top``), the full-corpus scan with refinement, and the
-plain full scan.  ``subsample_size`` and ``randomize_qmc`` are not ported
-yet and raise.  Greedy picks never wait on the host: the batch stays on the
-device until the caller reads it.
+Modes: the compact pool (``pool_size``, top items by posterior mean, or
+``subsample_size``, a random subset) with and without two-stage refinement
+(``refine_top``), the full-corpus scan with refinement, and the plain full
+scan; each with the fixed lattice or a random shift per greedy step
+(``randomize_qmc``).  Greedy picks never wait on the host: the batch stays on
+the device until the caller reads it.
 """
 
 from __future__ import annotations
@@ -29,7 +30,12 @@ import torch
 from ital_tpu_torch.models.gp import GPState, gp_posterior_cov_columns, gp_predict_full
 from ital_tpu_torch.ops.blocking import blocked_map
 from ital_tpu_torch.ops.kernels import rbf_kernel
-from ital_tpu_torch.ops.mvn import orthant_probs_all_configs_tree, small_cholesky
+from ital_tpu_torch.ops.mvn import (
+    orthant_probs_all_configs_tree,
+    replicate_mean_and_error,
+    shifted_replicates,
+    small_cholesky,
+)
 from ital_tpu_torch.select.base import (
     StrategyParams,
     greedy_argmax_batch,
@@ -150,6 +156,28 @@ def mi_scores_from_moments(
                        pad_values=(0.0, 1.0, 0.0))
 
 
+def mi_with_error(
+    mu: torch.Tensor,
+    chol_cov: torch.Tensor,
+    params: StrategyParams,
+    *,
+    n_qmc: int = 128,
+    n_shifts: int = 8,
+    seed: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """MI of one candidate batch (``mu`` (m,), ``chol_cov`` (m, m)) plus a QMC error estimate.
+
+    Each random-shift replicate of the orthant vector
+    (:func:`ital_tpu_torch.ops.mvn.shifted_replicates`) gives an independent
+    replicate of the MI; returns their mean and
+    ``std(ddof=1) / sqrt(n_shifts - 1)``.  ``n_shifts = 1`` returns the
+    unshifted MI with error 0; ``n_shifts = 2`` raises.
+    """
+    pfr = feedback_given_relevance(mu.shape[0], params.label_prob, params.mistake_prob)
+    p_r = shifted_replicates(mu, chol_cov, n_points=n_qmc, n_shifts=n_shifts, seed=seed)
+    return replicate_mean_and_error(mutual_information_from_relevance(p_r, pfr))
+
+
 def refined_pick(
     scores_masked: torch.Tensor,
     mu_cand: torch.Tensor,
@@ -218,6 +246,14 @@ def _step_shift(
 ) -> Optional[torch.Tensor]:
     """Greedy step ``t``'s (t,) lattice shift, or None for the fixed lattice."""
     return None if qmc_shifts is None else qmc_shifts[t]
+
+
+def draw_qmc_shifts(
+    generator: Optional[torch.Generator], batch_size: int, dtype: torch.dtype, device
+) -> list[torch.Tensor]:
+    """One uniform (t,) Cranley-Patterson shift per greedy step t, from ``generator``."""
+    return [torch.rand(t, generator=generator, dtype=dtype, device=device)
+            for t in range(batch_size)]
 
 
 def pool_batch_moments(
@@ -307,19 +343,25 @@ def select_ital(
     refine_n_qmc: int = 512,
     qmc_shifts: Optional[Sequence[torch.Tensor]] = None,
     randomize_qmc: bool = False,
+    subsample_uniforms: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Greedy ITAL batch construction (reference ``ITAL.fetch_unlabelled``).
 
     ``pool_size > 0`` restricts selection to the top-ranked unlabeled items by
-    posterior mean and scores only that pool.  ``refine_top > 0`` re-scores
-    the ``refine_top`` best base-scan candidates at ``refine_n_qmc`` points
-    before each greedy argmax.  ``block`` is the candidate-streaming width of
-    the MI scan; scores do not depend on it beyond float associativity.
+    posterior mean and scores only that pool; ``subsample_size > 0`` to a
+    random subset of that many unlabeled items (the two exclude each other).
+    ``refine_top > 0`` re-scores the ``refine_top`` best base-scan candidates
+    at ``refine_n_qmc`` points before each greedy argmax.  ``block`` is the
+    candidate-streaming width of the MI scan; scores do not depend on it
+    beyond float associativity.
 
     ``qmc_shifts`` (default ``None``, the fixed lattice) gives each greedy
     step ``t`` its own (t,) Cranley-Patterson shift ``qmc_shifts[t]`` — the
-    port's form of the reference's ``qmc_key``.  ``generator`` is unused by
-    the ported modes.
+    port's form of the reference's ``qmc_key``; ``randomize_qmc=True`` draws
+    them from ``generator`` (:func:`draw_qmc_shifts`), and explicit
+    ``qmc_shifts`` win.  The subset is the top ``subsample_size`` unlabeled
+    items of an (N,) uniform draw, ``subsample_uniforms`` where given, else
+    drawn from ``generator`` before the shifts.
     """
     if batch_size > MAX_MI_BATCH:
         raise ValueError(
@@ -329,10 +371,10 @@ def select_ital(
             f"measured only through m={MAX_MI_BATCH}; use a smaller batch or "
             f"multiple rounds"
         )
-    if subsample_size or randomize_qmc:
-        raise NotImplementedError(
-            "subsample_size and randomize_qmc are not ported yet: see "
-            "ROADMAP.md, queue 1, 'subsample_size and randomize_qmc'"
+    if pool_size and subsample_size:
+        raise ValueError(
+            "pool_size and subsample_size are mutually exclusive candidate "
+            "restrictions (reference ITAL applies one or the other)"
         )
     if qmc_shifts is not None and len(qmc_shifts) < batch_size:
         raise ValueError(
@@ -341,8 +383,15 @@ def select_ital(
         )
 
     n = state.mu.shape[0]
-    if pool_size:
-        pool_idx, pool_forbid = candidate_pool_indices(state, state.mu, min(pool_size, n))
+    dt, dev = state.mu.dtype, state.mu.device
+    if subsample_size and subsample_uniforms is None:
+        subsample_uniforms = torch.rand(n, generator=generator, dtype=dt, device=dev)
+    if randomize_qmc and qmc_shifts is None:
+        qmc_shifts = draw_qmc_shifts(generator, batch_size, dt, dev)
+    if pool_size or subsample_size:
+        ranking = state.mu if pool_size else subsample_uniforms
+        pool_idx, pool_forbid = candidate_pool_indices(
+            state, ranking, min(pool_size or subsample_size, n))
         return _select_ital_pool(
             state, batch_size, params, pool_idx, pool_forbid, n_qmc=n_qmc,
             block=block, refine_top=refine_top, refine_n_qmc=refine_n_qmc,

@@ -49,8 +49,9 @@ def save_session(path: str, state: GPState, extra: Optional[Dict[str, Any]] = No
     os.replace(tmp, path)  # a crash never leaves a torn checkpoint
 
 
-def load_session(path: str, template: GPState) -> tuple[GPState, Dict[str, np.ndarray]]:
-    """Rebuild a session from a snapshot and the corpus-bearing ``template``.
+def load_session(path, template: GPState) -> tuple[GPState, Dict[str, np.ndarray]]:
+    """Rebuild a session from a snapshot (a path or a binary file object)
+    and the corpus-bearing ``template``.
 
     ``template`` supplies ``x``, ``x2``, the device and the posterior dtype;
     its density is kept unless the snapshot has one.  The session buffers

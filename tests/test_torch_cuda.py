@@ -205,3 +205,55 @@ def test_cuda_empty_output_launches_nothing():
     before = rbf_hopper.LAUNCHES
     assert rbf_kernel(a, b, 1.0, 1.0).shape == (0, 5)
     assert rbf_hopper.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 64, 512), (17, 17, 8)])
+def test_cuda_hyperparameter_gradient_through_the_kernel(shape):
+    """The length scale's and the variance's gradients reach past the kernel
+    (whose output has no autograd history of its own) and equal autograd
+    through the plain version on the same card, to 1e-4 relative."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    a, _, _, _ = _inputs(shape, "none", torch.float32)
+    # A positive output gradient: no cancellation in the sums.
+    g = torch.from_numpy(np.random.default_rng(3).uniform(0.5, 1.5, size=(shape[0], shape[0]))
+                         .astype(np.float32)).cuda()
+    grads = []
+    for fn in (rbf_kernel, rbf_kernel_plain):
+        ls = torch.tensor(float(np.sqrt(5 * shape[2])), device="cuda", requires_grad=True)
+        var = torch.tensor(0.8, device="cuda", requires_grad=True)
+        before = rbf_hopper.LAUNCHES
+        (fn(a, a, ls, var) * g).sum().backward()
+        torch.cuda.synchronize()
+        assert rbf_hopper.LAUNCHES == before + (fn is rbf_kernel)
+        grads.append((float(ls.grad), float(var.grad)))
+    (ls_k, var_k), (ls_p, var_p) = grads
+    assert ls_k != 0.0 and var_k != 0.0
+    np.testing.assert_allclose([ls_k, var_k], [ls_p, var_p], rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_launch_count_is_exact_under_threads():
+    """Launches from many threads at once are all counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    import sys
+    import threading
+
+    a = torch.rand(8, 16, device="cuda")
+    before = rbf_hopper.LAUNCHES
+    prev = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [rbf_kernel(a, a, 1.0, 1.0) for _ in range(200)])
+                   for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(prev)
+    torch.cuda.synchronize()
+    assert rbf_hopper.LAUNCHES == before + 8 * 200

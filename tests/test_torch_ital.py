@@ -134,11 +134,109 @@ def test_block_size_does_not_change_scores(warmed):
 
 
 def test_unported_modes_and_batch_guard_raise(warmed):
+    """Every mode runs now; the reference's guards still raise: the two
+    candidate restrictions together, and a batch past the supported maximum."""
     _, ts = warmed
     _, tp = _params()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tital.select_ital(ts, 2, None, tp, subsample_size=10)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tital.select_ital(ts, 2, None, tp, randomize_qmc=True)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        tital.select_ital(ts, 2, None, tp, subsample_size=10, pool_size=10)
     with pytest.raises(ValueError, match="exceeds the supported maximum"):
         tital.select_ital(ts, tital.MAX_MI_BATCH + 1, None, tp)
+
+
+def _jax_draws(key, n, batch_size):
+    """JAX's subsample uniforms and per-step shifts of one selection key, as tensors."""
+    u = torch.from_numpy(np.array(jax.random.uniform(key, (n,), jnp.float32)))
+    shifts = [torch.from_numpy(np.array(jital._step_shift(key, t, jnp.float32)))
+              for t in range(batch_size)]
+    return u, shifts
+
+
+@pytest.mark.parametrize("kw", [
+    {"subsample_size": 40, "n_qmc": 32},
+    {"subsample_size": 40, "n_qmc": 32, "refine_top": 8, "refine_n_qmc": 256},
+    {"subsample_size": 500, "n_qmc": 32},
+], ids=["subsample", "subsample+refine", "oversized"])
+@pytest.mark.parametrize("seed", [1, 2])
+def test_subsample_with_jax_draws_picks_jax_batch(warmed, kw, seed):
+    js, ts = warmed
+    jp, tp = _params()
+    key = jax.random.PRNGKey(seed)
+    want = np.asarray(jital.select_ital(js, 3, key, jp, **kw))
+    u, _ = _jax_draws(key, ts.mu.shape[0], 3)
+    got = tital.select_ital(ts, 3, None, tp, subsample_uniforms=u, **kw)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # The picks lie in the subset: the top of the uniforms among unlabeled items.
+    pool, _ = tital.candidate_pool_indices(ts, u, min(kw["subsample_size"], ts.mu.shape[0]))
+    assert set(got.tolist()) <= set(pool.tolist())
+
+
+@pytest.mark.parametrize("kw", [
+    {"pool_size": 25, "n_qmc": 32},
+    {"n_qmc": 32},
+    {"n_qmc": 32, "refine_top": 16, "refine_n_qmc": 256},
+    {"subsample_size": 40, "n_qmc": 32},
+], ids=["pool", "full", "full+refine", "subsample"])
+def test_randomize_qmc_with_jax_draws_picks_jax_batch(warmed, kw):
+    """randomize_qmc shifts each greedy step by a draw from the selection key;
+    fed JAX's draws, the port picks JAX's batch."""
+    js, ts = warmed
+    jp, tp = _params()
+    key = jax.random.PRNGKey(5)
+    want = np.asarray(jital.select_ital(js, 3, key, jp, randomize_qmc=True, **kw))
+    u, shifts = _jax_draws(key, ts.mu.shape[0], 3)
+    extra = {"subsample_uniforms": u} if "subsample_size" in kw else {}
+    got = tital.select_ital(ts, 3, None, tp, randomize_qmc=True, qmc_shifts=shifts,
+                            **extra, **kw)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_random_modes_draw_from_the_generator(warmed):
+    """Without fed draws, subsample_size and randomize_qmc draw from the
+    strategy's generator: the same seed gives the same batch, the draws are
+    the seam's (uniforms first, then one shift per step), and explicit
+    qmc_shifts win over randomize_qmc."""
+    _, ts = warmed
+    _, tp = _params()
+    kw = {"subsample_size": 40, "n_qmc": 32, "randomize_qmc": True}
+    a = tital.select_ital(ts, 3, torch.Generator().manual_seed(3), tp, **kw)
+    b = tital.select_ital(ts, 3, torch.Generator().manual_seed(3), tp, **kw)
+    np.testing.assert_array_equal(a.numpy(), b.numpy())
+    g = torch.Generator().manual_seed(3)
+    u = torch.rand(ts.mu.shape[0], generator=g)
+    shifts = tital.draw_qmc_shifts(g, 3, torch.float32, "cpu")
+    assert [s.shape[0] for s in shifts] == [0, 1, 2]
+    fed = tital.select_ital(ts, 3, None, tp, subsample_uniforms=u, qmc_shifts=shifts,
+                            **{k: v for k, v in kw.items() if k != "randomize_qmc"})
+    np.testing.assert_array_equal(a.numpy(), fed.numpy())
+    zero = [torch.zeros(t) for t in range(3)]
+    fixed = tital.select_ital(ts, 3, None, tp, pool_size=25, n_qmc=32)
+    pinned = tital.select_ital(ts, 3, torch.Generator().manual_seed(9), tp, pool_size=25,
+                               n_qmc=32, randomize_qmc=True, qmc_shifts=zero)
+    np.testing.assert_array_equal(pinned.numpy(), fixed.numpy())
+
+
+@pytest.mark.parametrize("n_shifts", [1, 3, 8])
+@pytest.mark.parametrize("m", [1, 3])
+def test_mi_with_error_matches_jax(rng, n_shifts, m):
+    jp, tp = _params(0.8, 0.1)
+    mu = rng.normal(size=m).astype(np.float32) * 0.5
+    a = rng.normal(size=(m, m))
+    cov = (a @ a.T + m * np.eye(m)).astype(np.float32) * 0.3
+    chol = np.linalg.cholesky(cov).astype(np.float32)
+    want = jital.mi_with_error(jnp.asarray(mu), jnp.asarray(chol), jp, n_qmc=64,
+                               n_shifts=n_shifts, seed=4)
+    got = tital.mi_with_error(torch.from_numpy(mu), torch.from_numpy(chol), tp, n_qmc=64,
+                              n_shifts=n_shifts, seed=4)
+    np.testing.assert_allclose(float(got[0]), float(want[0]), atol=2e-6)
+    np.testing.assert_allclose(float(got[1]), float(want[1]), atol=2e-6)
+    if n_shifts == 1:  # one replicate: no error estimate
+        assert float(got[1]) == 0.0
+    if m == 1:  # no sampled dimension: the replicates agree to rounding
+        assert float(got[1]) < 1e-6
+
+
+def test_mi_with_error_two_shifts_raises():
+    _, tp = _params()
+    with pytest.raises(ValueError, match="n_shifts=2"):
+        tital.mi_with_error(torch.zeros(2), torch.eye(2), tp, n_shifts=2)

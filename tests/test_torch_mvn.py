@@ -86,3 +86,39 @@ def test_lattice_and_shift_tables_bit_equal(n_points, dim):
     np.testing.assert_array_equal(tmvn.richtmyer_lattice(n_points, dim),
                                   jmvn.richtmyer_lattice(n_points, dim))
     np.testing.assert_array_equal(tmvn.shift_table(5, dim, 3), jmvn.shift_table(5, dim, 3))
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("n_shifts", [1, 4, 9])
+@pytest.mark.parametrize("m", [1, 3, 4])
+def test_orthant_probs_with_error_matches_jax(rng, m, n_shifts, normalize):
+    """The mean over the random shifts and its standard error, f32, 1e-5."""
+    mu, chol = _moments(rng, m, n_cand=1)
+    mu, chol = mu[0].astype(np.float32), chol[0].astype(np.float32)
+    want_p, want_e = jmvn.orthant_probs_with_error(
+        jnp.asarray(mu), jnp.asarray(chol), n_points=64, n_shifts=n_shifts, seed=2,
+        normalize=normalize)
+    got_p, got_e = tmvn.orthant_probs_with_error(
+        torch.from_numpy(mu), torch.from_numpy(chol), n_points=64, n_shifts=n_shifts, seed=2,
+        normalize=normalize)
+    assert got_p.shape == got_e.shape == (2 ** m,)
+    np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), atol=1e-5)
+    np.testing.assert_allclose(got_e.numpy(), np.asarray(want_e), atol=1e-6)
+    if n_shifts == 1:
+        assert not got_e.any()
+
+
+def test_orthant_probs_with_error_rejects_two_shifts():
+    with pytest.raises(ValueError, match="n_shifts=2"):
+        tmvn.orthant_probs_with_error(torch.zeros(3), torch.eye(3), n_shifts=2)
+
+
+def test_batched_shifts_equal_one_shift_at_a_time(rng):
+    """A (batch, m-1) shift gives each batch element its own lattice shift."""
+    mu, chol = _moments(rng, 4, n_cand=5)
+    mu, chol = torch.from_numpy(mu.astype(np.float32)), torch.from_numpy(chol.astype(np.float32))
+    shifts = torch.from_numpy(rng.random((5, 3)).astype(np.float32))
+    got = tmvn.orthant_probs_all_configs_tree(mu, chol, n_points=32, shift=shifts)
+    for i in range(5):
+        one = tmvn.orthant_probs_all_configs_tree(mu[i], chol[i], n_points=32, shift=shifts[i])
+        np.testing.assert_allclose(got[i].numpy(), one.numpy(), atol=1e-7)

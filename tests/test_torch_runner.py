@@ -169,7 +169,7 @@ def test_capacity_guard():
     ({"mesh_devices": 2}, "item 15"),
     ({"query_batch": 2}, "item 10"),
     ({"fused_sessions": True}, "item 10"),
-    ({"gp": {"learn_every": 2}}, "item 13"),
+    ({"mesh_devices": 2, "gp": {"learn_every": 2}}, "item 15"),  # learning runs; the mesh not
 ])
 def test_unported_modes_raise(change, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, queue 1 {item}"):

@@ -73,10 +73,10 @@ def test_session_over_rounds_equals_jax():
 def test_session_rejects_bad_options_and_overflow():
     ds = tds.toy_gaussians(n_per_class=20, n_classes=2, dim=2, seed=1)
     with pytest.raises(ValueError, match="unknown method_kwargs"):
-        ActiveRetrieval(ds.x, length_scale=1.5, method_kwargs={"pool_siez": 8})
+        ActiveRetrieval(ds.x, length_scale=1.5, method_kwargs={"pool_siez": 8}, device="cpu")
     with pytest.raises(TypeError, match="numeric/bool scalar"):
-        ActiveRetrieval(ds.x, length_scale=1.5, method_kwargs={"n_qmc": "32"})
-    sess = ActiveRetrieval(ds.x, length_scale=1.5, cap=5)
+        ActiveRetrieval(ds.x, length_scale=1.5, method_kwargs={"n_qmc": "32"}, device="cpu")
+    sess = ActiveRetrieval(ds.x, length_scale=1.5, cap=5, device="cpu")
     sess.update_query(0)
     sess.update({1: 1, 2: -1})  # padded to 4 slots
     assert sess.state.count == 5
@@ -164,7 +164,7 @@ def test_port_imports_neither_jax_nor_ital_tpu():
         "import ital_tpu_torch.utils.config, ital_tpu_torch.utils.metrics\n"
         "import ital_tpu_torch.select.baselines, ital_tpu_torch.select.regression\n"
         "import ital_tpu_torch.runner, ital_tpu_torch.cli, ital_tpu_torch.utils.checkpoint\n"
-        "import ital_tpu_torch.utils.logging\n"
+        "import ital_tpu_torch.utils.logging, ital_tpu_torch.serve, ital_tpu_torch.models.hyperopt\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ital_tpu'))\n"
         "print(','.join(bad))\n"
     )
@@ -174,3 +174,34 @@ def test_port_imports_neither_jax_nor_ital_tpu():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == ""
+
+
+@pytest.mark.parametrize("strategy", ["sud", "adapt_al"])
+def test_session_tradeoff_and_density_equal_jax(strategy):
+    """The constructor's ``tradeoff`` and ``with_density`` reach the
+    density-weighted baselines as in the reference session."""
+    ds = tds.toy_gaussians(n_per_class=40, n_classes=3, dim=3, seed=7)
+    common = dict(length_scale=1.5, noise=0.1, cap=16, strategy=strategy, tradeoff=0.3,
+                  with_density=True)
+    jsess = JaxSession(ds.x, **common)
+    tsess = ActiveRetrieval(ds.x, device="cpu", **common)
+    np.testing.assert_allclose(tsess.state.density.numpy(), np.asarray(jsess.state.density),
+                               atol=1e-6)
+    assert float(tsess.params.tradeoff) == pytest.approx(0.3)
+    for s in (jsess, tsess):
+        s.update_query(4)
+        s.update({50: -1, 9: 1, 100: -1})
+    np.testing.assert_array_equal(tsess.fetch_unlabelled(3), jsess.fetch_unlabelled(3))
+
+
+def test_session_runs_on_cuda_unless_asked_for_the_cpu(monkeypatch):
+    """A NumPy corpus goes to the card by default; without one that raises,
+    and nothing falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.zeros((10, 2), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ActiveRetrieval(x, length_scale=1.0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ActiveRetrieval(torch.from_numpy(x), length_scale=1.0, device="cuda")
+    assert ActiveRetrieval(x, length_scale=1.0, device="cpu").device.type == "cpu"
+    assert ActiveRetrieval(torch.from_numpy(x), length_scale=1.0).device.type == "cpu"
