@@ -56,6 +56,26 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``LEARN_RTOL``.  Every request kind that forms RBF blocks must launch the
    kernel; each kind's synchronized host latency is printed with the card's
    name and power limit.
+8. cohort: the stacked cohort programs at the production configuration.
+   First the kernel's stacked forms at a cohort of eight's shapes (the
+   selection's pool cross-kernel and batch block, the update's three
+   blocks, one of them in two hyperparameter groups), each held against the
+   plain version within ``F32_ATOL`` x var and timed against one launch per
+   session.  Then the runner (2 classes x 2 queries, depth cut to 5 rounds,
+   cap 64) serially (uncounted: the baseline), with ``fused_sessions`` (the
+   fused path's count), with ``query_batch = 4`` (one stacked selection and
+   one stacked GP update a round; the cohort path's count starts here) and
+   with both: each stacked pick is replayed on its session alone and must
+   agree up to MI ties, the fused runs must give the unfused runs' curves,
+   and each mode's time per round is printed beside the serial run's.  Then
+   over HTTP, eight ITAL sessions of four classes through ``/batch_select``
+   and ``/batch_feedback`` for three rounds beside eight twins served one
+   request at a time (uncounted), which absorb the same answers: picks agree up to MI
+   ties and each posterior mean with its twin's within ``CPU_MU_ATOL``.
+   Every stacked request must launch the kernel; each request kind's host
+   latency, its launches and the device memory a stacked request adds (in
+   copies of one session's (cap, N) f32 buffer, held to the server's budget
+   constants) are printed with the card's name and power limit.
 
 The second-to-last line is a JSON object describing the kernel (launches on
 the main paths in all and per route, its bound, its time and the plain
@@ -120,6 +140,12 @@ LEARN_RTOL = 1e-3
 # Request kinds whose every request forms RBF blocks on the card.
 KERNEL_REQUESTS = ("create with density", "query", "batch_select", "batch",
                    "batch_feedback", "feedback", "learn")
+# Phase 8: the runner's cohort of 4 (2 classes x 2 queries, 5 rounds) and the
+# HTTP cohort of 8 sessions (4 classes x 2 queries) beside 8 twins.
+COHORT_QB = 4
+COHORT_ROUNDS = 5
+COHORT_K = 8
+COHORT_KINDS = ("batch_select", "batch", "batch_feedback", "feedback")
 # The card's published peaks (H100 SXM, dense), for the kernel's bound: HBM
 # bytes per second, and TF32 and bf16 tensor operations per second (the f32
 # route does its products as 3xTF32: three TF32 products per f32 one).
@@ -722,6 +748,332 @@ def serve_phase(torch, ds, cfg, dev, smi: str) -> dict:
     return {"launches": route_launches}
 
 
+@contextlib.contextmanager
+def _uncounted():
+    """Launches inside the block (comparisons, not the path) are not counted."""
+    from ital_tpu_torch.ops import rbf_hopper
+
+    launches, routes = rbf_hopper.LAUNCHES, dict(rbf_hopper.ROUTE_LAUNCHES)
+    try:
+        yield
+    finally:
+        with rbf_hopper._COUNT_LOCK:
+            rbf_hopper.LAUNCHES = launches
+            rbf_hopper.ROUTE_LAUNCHES.update(routes)
+
+
+def _check_stacked_picks(torch, st, picks, params, kw, what: str) -> int:
+    """Replay each session of stack ``st`` alone and hold the stacked picks to
+    its own up to MI ties; returns the number of sessions whose picks differ."""
+    import types
+
+    from ital_tpu_torch.models import gp as gp_mod
+    from ital_tpu_torch.select.ital import select_ital
+
+    differ = 0
+    with _uncounted():
+        for k in range(st.k):
+            sess = types.SimpleNamespace(state=gp_mod.session_state(st, k), params=params)
+            own = select_ital(sess.state, picks.shape[1], None, params, **kw)
+            if not torch.equal(own, picks[k]):
+                differ += 1
+                gaps = _tie_gaps(sess, picks[k].tolist(), kw)
+                print(f"{what}: session {k} stacked {picks[k].tolist()} alone {own.tolist()}; "
+                      f"refined-MI gaps {gaps} (tie atol {MI_TIE_ATOL})")
+                check(all(abs(g) <= MI_TIE_ATOL for g in gaps),
+                      f"{what}: stacked and per-session picks differ only by ties")
+    return differ
+
+
+def _cohort_runner(torch, ds, cfg, dev, smi: str) -> dict:
+    """The runner's serial, fused, cohort and cohort-fused modes on one plan;
+    returns the fused run's launches by route.  The cohort path's count
+    starts at the cohort run and goes on counting after the return.
+
+    Each stacked pick of the cohort is replayed on its session alone.
+    Against the serial run, a session's picks in the cohort and in the fused
+    run agree round by round up to the first round whose picks differ by an
+    MI tie: on the card the stacked state and the session's own buffers
+    differ in layout (the library's factor is column-major, a stack's
+    row-major), so their updates differ by rounding (~1e-7) and a later
+    tie may fall the other way; from there the session's history is another
+    one.  The cohort-fused run repeats the cohort's operations and must give
+    its curves.
+    """
+    import types
+
+    from ital_tpu_torch import runner
+    from ital_tpu_torch.models import gp as gp_mod
+    from ital_tpu_torch.ops import rbf_hopper
+    from ital_tpu_torch.select import base
+
+    plan = dataclasses.replace(cfg, max_classes=2, queries_per_class=2, n_rounds=COHORT_ROUNDS,
+                               gp=dataclasses.replace(cfg.gp, cap=CAP))
+    kw, rounds = plan.method_kwargs, plan.n_rounds
+    # The serial run is the baseline, counted in no path; the fused run is
+    # the fused path; the cohort path's count starts at the query_batch run.
+    modes = {"serial": {}, "fused": {"fused_sessions": True},
+             "query_batch": {"query_batch": COHORT_QB},
+             "query_batch+fused": {"query_batch": COHORT_QB, "fused_sessions": True}}
+    single, stacked = base.STRATEGIES["ital"], base.STACKED["ital"]
+    serial_states, cohort_stacks, picks = [], [], {}
+
+    def watched_single(state, batch_size, generator, params, **kwargs):
+        out = single(state, batch_size, generator, params, **kwargs)
+        serial_states.append((gp_mod.gp_session_copy(state), params))
+        picks[mode].append([out.tolist()])
+        return out
+
+    def watched_stacked(st, batch_size, generators, params, **kwargs):
+        before = rbf_hopper.LAUNCHES
+        out = stacked(st, batch_size, generators, params, **kwargs)
+        check(rbf_hopper.LAUNCHES > before, "every stacked selection launched the kernel")
+        if mode == "query_batch":
+            cohort_stacks.append((gp_mod.stack_states(
+                [gp_mod.session_state(st, k) for k in range(st.k)]), out.clone(), params))
+        picks[mode].append(out.tolist())
+        return out
+
+    res = {}
+    for mode, change in modes.items():
+        picks[mode] = []
+        if mode in ("fused", "query_batch"):
+            _reset_counts()
+        base.STRATEGIES["ital"], base.STACKED["ital"] = watched_single, watched_stacked
+        try:
+            with _uncounted() if mode == "serial" else contextlib.nullcontext():
+                before = rbf_hopper.LAUNCHES
+                res[mode] = runner.run_experiment(dataclasses.replace(plan, **change), ds,
+                                                  device=dev)
+                res[mode]["launches"] = rbf_hopper.LAUNCHES - before
+        finally:
+            base.STRATEGIES["ital"], base.STACKED["ital"] = single, stacked
+        if mode == "fused":
+            fused_launches = dict(rbf_hopper.ROUTE_LAUNCHES)
+        ap = res[mode]["ap"]
+        check(ap.shape == (4, rounds) and bool(np.isfinite(ap).all()),
+              f"cohort runner {mode}: AP shape and values")
+    # picks[mode][session][round]: the serial and fused runs select session by
+    # session, the cohorts all four sessions at once.
+    for mode in modes:
+        flat = [row for call in picks[mode] for row in call]
+        if len(picks[mode]) == rounds:  # a cohort: call r holds round r of each session
+            flat = [picks[mode][r][k] for k in range(4) for r in range(rounds)]
+        picks[mode] = [flat[k * rounds:(k + 1) * rounds] for k in range(4)]
+    differ = sum(_check_stacked_picks(torch, st, out, params, kw, f"cohort runner round {r}")
+                 for r, (st, out, params) in enumerate(cohort_stacks))
+    apart = {}
+    with _uncounted():
+        for mode in ("query_batch", "fused"):
+            apart[mode] = []
+            for k in range(4):
+                r = next((r for r in range(rounds)
+                          if picks[mode][k][r] != picks["serial"][k][r]), rounds)
+                if r < rounds:
+                    state, params = serial_states[k * rounds + r]
+                    gaps = _tie_gaps(types.SimpleNamespace(state=state, params=params),
+                                     picks[mode][k][r], kw)
+                    print(f"cohort runner {mode} session {k}: round {r} serial "
+                          f"{picks['serial'][k][r]}, {mode} {picks[mode][k][r]}; refined-MI "
+                          f"gaps on the serial state {gaps} (tie atol {MI_TIE_ATOL})")
+                    check(all(abs(g) <= MI_TIE_ATOL for g in gaps),
+                          f"{mode} and serial picks differ only by ties")
+                check(np.abs(res[mode]["ap"][k, :r] - res["serial"]["ap"][k, :r]).max(
+                    initial=0.0) <= 1e-4, f"{mode} and serial AP agree while their picks do")
+                apart[mode].append(r)
+    gaps = {mode: float(np.abs(res[mode]["ap"] - res[ref]["ap"]).max())
+            for mode, ref in (("query_batch", "serial"), ("query_batch+fused", "query_batch"),
+                              ("fused", "serial"))}
+    print(f"cohort runner: max |AP - AP_ref| {gaps}; stacked picks that differed from the "
+          f"session's own on its state: {differ} of {4 * rounds}; first round whose picks "
+          f"differ from the serial run's, per session: {apart} of {rounds}")
+    check(gaps["query_batch+fused"] <= 1e-6 and picks["query_batch+fused"] == picks["query_batch"],
+          "the cohort-fused run gives the cohort's picks and curves")
+    s = res["serial"]
+    serial_round = s["select_ms_steady"] + s["update_ms_steady"]
+    q, qf, f = res["query_batch"], res["query_batch+fused"], res["fused"]
+    print(f"cohort runner: query_batch {COHORT_QB} round steady {q['select_ms_steady']:.3f} ms "
+          f"(first {q['first_round_ms']:.1f}) against {COHORT_QB} serial select + update "
+          f"{COHORT_QB} x {serial_round:.3f} = {COHORT_QB * serial_round:.3f} ms; query_batch + "
+          f"fused {qf['select_ms']:.3f} ms a cohort of {rounds} rounds (first "
+          f"{qf['first_round_ms']:.1f}); fused session {f['select_ms'] * rounds:.3f} ms "
+          f"mean, {f['select_ms_steady'] * rounds:.3f} ms steady, against a serial "
+          f"session {rounds} x {serial_round:.3f} = {rounds * serial_round:.3f} ms; "
+          f"launches serial {s['launches']}, query_batch {q['launches']}, query_batch+fused "
+          f"{qf['launches']}, fused {f['launches']} [{smi}]")
+    return fused_launches
+
+
+def _cohort_http(torch, ds, cfg, dev, smi: str) -> None:
+    """Eight sessions through the cohort endpoints beside eight twins."""
+    from ital_tpu_torch import serve
+    from ital_tpu_torch.ops import rbf_hopper
+
+    svc = serve.service_from_config(cfg, device=dev)
+    srv = serve.make_server(svc, port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    times, launches, rise = {}, {}, {}
+    cuda = dev.type == "cuda"
+
+    def call(kind, method, path, body=None):
+        data = json.dumps(body).encode() if body is not None else None
+        req = urllib.request.Request(base + path, data=data, method=method,
+                                     headers={"Content-Type": "application/json"})
+        before = rbf_hopper.LAUNCHES
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            allocated = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                payload = json.loads(resp.read())
+        except urllib.error.HTTPError as e:
+            raise RuntimeError(f"{method} {path}: HTTP {e.code} {e.read()!r}") from e
+        if cuda:
+            torch.cuda.synchronize()
+        times.setdefault(kind, []).append((time.perf_counter() - t0) * 1e3)
+        launches.setdefault(kind, []).append(rbf_hopper.LAUNCHES - before)
+        if cuda:
+            rise.setdefault(kind, []).append(torch.cuda.max_memory_allocated() - allocated)
+        return payload
+
+    try:
+        rng = np.random.default_rng(SEED + 11)
+        classes = [int(c) for c in rng.choice(ds.classes, COHORT_K // 2, replace=False)]
+        queries = [(int(q), c) for c in classes for q in ds.queries_for_class(c, rng, 2)]
+        user = _user(rng, ds, cfg.user.label_prob, cfg.user.mistake_prob)
+        # The twins are the baseline: their requests count in no path.
+        cohort, twins = [], []
+        for q, _ in queries:
+            for out in (cohort, twins):
+                with _uncounted() if out is twins else contextlib.nullcontext():
+                    sid = call("create", "POST", "/sessions", {})["session_id"]
+                    call("query", "POST", f"/sessions/{sid}/query", {"index": q})
+                out.append(sid)
+        for r in range(SERVE_ROUNDS):
+            picks = call("batch_select", "POST", "/batch_select",
+                         {"session_ids": cohort, "k": SERVE_K})["batches"]
+            for j, (a, b) in enumerate(zip(cohort, twins)):
+                with _uncounted():
+                    single = call("batch", "GET", f"/sessions/{b}/batch?k={SERVE_K}")["batch"]
+                check(len(set(picks[a])) == SERVE_K, f"round {r}: {SERVE_K} distinct picks")
+                if picks[a] != single:
+                    twin, _ = svc._entry(b)
+                    with _uncounted():
+                        gaps = _tie_gaps(twin, picks[a], twin.method_kwargs)
+                    print(f"cohort serve round {r} session {j}: cohort {picks[a]} single "
+                          f"{single}; refined-MI gaps {gaps} (tie atol {MI_TIE_ATOL})")
+                    check(all(abs(g) <= MI_TIE_ATOL for g in gaps),
+                          "cohort and single twin batches differ only by ties")
+            answers = {a: user(picks[a], c) for a, (_, c) in zip(cohort, queries)}
+            got = call("batch_feedback", "POST", "/batch_feedback",
+                       {"feedback": answers})["sessions"]
+            want = 1 + (r + 1) * SERVE_K
+            for a, b in zip(cohort, twins):
+                with _uncounted():
+                    single = call("feedback", "POST", f"/sessions/{b}/feedback",
+                                  {"labels": answers[a]})
+                check(got[a] == single == {"labeled": want},
+                      f"round {r}: labeled {got[a]} {single}")
+                err = float((svc._entry(a)[0].state.mu - svc._entry(b)[0].state.mu).abs().max())
+                check(err <= CPU_MU_ATOL,
+                      f"round {r}: cohort mu within {CPU_MU_ATOL} of the twin's")
+            print(f"cohort serve round {r}: " + "; ".join(
+                f"{picks[a]} {list(answers[a].values())}" for a in cohort))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    for kind in COHORT_KINDS:
+        check(all(n > 0 for n in launches[kind]),
+              f"cohort serve {kind}: the kernel launched in every request {launches[kind]}")
+    per = COHORT_K * svc._entry(cohort[0])[0].state.cap * ds.n * 4
+    for kind in COHORT_KINDS:
+        ms = times[kind]
+        mem = ""
+        if rise:
+            mem = (f"; device memory added per request max {max(rise[kind]) / 2**20:.1f} MiB"
+                   + (f" = {max(rise[kind]) / per:.3f} (cap, N) copies a session"
+                      if kind in ("batch_select", "batch_feedback") else ""))
+        print(f"cohort serve {kind} ({COHORT_K if kind.startswith('batch_') else 1} "
+              f"session(s)): {len(ms)} requests, host ms median {np.median(ms):.3f} min "
+              f"{min(ms):.3f} max {max(ms):.3f}; kernel launches per request "
+              f"{min(launches[kind])}-{max(launches[kind])}{mem} [{smi}]")
+    if rise:
+        check(max(rise["batch_select"]) <= serve.SELECT_COPIES * per
+              and max(rise["batch_feedback"]) <= serve.UPDATE_COPIES * per,
+              "the stacked requests stay within the budget's copies")
+
+
+def _cohort_kernel_forms(torch, ds, cfg, dev, smi: str) -> None:
+    """The kernel's stacked forms in a production cohort of ``COHORT_K``
+    sessions, on surrogate rows: the selection's pool cross-kernel and batch
+    block at the last greedy step (diagonal blocks of one launch), the
+    update's slot-by-new and new-by-new blocks (the same) and its corpus
+    block, the last also with the sessions in two hyperparameter groups.
+    Each form is held against the plain version on the same inputs and
+    timed against one launch per session."""
+    from ital_tpu_torch.ops.kernels import rbf_kernel, rbf_kernel_plain, rbf_sessions
+
+    x = torch.from_numpy(ds.x).to(dev)
+    x2 = (x * x).sum(-1)
+    rng = np.random.default_rng(SEED + 3)
+    k, pool, t, b, d = COHORT_K, cfg.method_kwargs["pool_size"], SERVE_K - 1, SERVE_K, ds.x.shape[1]
+
+    def rows(m):
+        return x[torch.from_numpy(rng.integers(0, ds.n, size=(k, m))).to(dev)]
+
+    pools, sel, slots, new = rows(pool), rows(t), rows(CAP), rows(b)
+    ls = torch.full((k,), cfg.gp.length_scale, device=dev)
+    var = torch.full((k,), cfg.gp.var, device=dev)
+    ls2 = torch.cat([ls[:k // 2], 0.8 * ls[k // 2:]])
+    one, two = [list(range(k))], [list(range(k // 2)), list(range(k // 2, k))]
+    forms = {  # name: (a, b, length scales, groups, norms)
+        f"pool cross ({k} x {pool}, {k} x {t}, {d})": (pools, sel, ls, one, {}),
+        f"batch block ({k} x {t}, {k} x {t}, {d})": (sel, sel, ls, one, {}),
+        f"update k_lb ({k} x {CAP}, {k} x {b}, {d})": (slots, new, ls, one, {}),
+        f"update k_bb ({k} x {b}, {k} x {b}, {d})": (new, new, ls, one, {}),
+        f"update corpus block ({k} x {b}, {ds.n}, {d}) b2": (new, x, ls, one, {"b2": x2}),
+        f"update corpus block ({k} x {b}, {ds.n}, {d}) b2, 2 groups": (new, x, ls2, two,
+                                                                       {"b2": x2}),
+    }
+
+    def per_session(fn, a, bb, lsk, norms):
+        return lambda: torch.stack([fn(a[j], bb if bb.dim() == 2 else bb[j], lsk[j], var[j],
+                                       **norms) for j in range(k)])
+
+    with _uncounted():
+        for name, (a, bb, lsk, groups, norms) in forms.items():
+            stacked = functools.partial(rbf_sessions, a, bb, lsk, var, groups, **norms)
+            each = per_session(rbf_kernel, a, bb, lsk, norms)
+            got = stacked()
+            err = float((got - per_session(rbf_kernel_plain, a, bb, lsk, norms)()).abs().max())
+            diff = float((got - each()).abs().max())
+            check(err <= F32_ATOL * cfg.gp.var, f"{name}: stacked form agrees with plain")
+            (ms_s, sp_s), (ms_e, sp_e) = _time_turns_ms(torch, [stacked, each], launches=20)
+            print(f"cohort kernel {name}: {len(groups)} launch(es) {ms_s:.4f} ms (spread "
+                  f"{sp_s:.4f}) against {k} launches {ms_e:.4f} ms (spread {sp_e:.4f}); max "
+                  f"|stacked - plain| {err:.2e} (atol {F32_ATOL * cfg.gp.var:.0e}), max "
+                  f"|stacked - per-session launches| {diff:.2e} [{smi}]")
+
+
+def cohort_phase(torch, ds, cfg, dev, smi: str) -> dict:
+    """Phase 8: the stacked cohort programs, in the runner and over HTTP.
+    Returns the launches by route of two paths: the runner's fused run, and
+    the cohort (the runner's stacked runs and the HTTP cohort)."""
+    from ital_tpu_torch.ops import rbf_hopper
+
+    if dev.type == "cuda":
+        _cohort_kernel_forms(torch, ds, cfg, dev, smi)
+        torch.cuda.synchronize()
+    fused = _cohort_runner(torch, ds, cfg, dev, smi)
+    _cohort_http(torch, ds, cfg, dev, smi)
+    return {"fused": {"launches": fused}, "cohort": {"launches": dict(rbf_hopper.ROUTE_LAUNCHES)}}
+
+
 def emoc_replay_phase(torch, ds, replay) -> None:
     """Restore the card's EMOC checkpoint on the CPU and pick from it on the plain path."""
     from ital_tpu_torch.models import gp as gp_mod
@@ -776,12 +1128,15 @@ def main() -> int:
     harness = harness_phase(torch, ds, torch.device("cuda"))
     emoc_replay_phase(torch, ds, harness["replay"])
     served = serve_phase(torch, ds, cfg, torch.device("cuda"), smi)
+    cohort = cohort_phase(torch, ds, cfg, torch.device("cuda"), smi)
     # At 512 features every RBF call of the paths takes the tensor-core route
     # (the router's rule, PERF.md); the tile kernel serves narrower or
     # unaligned features and is held against the plain version in phase 3.
-    by_route = {r: sess["launches"][r] + harness["launches"][r] + served["launches"][r]
-                for r in sess["launches"]}
+    paths = {"session": sess, "harness": harness, "serving": served, **cohort}
+    by_route = {r: sum(p["launches"][r] for p in paths.values()) for r in sess["launches"]}
     check(by_route["wgmma"] > 0, f"the tensor-core route launched on the main path: {by_route}")
+    check(all(sum(p["launches"].values()) > 0 for p in paths.values()),
+          "the kernel launched on every path")
     print(json.dumps({"kernels": [{
         "name": "rbf_tile",
         "route": "cuda",
@@ -791,9 +1146,7 @@ def main() -> int:
         "launches_by_route": by_route,
         "sources_by_route": {"wgmma": "ital_tpu_torch/csrc/rbf_wgmma.cu",
                              "tile": "ital_tpu_torch/csrc/rbf_tile.cu"},
-        "launches_by_path": {"session": sum(sess["launches"].values()),
-                             "harness": sum(harness["launches"].values()),
-                             "serving": sum(served["launches"].values())},
+        "launches_by_path": {name: sum(p["launches"].values()) for name, p in paths.items()},
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"],
         "plain_ms": kern["plain_ms"],

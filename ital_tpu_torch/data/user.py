@@ -23,9 +23,11 @@ def feedback_from_uniforms(
     """Noisy feedback for ``batch`` from uniforms ``u_label``/``u_flip`` (b,).
 
     Returns ``(y, valid)``: (b,) float32 labels in {-1, +1} (meaningless where
-    invalid) and the (b,) bool mask of items the user annotated.
+    invalid) and the (b,) bool mask of items the user annotated.  For K
+    sessions every argument but the two probabilities gains a leading axis:
+    uniforms and ``batch`` (K, b), ``relevant`` (K, N).
     """
-    truth = torch.where(relevant[batch], 1.0, -1.0)
+    truth = torch.where(relevant.gather(-1, batch), 1.0, -1.0)
     labeled = u_label < label_prob
     flipped = u_flip < mistake_prob
     y = torch.where(flipped, -truth, truth)

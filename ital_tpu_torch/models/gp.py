@@ -19,6 +19,13 @@ corpus ``x``, its norms ``x2`` or its ``density``: those may be shared by
 every session over the same corpus, and :func:`gp_session_copy` gives a new
 session its own buffers.  The prediction surface and the hypothetical
 updates (:func:`gp_updated_prediction` and its kin) write nothing.
+
+A cohort of K sessions over one corpus is a :class:`StackedGPState`: the
+session buffers and hyperparameters gain a leading session axis, the corpus
+stays shared, and :func:`gp_update_stacked` absorbs one feedback block per
+session in one pass (the reference's ``jax.vmap(gp_update)``), each session
+at its own count and with its own hyperparameters.  :func:`gp_update` is
+its one-session case, on views of the session's own buffers.
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ import numpy as np
 import torch
 
 from ital_tpu_torch.ops import chol as chol_ops
-from ital_tpu_torch.ops.kernels import rbf_kernel
+from ital_tpu_torch.ops.kernels import rbf_kernel, rbf_sessions
 
 
 @dataclasses.dataclass
@@ -83,7 +90,111 @@ class GPState:
         return self.idx.shape[0]
 
 
+@dataclasses.dataclass
+class StackedGPState:
+    """K sessions' GP states over one corpus, on a leading session axis.
+
+    Shapes: x (N, D), x2 (N,) and density (N,) or None are the shared
+    corpus's | idx, y, valid (K, cap) | l (K, cap, cap) | beta (K, cap) |
+    v (K, cap, N) | mu, sig2 (K, N) | hyper: :class:`GPHyper` of (K,) tensors.
+
+    ``counts`` holds the K sessions' host counts.  ``hyper_groups`` lists the
+    sessions in groups of equal length scale and variance, decided once from
+    host values (:func:`hyper_groups`): each group's RBF blocks take one
+    kernel launch, which reads one length scale and one variance.
+    """
+
+    x: torch.Tensor
+    idx: torch.Tensor
+    y: torch.Tensor
+    valid: torch.Tensor
+    counts: list
+    l: torch.Tensor
+    beta: torch.Tensor
+    v: torch.Tensor
+    mu: torch.Tensor
+    sig2: torch.Tensor
+    hyper: GPHyper
+    hyper_groups: list
+    density: Optional[torch.Tensor] = None
+    x2: Optional[torch.Tensor] = None
+
+    @property
+    def active(self) -> torch.Tensor:
+        """(K, cap) bool — slots that really participate in each posterior."""
+        slots = torch.arange(self.cap, device=self.idx.device)
+        if len(set(self.counts)) == 1:
+            return (slots < self.counts[0]) & self.valid
+        return (slots < chol_ops.slot_rows(self.counts, 1, self.idx.device)) & self.valid
+
+    @property
+    def cap(self) -> int:
+        return self.idx.shape[1]
+
+    @property
+    def k(self) -> int:
+        return self.idx.shape[0]
+
+
 _SESSION_FIELDS = ("idx", "y", "valid", "l", "beta", "v", "mu", "sig2")
+_HYPER = ("length_scale", "var", "noise")
+
+
+def hyper_groups(hyper: GPHyper) -> list:
+    """Session indices grouped by equal (length scale, variance), in order of
+    first appearance, from (K,) hyperparameters: one read to the host."""
+    if hyper.length_scale.shape[0] == 1:
+        return [[0]]
+    groups: dict = {}
+    for k, key in enumerate(zip(*torch.stack([hyper.length_scale, hyper.var]).tolist())):
+        groups.setdefault(key, []).append(k)
+    return list(groups.values())
+
+
+def stack_states(states) -> StackedGPState:
+    """A copy of K same-corpus session states on a leading session axis
+    (the reference's ``stack_session_states``).
+
+    The corpus (``x``, ``x2``) is the first session's, shared; the density
+    too, which the caller has checked the group shares.  Nothing written to
+    the stack reaches the sessions until :func:`unstack_into`.
+    """
+    sts = list(states)
+    hyper = GPHyper(**{f: torch.stack([getattr(s.hyper, f) for s in sts]) for f in _HYPER})
+    return StackedGPState(
+        x=sts[0].x, counts=[s.count for s in sts], hyper=hyper,
+        hyper_groups=hyper_groups(hyper), density=sts[0].density, x2=sts[0].x2,
+        **{f: torch.stack([getattr(s, f) for s in sts]) for f in _SESSION_FIELDS},
+    )
+
+
+def stacked_view(state: GPState) -> StackedGPState:
+    """One session as a stack of one, on views of its own buffers: what a
+    stacked function writes lands in the session (its count excepted)."""
+    return StackedGPState(
+        x=state.x, counts=[state.count], hyper_groups=[[0]], density=state.density,
+        x2=state.x2,
+        hyper=GPHyper(**{f: getattr(state.hyper, f).reshape(1) for f in _HYPER}),
+        **{f: getattr(state, f)[None] for f in _SESSION_FIELDS},
+    )
+
+
+def session_state(st: StackedGPState, k: int) -> GPState:
+    """Session ``k`` of a stack as a :class:`GPState` on views of the stack."""
+    return GPState(
+        x=st.x, count=st.counts[k], density=st.density, x2=st.x2,
+        hyper=GPHyper(**{f: getattr(st.hyper, f)[k] for f in _HYPER}),
+        **{f: getattr(st, f)[k] for f in _SESSION_FIELDS},
+    )
+
+
+def unstack_into(st: StackedGPState, states) -> None:
+    """Write each session of ``st`` back into the buffers of ``states``, in
+    place (the hyperparameters and the corpus are not written)."""
+    for k, s in enumerate(states):
+        for f in _SESSION_FIELDS:
+            getattr(s, f).copy_(getattr(st, f)[k])
+        s.count = st.counts[k]
 
 
 def _state_dtype(x: torch.Tensor) -> torch.dtype:
@@ -204,42 +315,61 @@ def gp_update(
 
     Raises ``ValueError`` when ``count + b > cap``.
     """
-    h = state.hyper
-    dt = state.mu.dtype
-    b = new_idx.shape[0]
-    c = state.count
-    if c + b > state.cap:
-        raise ValueError(
-            f"labeled-slot capacity exceeded: {c} used + {b} new > cap={state.cap}"
-        )
-    active_old = state.active
+    st = stacked_view(state)
+    gp_update_stacked(st, new_idx[None], new_y[None], new_valid[None])
+    state.count = st.counts[0]
+    return state
+
+
+def gp_update_stacked(
+    st: StackedGPState,
+    new_idx: torch.Tensor,
+    new_y: torch.Tensor,
+    new_valid: torch.Tensor,
+) -> StackedGPState:
+    """:func:`gp_update` of K sessions at once, each at its own count and with
+    its own hyperparameters; writes ``st`` in place and returns it.
+
+    ``new_idx``, ``new_y``, ``new_valid``: (K, b), one feedback block per
+    session.  The RBF blocks take one kernel launch per group of sessions
+    with equal hyperparameters (:func:`ital_tpu_torch.ops.kernels.rbf_sessions`),
+    the algebra one batched call per step.  Raises ``ValueError``, before
+    anything is written, when a session's ``count + b > cap``.
+    """
+    h = st.hyper
+    dt = st.mu.dtype
+    b = new_idx.shape[-1]
+    for c in st.counts:
+        if c + b > st.cap:
+            raise ValueError(
+                f"labeled-slot capacity exceeded: {c} used + {b} new > cap={st.cap}"
+            )
+    active_old = st.active
     new_idx = new_idx.to(torch.int64)
     new_valid = new_valid.to(torch.bool)
     new_y = torch.where(new_valid, new_y.to(dt), 0.0)
 
-    xl = state.x[state.idx]  # (cap, D) current slots
-    xb = state.x[new_idx]  # (b, D)
-
-    k_lb = rbf_kernel(xl, xb, h.length_scale, h.var)
-    k_lb = torch.where(active_old[:, None], k_lb, 0.0)
-    k_bb = rbf_kernel(xb, xb, h.length_scale, h.var)
-    _, s, l_b = chol_ops.chol_append_block(state.l, k_lb, k_bb, c, new_valid, h.noise)
+    xl = st.x[st.idx]  # (K, cap, D) current slots
+    xb = st.x[new_idx]  # (K, b, D)
+    groups = st.hyper_groups
+    k_lb = rbf_sessions(xl, xb, h.length_scale, h.var, groups)
+    k_lb = torch.where(active_old[..., None], k_lb, 0.0)
+    k_bb = rbf_sessions(xb, xb, h.length_scale, h.var, groups)
+    _, s, l_b = chol_ops.chol_append_block(st.l, k_lb, k_bb, st.counts, new_valid, h.noise)
 
     # Extend the whitened quantities by the same block.
-    k_b_all = rbf_kernel(xb, state.x, h.length_scale, h.var, b2=state.x2)
-    k_b_all = torch.where(new_valid[:, None], k_b_all, 0.0)
-    v_b = chol_ops.tri_solve(l_b, k_b_all - s.T @ state.v)  # (b, N)
-    beta_b = chol_ops.tri_solve(l_b, (new_y - s.T @ state.beta)[:, None])[:, 0]
+    k_b_all = rbf_sessions(xb, st.x, h.length_scale, h.var, groups, b2=st.x2)  # (K, b, N)
+    k_b_all = torch.where(new_valid[..., None], k_b_all, 0.0)
+    v_b = chol_ops.tri_solve(l_b, k_b_all - s.mT @ st.v)  # (K, b, N)
+    beta_b = chol_ops.tri_solve(l_b, new_y[..., None] - s.mT @ st.beta[..., None])[..., 0]
 
-    state.v[c:c + b] = v_b
-    state.beta[c:c + b] = beta_b
-    state.mu += v_b.T @ beta_b
-    state.sig2.sub_((v_b * v_b).sum(0)).clamp_(min=1e-8)
-    state.idx[c:c + b] = new_idx
-    state.y[c:c + b] = new_y
-    state.valid[c:c + b] = new_valid
-    state.count = c + b
-    return state
+    for buf, vals in ((st.v, v_b), (st.beta, beta_b), (st.idx, new_idx), (st.y, new_y),
+                      (st.valid, new_valid)):
+        chol_ops.write_slots(buf, st.counts, vals)
+    st.mu += (v_b.mT @ beta_b[..., None])[..., 0]
+    st.sig2.sub_((v_b * v_b).sum(-2)).clamp_(min=1e-8)
+    st.counts = [c + b for c in st.counts]
+    return st
 
 
 def gp_predict_full(state: GPState, ind: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

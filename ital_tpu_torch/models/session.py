@@ -103,6 +103,9 @@ class ActiveRetrieval:
             self.device, label_prob=label_prob, mistake_prob=mistake_prob,
             tradeoff=tradeoff,
         )
+        # The same values on the host: sessions whose keys are equal share
+        # one StrategyParams in a stacked selection.
+        self.params_key = (float(label_prob), float(mistake_prob), float(tradeoff))
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.query: Optional[int] = None
 
@@ -128,6 +131,20 @@ class ActiveRetrieval:
         """
         if not feedback:
             return
+        idx, y = self.feedback_block(feedback)
+        dev = self.device
+        self.state = gp_mod.gp_update(
+            self.state,
+            torch.as_tensor(idx, device=dev),
+            torch.as_tensor(y, device=dev),
+            torch.as_tensor(y != 0, device=dev),
+        )
+
+    def feedback_block(self, feedback: Dict[int, int]) -> tuple[np.ndarray, np.ndarray]:
+        """The block :meth:`update` absorbs for ``feedback``: (b,) int64
+        corpus indices and (b,) float32 labels, 0 where skipped, padded to
+        the bucket width and clamped to the remaining capacity.  Raises
+        ``ValueError`` when the labels overflow the capacity."""
         used = self.state.count
         cap = self.state.cap
         if used + len(feedback) > cap:
@@ -140,13 +157,7 @@ class ActiveRetrieval:
         idx[: len(feedback)] = np.fromiter(feedback.keys(), dtype=np.int64)
         y = np.zeros(b, dtype=np.float32)
         y[: len(feedback)] = [0 if v is None else int(v) for v in feedback.values()]
-        dev = self.device
-        self.state = gp_mod.gp_update(
-            self.state,
-            torch.as_tensor(idx, device=dev),
-            torch.as_tensor(y, device=dev),
-            torch.as_tensor(y != 0, device=dev),
-        )
+        return idx, y
 
     def scores(self) -> np.ndarray:
         """Relevance scores (GP posterior mean) for the whole corpus (a copy)."""

@@ -10,74 +10,127 @@ Appending a block B to a factored system (Schur complement)::
     K_new = [[K_ll, K_lB], [K_Bl, K_BB]]
     L_new = [[L, 0], [S^T, L_B]],  S = L^-1 K_lB,  L_B = chol(K_BB - S^T S)
 
-``count`` is a host integer here, so the append is plain slice writes into
-the session's factor.
+Every function takes leading batch dimensions: a stack of K sessions'
+factors is factored, solved and appended in one call each, the append of
+session k at its own offset ``count[k]``.  ``count`` is known on the host,
+so the append is a write into the factor, in place.
 """
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 
 
+def _per_matrix(s):
+    """A scalar, a 0-d tensor or a (...,) tensor of per-matrix scalars,
+    shaped to scale (..., n, n) matrices."""
+    return s[..., None, None] if isinstance(s, torch.Tensor) else s
+
+
 def _identity_pad(k: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
-    """Replace rows/cols of ``k`` where ``active`` is False with identity rows."""
-    m2 = active[:, None] & active[None, :]
-    eye = torch.eye(k.shape[0], dtype=k.dtype, device=k.device)
+    """Replace rows/cols of ``k`` (..., n, n) where ``active`` (..., n) is
+    False with identity rows."""
+    m2 = active[..., :, None] & active[..., None, :]
+    eye = torch.eye(k.shape[-1], dtype=k.dtype, device=k.device)
     return torch.where(m2, k, eye)
 
 
 def padded_cholesky(
     k_ll: torch.Tensor, active: torch.Tensor, noise: torch.Tensor | float
 ) -> torch.Tensor:
-    """Cholesky of ``k_ll + noise*I`` restricted to ``active`` slots, identity elsewhere."""
-    k = k_ll + noise * torch.eye(k_ll.shape[0], dtype=k_ll.dtype, device=k_ll.device)
-    return torch.linalg.cholesky(_identity_pad(k, active))
+    """Cholesky of ``k_ll + noise*I`` restricted to ``active`` slots, identity
+    elsewhere; ``noise`` is one value or one per leading batch element."""
+    eye = torch.eye(k_ll.shape[-1], dtype=k_ll.dtype, device=k_ll.device)
+    return torch.linalg.cholesky(_identity_pad(k_ll + _per_matrix(noise) * eye, active))
 
 
 def tri_solve(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve ``L x = b`` with ``L`` lower triangular."""
+    """Solve ``L x = b`` with ``L`` lower triangular (leading dims broadcast)."""
     return torch.linalg.solve_triangular(l, b, upper=False)
+
+
+def host_index(values, device) -> torch.Tensor:
+    """Host integers as an int64 index tensor on ``device``, copied without
+    waiting for the device (a pageable copy would wait for its stream)."""
+    idx = torch.as_tensor(values, dtype=torch.int64)
+    if torch.device(device).type == "cuda":
+        return idx.pin_memory().to(device, non_blocking=True)
+    return idx
+
+
+def slot_rows(counts: Sequence[int], b: int, device) -> torch.Tensor:
+    """(K, b) int64 slots ``[counts[k], counts[k] + b)`` of each session, on
+    ``device``, copied from the host without waiting for the device."""
+    return host_index(torch.tensor(counts, dtype=torch.int64)[:, None] + torch.arange(b), device)
+
+
+def write_slots(buf: torch.Tensor, counts: Sequence[int], vals: torch.Tensor) -> None:
+    """Write ``vals`` (K, b, ...) into slots ``[counts[k], counts[k] + b)`` of
+    ``buf`` (K, cap, ...), in place: one slice write where every session has
+    one count (no index tensor to build), else one indexed write."""
+    b = vals.shape[1]
+    if len(set(counts)) == 1:
+        buf[:, counts[0]:counts[0] + b] = vals
+        return
+    rows = slot_rows(counts, b, buf.device)
+    buf[torch.arange(buf.shape[0], device=buf.device)[:, None], rows] = vals
 
 
 def chol_append_block(
     l: torch.Tensor,
     k_lb: torch.Tensor,
     k_bb: torch.Tensor,
-    count: int,
+    count: int | Sequence[int],
     active_new: torch.Tensor,
     noise: torch.Tensor | float,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Append a block of ``b`` slots at rows ``[count, count+b)`` of ``l``, in place.
 
     Args:
-      l: (cap, cap) factor with identity padding from slot ``count`` on; its
-        rows ``[count, count+b)`` are overwritten.
-      k_lb: (cap, b) kernel between existing slots and the new block, already
-        zeroed on rows ``>= count`` and on rows of inert slots.
-      k_bb: (b, b) kernel among the new block's points.
-      count: first free slot; ``count + b <= cap`` or this raises.
-      active_new: (b,) bool — False entries become identity (inert) slots.
-      noise: observation noise added to the active diagonal of the new block.
+      l: (cap, cap) factor, or (K, cap, cap) factors of K sessions, with
+        identity padding from slot ``count`` on; rows ``[count, count+b)``
+        are overwritten.
+      k_lb: (..., cap, b) kernel between existing slots and the new block,
+        already zeroed on rows ``>= count`` and on rows of inert slots.
+      k_bb: (..., b, b) kernel among the new block's points.
+      count: first free slot, or (K stacked factors) one per session;
+        ``count + b <= cap`` or this raises.
+      active_new: (..., b) bool — False entries become identity (inert) slots.
+      noise: observation noise added to the active diagonal of the new block,
+        one value or (K,) one per session.
 
     Returns ``(l, s, l_b)``: the updated factor (the same tensor), equal to
     refactorizing with :func:`padded_cholesky` to tolerance, plus
-    ``s = L^-1 K_lB`` (cap, b) and ``l_b = chol(Schur)`` (b, b).
+    ``s = L^-1 K_lB`` (..., cap, b) and ``l_b = chol(Schur)`` (..., b, b).
     """
-    cap = l.shape[0]
-    b = k_bb.shape[0]
-    if count + b > cap:
-        raise ValueError(f"block of {b} slots at {count} overflows cap={cap}")
-    k_lb = torch.where(active_new[None, :], k_lb, 0.0)
+    cap = l.shape[-1]
+    b = k_bb.shape[-1]
+    counts = [count] if isinstance(count, int) else [int(c) for c in count]
+    if max(counts) + b > cap:
+        raise ValueError(f"block of {b} slots at {max(counts)} overflows cap={cap}")
+    k_lb = torch.where(active_new[..., None, :], k_lb, 0.0)
     eye_b = torch.eye(b, dtype=l.dtype, device=l.device)
-    k_bb = _identity_pad(k_bb + noise * eye_b, active_new)
+    k_bb = _identity_pad(k_bb + _per_matrix(noise) * eye_b, active_new)
 
     # Rows >= count of K_lB are zero and L is identity there, so S is too.
-    s = tri_solve(l, k_lb)  # (cap, b)
-    c_b = _identity_pad(k_bb - s.T @ s, active_new)
+    s = tri_solve(l, k_lb)  # (..., cap, b)
+    c_b = _identity_pad(k_bb - s.mT @ s, active_new)
     l_b = torch.linalg.cholesky(c_b)
 
-    # New rows: [S^T | L_B | 0]; columns past count+b are already zero in the
-    # identity padding being overwritten.
-    l[count:count + b, :count] = s[:count].T
-    l[count:count + b, count:count + b] = l_b
+    # New rows: [S^T | L_B | 0] in the cap-wide coordinates (L_B from column
+    # count on); columns past count+b are zero in the identity padding they
+    # replace.  One count for all: two slice writes; else one indexed write
+    # of the whole rows.
+    if len(set(counts)) == 1:
+        c = counts[0]
+        l[..., c:c + b, :c] = s[..., :c, :].mT
+        l[..., c:c + b, c:c + b] = l_b
+        return l, s, l_b
+    rows = slot_rows(counts, b, l.device)  # (K, b)
+    cols = torch.arange(cap, device=l.device)
+    new_rows = torch.where(cols < rows[:, :1, None], s.mT, 0.0)  # (K, b, cap)
+    new_rows.scatter_(2, rows[:, None, :].expand(-1, b, -1), l_b)
+    l[torch.arange(l.shape[0], device=l.device)[:, None], rows] = new_rows
     return l, s, l_b

@@ -8,8 +8,8 @@ route and raises on anything the kernels do not take.  No path falls back
 from a kernel to the plain version.  Where the length scale or the variance
 requires grad (hyperparameter learning), :class:`RBFHyperGrad` carries the
 gradient past the kernel.  The blockwise consumers below
-(:func:`rbf_kernel_blockwise`, :func:`blockwise_reduce_abs_kpost`) form their
-blocks through it.
+(:func:`rbf_kernel_blockwise`, :func:`blockwise_reduce_abs_kpost`) and the
+cohort programs' :func:`rbf_sessions` form their blocks through it.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 
 from ital_tpu_torch.ops import rbf_hopper
+from ital_tpu_torch.ops.chol import host_index
 
 
 def sqdist(
@@ -138,6 +139,60 @@ def rbf_kernel(
 # kernel by thresholds measured on the H100, so the router is the entry point
 # itself.
 rbf_kernel_auto = rbf_kernel
+
+
+def _session_rows(a: torch.Tensor, index: Optional[torch.Tensor]) -> torch.Tensor:
+    """The rows of ``a`` (K, m, D) of the sessions in ``index``, as one
+    contiguous (G m, D) block (a view where ``index`` is None: every
+    session)."""
+    return (a if index is None else a[index]).reshape(-1, a.shape[-1])
+
+
+def rbf_sessions(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    length_scale: torch.Tensor,
+    var: torch.Tensor,
+    groups: list,
+    *,
+    a2: Optional[torch.Tensor] = None,
+    b2: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K sessions' RBF blocks (K, m, n), one :func:`rbf_kernel` call per group.
+
+    ``a`` is (K, m, D), one block of rows per session, or (m, D) shared by
+    every session (the corpus); ``b`` the same with n rows.  ``length_scale``
+    and ``var`` are (K,), and ``groups`` lists the sessions in groups of
+    equal values (``StackedGPState.hyper_groups``): the kernel reads one
+    length scale and one variance per launch, so each group's rows are
+    stacked into one launch with its first session's values.  Where both
+    sides are per session, a group of G sessions takes one (G m, G n) launch
+    and keeps its G diagonal blocks.  ``a2``/``b2``: the shared side's
+    cached norms.
+    """
+    k = length_scale.shape[0]
+    out = None
+    for group in groups:
+        # One group holds every session, in order; several gather theirs
+        # through an index copied to the device without a wait.
+        index = None if len(groups) == 1 else host_index(group, length_scale.device)
+        ga = a if a.dim() == 2 else _session_rows(a, index)
+        gb = b if b.dim() == 2 else _session_rows(b, index)
+        blk = rbf_kernel(ga, gb, length_scale[group[0]], var[group[0]], a2=a2, b2=b2)
+        g = len(group)
+        if a.dim() == 2:  # (m, G n): the shared rows against each session's
+            blk = blk.view(blk.shape[0], g, -1).permute(1, 0, 2)
+        elif b.dim() == 2:  # (G m, n): each session's rows against the shared
+            blk = blk.view(g, -1, blk.shape[1])
+        else:  # (G m, G n): keep the diagonal blocks
+            blk = torch.diagonal(blk.view(g, a.shape[1], g, b.shape[1]), dim1=0, dim2=2)
+            blk = blk.permute(2, 0, 1)
+        if len(groups) == 1:
+            return blk
+        if out is None:
+            out = blk.new_empty((k, *blk.shape[1:]))
+        out[index] = blk
+    return out
 
 
 def rbf_kernel_blockwise(

@@ -13,9 +13,16 @@ resumed from its checkpoint is bit-identical to an uninterrupted one.  Tests
 replace that function with one that hands over JAX's draws.
 
 ``GP.learn_every`` re-learns the hyperparameters from the session's labels
-(:mod:`ital_tpu_torch.models.hyperopt`) every k rounds.  Not ported yet, and
-refused with ``NotImplementedError``: ``mesh_devices``, ``query_batch`` and
-``fused_sessions``.
+(:mod:`ital_tpu_torch.models.hyperopt`) every k rounds.
+
+``EXPERIMENT.query_batch = K`` runs the sessions in cohorts of K on one
+stacked state (:class:`ital_tpu_torch.models.gp.StackedGPState`, kept for all
+of a cohort's rounds): one stacked selection and one stacked GP update
+advance the whole cohort each round.  ``EXPERIMENT.fused_sessions`` issues
+each session's (or, with ``query_batch``, each cohort's) rounds with no host
+sync between them and reads its AP curve once at the end.  Both draw as the
+serial path draws, so the curves are the serial path's.  Not ported yet, and
+refused with ``NotImplementedError``: ``mesh_devices``.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ from ital_tpu_torch.data import datasets as ds_mod
 from ital_tpu_torch.data.user import feedback_from_uniforms
 from ital_tpu_torch.models import gp as gp_mod
 from ital_tpu_torch.models.hyperopt import fit_hyperparams
-from ital_tpu_torch.select.base import StrategyParams, get_strategy
+from ital_tpu_torch.select.base import StrategyParams, get_stacked_strategy, get_strategy
 from ital_tpu_torch.utils import checkpoint as ckpt
 from ital_tpu_torch.utils.config import ExperimentConfig, apply_matmul_precision
 from ital_tpu_torch.utils.logging import JsonlLogger, Timer, device_mem_mb
@@ -43,31 +50,9 @@ DENSITY_STRATEGIES = {"sud", "tcal", "adapt_al"}
 # Recall@k cutoffs logged beside AP each round.
 RECALL_KS = (10, 50)
 
-# Modes of the reference's runner that the port does not run yet, with the
-# ROADMAP.md item that ports each.
-_UNPORTED = {
-    "mesh_devices": "queue 1 item 15 (parallel/)",
-    "query_batch": "queue 1 item 10 (vmapped cohorts)",
-    "fused_sessions": "queue 1 item 10 (fused sessions)",
-}
-
-
-def _refuse_unported(cfg: ExperimentConfig, names) -> None:
-    requested = {
-        "mesh_devices": bool(cfg.mesh_devices),
-        "query_batch": (cfg.query_batch or 0) > 1,
-        "fused_sessions": bool(cfg.fused_sessions),
-    }
-    for name in names:
-        if requested[name]:
-            raise NotImplementedError(
-                f"{name} is not ported to ital_tpu_torch yet: see ROADMAP.md, {_UNPORTED[name]}"
-            )
-
-
-def _steady_ms(val):
-    """round(val, 3), passing through None (no steady span recorded)."""
-    return None if val is None else round(val, 3)
+def _steady_ms(val, div: int = 1):
+    """round(val / div, 3), passing through None (no steady span recorded)."""
+    return None if val is None else round(val / max(div, 1), 3)
 
 
 def _check_capacity(cfg: ExperimentConfig, *, query_slots: int = 1) -> None:
@@ -152,9 +137,14 @@ def run_experiment(
 
     The result holds ``ap`` (n_sessions, n_rounds), the ``map`` curve, mean
     ``select_ms``/``update_ms``, their steady medians (first round excluded),
-    ``first_round_ms``, the session list and the device's name.
+    ``first_round_ms``, the session list and the device's name; the cohort
+    and fused modes the reference's keys for them (:func:`_run_stacked`).
     """
-    _refuse_unported(cfg, _UNPORTED)
+    if cfg.mesh_devices:
+        raise NotImplementedError(
+            "mesh_devices is not ported to ital_tpu_torch yet: see ROADMAP.md, "
+            "queue 1 item 15 (parallel/)"
+        )
     dev = torch.device(device)
     if dataset is None:
         dataset = ds_mod.load_dataset(cfg.dataset, **cfg.dataset_kwargs)
@@ -174,11 +164,19 @@ def run_experiment(
         tradeoff=float(cfg.method_kwargs.get("tradeoff", 0.5)),
     )
     select_kwargs = {k: v for k, v in cfg.method_kwargs.items() if k != "tradeoff"}
+    plan = _session_plan(cfg, dataset)
+    if (cfg.query_batch or 0) > 1:
+        return _run_stacked(cfg, dataset, state0, params, select_kwargs, plan)
+    if cfg.fused_sessions:
+        if cfg.checkpoint_dir or cfg.resume or cfg.profile_dir:
+            print("# fused_sessions runs each session as one device program; "
+                  "checkpoint_dir/resume/profile_dir are serial-mode features "
+                  "and are ignored here")
+        return _run_stacked(cfg, dataset, state0, params, select_kwargs, plan)
     select = get_strategy(cfg.method)
 
     logger = JsonlLogger(cfg.log_jsonl)
     timer = Timer(dev)
-    plan = _session_plan(cfg, dataset)
     ap_curves = []
     try:
         with _profiled(cfg.profile_dir, dev):
@@ -261,6 +259,137 @@ def _run_session(cfg, state0, params, select, select_kwargs, dataset, rep, c, q,
                               extra={"curve": np.asarray(curve), "next_round": rnd + 1})
         _maybe_inject_fault(rnd)
     return curve
+
+
+def _run_stacked(cfg, dataset, state0, params, select_kwargs, plan) -> Dict[str, Any]:
+    """The cohort (``query_batch``) and fused (``fused_sessions``) modes.
+
+    Sessions run in cohorts of ``query_batch`` (1 without it; the last
+    cohort may be short), each on one :class:`~gp_mod.StackedGPState` for
+    all of its rounds: per round one stacked selection, the simulated users,
+    one :func:`~gp_mod.gp_update_stacked` and the K APs, with each session's
+    own draws (:func:`round_draws`) and, with ``GP.learn_every``, its own
+    re-learned hyperparameters at the serial path's cadence.  Unfused, each
+    round's APs come to the host and each session logs a row per round.
+    Fused, every round's draws are made before the first round is issued,
+    the rounds then run with no host sync, and the AP curves come to the
+    host once per cohort.  ``GP.refit_every`` is ignored, as the reference
+    ignores it here.
+    """
+    if cfg.gp.refit_every:
+        print("# GP.refit_every is a serial/per-round-sharded feature; the "
+              "fused/cohort device programs keep the pure incremental append "
+              "(drift measured benign - ARCHITECTURE.md) and ignore it")
+    dev = state0.mu.device
+    n = dataset.n
+    select = get_stacked_strategy(cfg.method)
+    size = max(cfg.query_batch or 0, 1)
+    logger = JsonlLogger(cfg.log_jsonl)
+    timer = Timer(dev)
+    span = "round" if size > 1 else "session"
+    ap_rows = np.zeros((len(plan), cfg.n_rounds))
+    try:
+        for start in range(0, len(plan), size):
+            chunk = plan[start:start + size]
+            k = len(chunk)
+            relevant = torch.from_numpy(
+                np.stack([dataset.relevance[:, c] for _, c, _ in chunk])).to(dev)
+            exclude = torch.zeros((k, n), dtype=torch.bool)
+            exclude[torch.arange(k), torch.tensor([q for *_, q in chunk])] = True
+            exclude = exclude.to(dev)
+
+            def advance(st, rnd, draws):
+                return _cohort_round(cfg, st, select, params, select_kwargs, draws,
+                                     relevant, exclude, rnd)
+
+            if not cfg.fused_sessions:
+                st = _stack_queries(state0, chunk)
+                for rnd in range(cfg.n_rounds):
+                    draws = _cohort_draws(cfg, chunk, rnd, dev)
+                    with timer.span("round"):
+                        aps = advance(st, rnd, draws).cpu().numpy()
+                    ap_rows[start:start + k, rnd] = aps
+                    for j, (rep, c, q) in enumerate(chunk):
+                        logger.log(rep=rep, cls=c, query=q, round=rnd, ap=float(aps[j]),
+                                   round_ms=timer.last_ms("round"), query_batch=cfg.query_batch)
+                continue
+            with timer.span(span):
+                draws = [_cohort_draws(cfg, chunk, rnd, dev) for rnd in range(cfg.n_rounds)]
+                st = _stack_queries(state0, chunk)
+                curves = torch.stack([advance(st, rnd, draws[rnd])
+                                      for rnd in range(cfg.n_rounds)], dim=1)
+                curves = curves.cpu().numpy()  # the one host sync
+            ap_rows[start:start + k] = curves
+            took = round(timer.last_ms(span), 3)
+            fields = ({"session_ms": took} if size == 1
+                      else {"cohort_ms": took, "query_batch": cfg.query_batch})
+            for j, (rep, c, q) in enumerate(chunk):
+                logger.log(rep=rep, cls=c, query=q, ap_curve=[float(v) for v in curves[j]],
+                           **fields)
+    finally:
+        logger.close()
+
+    per_round = cfg.n_rounds if size == 1 else 1
+    out = {
+        "ap": ap_rows,
+        "map": ap_rows.mean(axis=0) if ap_rows.size else np.zeros(cfg.n_rounds),
+        "select_ms": timer.ms(span) / per_round,
+        "update_ms": 0.0,
+        "select_ms_steady": _steady_ms(timer.median_ms(span), per_round),
+        "first_round_ms": round(timer.first_ms(span), 3),
+        "sessions": [{"rep": rep, "cls": c, "query": q} for rep, c, q in plan],
+        "dataset": dataset.name,
+        "method": cfg.method,
+        "device": _device_name(dev),
+    }
+    out.update({"fused": True} if size == 1 else {"query_batch": cfg.query_batch})
+    return out
+
+
+def _stack_queries(state0, chunk) -> gp_mod.StackedGPState:
+    """A cohort's stacked state: each session set to its query on its own buffers."""
+    return gp_mod.stack_states([gp_mod.gp_set_query(gp_mod.gp_session_copy(state0), q)
+                                for _, _, q in chunk])
+
+
+def _cohort_draws(cfg, chunk, rnd, dev):
+    """Round ``rnd``'s draws of each session of a cohort: the generators and
+    the users' (K, b) uniforms."""
+    draws = [round_draws(cfg.seed, rep, c, q, rnd, cfg.batch_size, dev) for rep, c, q in chunk]
+    return ([d[0] for d in draws], torch.stack([d[1] for d in draws]),
+            torch.stack([d[2] for d in draws]))
+
+
+def _cohort_round(cfg, st, select, params, select_kwargs, draws, relevant, exclude, rnd):
+    """One round of a cohort on its stacked state: select, users, update, AP,
+    then the re-learn where the cadence falls (after the AP, as the serial
+    path).  Returns the (K,) APs on the device."""
+    generators, u_label, u_flip = draws
+    batch = select(st, cfg.batch_size, generators, params, **select_kwargs)
+    y, valid = feedback_from_uniforms(u_label, u_flip, batch, relevant,
+                                      params.label_prob, params.mistake_prob)
+    gp_mod.gp_update_stacked(st, batch, y, valid)
+    ap = average_precision(st.mu, relevant, exclude)
+    if cfg.gp.learn_every and (rnd + 1) % cfg.gp.learn_every == 0:
+        _relearn_stacked(st, cfg)
+    return ap
+
+
+def _relearn_stacked(st: gp_mod.StackedGPState, cfg: ExperimentConfig) -> None:
+    """:func:`_relearn_hyperparams` for each session of a stack, written back
+    into the stack; the stack's hyperparameters are replaced, not written,
+    since a session's may be shared with others."""
+    hyper = {f: getattr(st.hyper, f).clone() for f in ("length_scale", "var", "noise")}
+    for k in range(st.k):
+        fitted = _relearn_hyperparams(gp_mod.session_state(st, k), cfg)
+        for f in ("l", "beta", "v", "mu", "sig2"):
+            getattr(st, f)[k].copy_(getattr(fitted, f))
+        for f in hyper:
+            hyper[f][k] = getattr(fitted.hyper, f)
+    st.hyper = gp_mod.GPHyper(**hyper)
+    # Sessions learned from their own labels: one group each, decided
+    # without reading the values back (a host sync the fused mode avoids).
+    st.hyper_groups = [[k] for k in range(st.k)]
 
 
 def _learn_kwargs(cfg: ExperimentConfig, state: gp_mod.GPState) -> Dict[str, Any]:

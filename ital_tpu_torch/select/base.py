@@ -7,6 +7,12 @@ A strategy is a function over the GP state::
 returning the next batch of corpus indices to show the user, on the state's
 device.  ``generator`` (a ``torch.Generator`` on that device) feeds
 strategies with random components; deterministic strategies ignore it.
+
+Its stacked form selects for a cohort of K sessions over one corpus::
+
+    select(st: StackedGPState, batch_size, generators, params) -> (K, b) int64
+
+with one generator per session (:func:`get_stacked_strategy`).
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ from typing import Callable, Dict
 
 import torch
 
-from ital_tpu_torch.models.gp import GPState
+from ital_tpu_torch.models.gp import GPState, StackedGPState, session_state
 
 
 @dataclasses.dataclass
@@ -71,6 +77,33 @@ def get_strategy(name: str) -> SelectFn:
         ) from None
 
 
+# Strategies with a stacked form of their own (ITAL's select_ital_stacked).
+STACKED: Dict[str, SelectFn] = {}
+
+
+def register_stacked(name: str):
+    def deco(fn: SelectFn) -> SelectFn:
+        STACKED[name] = fn
+        return fn
+
+    return deco
+
+
+def get_stacked_strategy(name: str) -> SelectFn:
+    """The stacked form of strategy ``name``: its own where it has one, else
+    a loop of the strategy over the stack's sessions, one after another,
+    with the same options and the same results."""
+    select = get_strategy(name)
+    if name in STACKED:
+        return STACKED[name]
+
+    def each_session(st: StackedGPState, batch_size, generators, params, **kwargs):
+        return torch.stack([select(session_state(st, k), batch_size, g, params, **kwargs)
+                            for k, g in enumerate(generators)])
+
+    return each_session
+
+
 def declared_method_kwargs(name: str) -> frozenset:
     """Names of the keyword-only options strategy ``name`` declares."""
     sig = inspect.signature(get_strategy(name))
@@ -95,14 +128,15 @@ def validate_method_kwargs(name: str, kwargs: dict) -> None:
         )
 
 
-def labeled_mask(state: GPState) -> torch.Tensor:
-    """(N,) bool — True at corpus indices that must not be selected again.
+def labeled_mask(state: GPState | StackedGPState) -> torch.Tensor:
+    """(N,) bool — True at corpus indices that must not be selected again;
+    (K, N) for a stack of K sessions.
 
     Only valid labels are excluded: skipped items stay in the candidate pool.
     """
-    n = state.x.shape[0]
-    hits = torch.zeros(n, dtype=torch.int32, device=state.idx.device)
-    return hits.index_add_(0, state.idx, state.active.to(torch.int32)) > 0
+    hits = torch.zeros((*state.idx.shape[:-1], state.x.shape[0]), dtype=torch.int32,
+                       device=state.idx.device)
+    return hits.scatter_add_(-1, state.idx, state.active.to(torch.int32)) > 0
 
 
 def greedy_argmax_batch(score_fn, state: GPState, batch_size: int) -> torch.Tensor:

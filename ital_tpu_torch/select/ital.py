@@ -16,6 +16,11 @@ Modes: the compact pool (``pool_size``, top items by posterior mean, or
 scan; each with the fixed lattice or a random shift per greedy step
 (``randomize_qmc``).  Greedy picks never wait on the host: the batch stays on
 the device until the caller reads it.
+
+:func:`select_ital_stacked` selects for K sessions over one corpus at once
+(the reference's ``jax.vmap(select_ital)``): each greedy step gathers every
+session's moments, scores all their candidates in one MI call and takes each
+session's argmax.  :func:`select_ital` is its one-session case.
 """
 
 from __future__ import annotations
@@ -27,9 +32,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ital_tpu_torch.models.gp import GPState, gp_posterior_cov_columns, gp_predict_full
+from ital_tpu_torch.models.gp import GPState, StackedGPState, stacked_view
 from ital_tpu_torch.ops.blocking import blocked_map
-from ital_tpu_torch.ops.kernels import rbf_kernel
+from ital_tpu_torch.ops.kernels import rbf_sessions
 from ital_tpu_torch.ops.mvn import (
     orthant_probs_all_configs_tree,
     replicate_mean_and_error,
@@ -38,9 +43,9 @@ from ital_tpu_torch.ops.mvn import (
 )
 from ital_tpu_torch.select.base import (
     StrategyParams,
-    greedy_argmax_batch,
     labeled_mask,
     register,
+    register_stacked,
 )
 from ital_tpu_torch.utils.metrics import top_k_stable
 
@@ -99,20 +104,6 @@ def mutual_information_from_relevance(p_r: torch.Tensor, pfr: torch.Tensor) -> t
     return h_f + p_r @ neg_h_f_given_r
 
 
-def _joint_posterior(
-    state: GPState, batch: torch.Tensor, t: int, jitter: torch.Tensor
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Joint predictive pieces over batch[:t] + each candidate.
-
-    Returns (mu_b (t,), cov_bb (t,t), cross (N,t), jittered sig2 (N,)).
-    """
-    bsel = batch[:t]
-    mu_b, cov_bb = gp_predict_full(state, bsel)
-    cov_bb = cov_bb + jitter * torch.eye(t, dtype=cov_bb.dtype, device=cov_bb.device)
-    cross = gp_posterior_cov_columns(state, bsel)  # (N, t)
-    return mu_b, cov_bb, cross, state.sig2 + jitter
-
-
 def mi_scores_from_moments(
     mu_cand: torch.Tensor,
     sig2_cand: torch.Tensor,
@@ -131,29 +122,35 @@ def mi_scores_from_moments(
     Args:
       mu_cand/sig2_cand: (Nc,) candidate posterior mean / (jittered) variance.
       cross: (Nc, t) posterior covariance candidate<->batch members.
-      mu_b: (t,) batch posterior mean; cov_bb: (t, t) jittered batch covariance.
-      shift: optional (t,) Cranley-Patterson lattice shift in [0,1), shared
-        by every candidate; ``None`` uses the unshifted lattice.
+      mu_b: (t,) batch posterior mean; cov_bb: (t, t) jittered batch
+        covariance; both shared by every candidate, or (Nc, t) and
+        (Nc, t, t), one partial batch per candidate (stacked sessions).
+      shift: optional Cranley-Patterson lattice shift in [0,1), (t,) shared
+        by every candidate or (Nc, t) with per-candidate moments; ``None``
+        uses the unshifted lattice.
     """
     m = t + 1
     pfr = feedback_given_relevance(m, params.label_prob, params.mistake_prob)
+    streamed = [mu_cand, sig2_cand, cross]
+    pads = [0.0, 1.0, 0.0]  # variance 1.0 keeps pad rows' Cholesky SPD
+    if mu_b.dim() == 2:
+        streamed += [mu_b, cov_bb] + ([] if shift is None else [shift])
+        pads += [0.0, 0.0] + ([] if shift is None else [0.0])
 
-    def score_block(mu_c, sig2_c, cross_c):
+    def score_block(mu_c, sig2_c, cross_c, mu_bc=mu_b, cov_bbc=cov_bb, shift_c=shift):
         nb = mu_c.shape[0]
-        mu = torch.cat([mu_b.expand(nb, t), mu_c[:, None]], dim=1)  # (nb, m)
+        mu = torch.cat([mu_bc.expand(nb, t), mu_c[:, None]], dim=1)  # (nb, m)
         cov = torch.zeros((nb, m, m), dtype=mu.dtype, device=mu.device)
         if t > 0:
-            cov[:, :t, :t] = cov_bb
+            cov[:, :t, :t] = cov_bbc
             cov[:, :t, t] = cross_c
             cov[:, t, :t] = cross_c
         cov[:, t, t] = sig2_c
         p_r = orthant_probs_all_configs_tree(mu, small_cholesky(cov),
-                                             n_points=n_qmc, shift=shift)
+                                             n_points=n_qmc, shift=shift_c)
         return mutual_information_from_relevance(p_r, pfr)
 
-    # Pad variance with 1.0 so the per-candidate Cholesky stays SPD on pad rows.
-    return blocked_map(score_block, (mu_cand, sig2_cand, cross), block=block,
-                       pad_values=(0.0, 1.0, 0.0))
+    return blocked_map(score_block, streamed, block=block, pad_values=pads)
 
 
 def mi_with_error(
@@ -178,6 +175,68 @@ def mi_with_error(
     return replicate_mean_and_error(mutual_information_from_relevance(p_r, pfr))
 
 
+def _session_scores(
+    mu_c: torch.Tensor,
+    sig2_c: torch.Tensor,
+    cross: torch.Tensor,
+    mu_b: torch.Tensor,
+    cov_bb: torch.Tensor,
+    params: StrategyParams,
+    *,
+    t: int,
+    n_qmc: int,
+    block: int = MI_BLOCK,
+    shift: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """(K, P) MI of K sessions' P candidates each, in one
+    :func:`mi_scores_from_moments` call: the moments are (K, P), (K, P, t),
+    (K, t) and (K, t, t), and ``shift`` (K, t); each candidate carries its
+    session's partial batch, except for one session, whose candidates share
+    it."""
+    k, p = mu_c.shape
+
+    def each(a):
+        if k == 1:
+            return a[0]
+        return a[:, None].expand(k, p, *a.shape[1:]).reshape(k * p, *a.shape[1:])
+
+    scores = mi_scores_from_moments(
+        mu_c.reshape(-1), sig2_c.reshape(-1), cross.reshape(k * p, t), each(mu_b),
+        each(cov_bb), params, t=t, n_qmc=n_qmc, block=block,
+        shift=None if shift is None else each(shift),
+    )
+    return scores.view(k, p)
+
+
+def _refined_picks(
+    scores_masked: torch.Tensor,
+    mu_c: torch.Tensor,
+    sig2_c: torch.Tensor,
+    cross: torch.Tensor,
+    mu_b: torch.Tensor,
+    cov_bb: torch.Tensor,
+    params: StrategyParams,
+    *,
+    t: int,
+    refine_top: int,
+    refine_n_qmc: int,
+    shift: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """(K,) two-stage greedy picks of K sessions: each session's
+    ``refine_top`` best base-scan candidates (ineligible ones at -inf in
+    ``scores_masked`` (K, P)) re-scored at ``refine_n_qmc`` points, all in one
+    MI call, and each session's argmax over its refined estimates (ties to
+    the better base score), as local indices into ``scores_masked``."""
+    vals, top = top_k_stable(scores_masked, refine_top)  # (K, R)
+    refined = _session_scores(
+        mu_c.gather(1, top), sig2_c.gather(1, top),
+        cross.gather(1, top[..., None].expand(-1, -1, t)), mu_b, cov_bb, params,
+        t=t, n_qmc=refine_n_qmc, shift=shift,
+    )
+    refined = torch.where(torch.isfinite(vals), refined, -torch.inf)
+    return top.gather(1, torch.argmax(refined, dim=1, keepdim=True))[:, 0]
+
+
 def refined_pick(
     scores_masked: torch.Tensor,
     mu_cand: torch.Tensor,
@@ -199,61 +258,49 @@ def refined_pick(
     is taken over the refined estimates.  Returns the winner's local index
     into ``scores_masked`` as a 0-d tensor.
     """
-    vals, top = top_k_stable(scores_masked, refine_top)
-    refined = mi_scores_from_moments(
-        mu_cand[top], sig2_cand[top], cross[top], mu_b, cov_bb, params,
-        t=t, n_qmc=refine_n_qmc, shift=shift,
-    )
-    refined = torch.where(torch.isfinite(vals), refined, -torch.inf)
-    return top[torch.argmax(refined)]
+    return _refined_picks(
+        scores_masked[None], mu_cand[None], sig2_cand[None], cross[None], mu_b[None],
+        cov_bb[None], params, t=t, refine_top=refine_top, refine_n_qmc=refine_n_qmc,
+        shift=None if shift is None else shift[None],
+    )[0]
 
 
-def score_candidates_mi(
-    state: GPState,
-    batch: torch.Tensor,
-    t: int,
+def _session_moments(
+    st: StackedGPState,
     params: StrategyParams,
-    *,
-    n_qmc: int = 128,
-    block: int = MI_BLOCK,
-    shift: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """(N,) mutual information of appending each corpus point to ``batch[:t]``."""
-    mu_b, cov_bb, cross, sig2 = _joint_posterior(state, batch, t, params.jitter)
-    return mi_scores_from_moments(
-        state.mu, sig2, cross, mu_b, cov_bb, params, t=t, n_qmc=n_qmc,
-        block=block, shift=shift,
-    )
+    bsel: torch.Tensor,
+    pool: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Joint moments of K sessions' candidates against their partial batches
+    ``bsel`` (K, t).
 
-
-def candidate_pool_indices(
-    state: GPState, ranking: torch.Tensor, pool_size: int
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top-``pool_size`` unlabeled candidates by ``ranking``, as indices.
-
-    Returns ``(pool_idx (pool,) int64, pool_forbid (pool,) bool)``: the corpus
-    indices in descending-``ranking`` order, plus a flag on slots that fell on
-    excluded rows (only when the pool exceeds the selectable candidates).
-    Ties go to the lowest index, as with ``jax.lax.top_k``.
+    ``pool``: the candidates' features (K, P, D) and whitened columns
+    (K, cap, P); ``None`` takes the whole corpus as every session's
+    candidates.  Returns (mu_b (K, t), jittered cov_bb (K, t, t),
+    cross (K, P, t)).  The RBF blocks take one kernel launch per group of
+    sessions with equal hyperparameters: the batch block (t, t) and the
+    candidates' block, (P, t) per session from the stacked (K P, K t) block's
+    diagonal for a pool, or (N, K t) against the shared corpus.
     """
-    ranked = torch.where(labeled_mask(state), -torch.inf, ranking)
-    vals, pool_idx = top_k_stable(ranked, pool_size)
-    return pool_idx, ~torch.isfinite(vals)
-
-
-def _step_shift(
-    qmc_shifts: Optional[Sequence[torch.Tensor]], t: int
-) -> Optional[torch.Tensor]:
-    """Greedy step ``t``'s (t,) lattice shift, or None for the fixed lattice."""
-    return None if qmc_shifts is None else qmc_shifts[t]
-
-
-def draw_qmc_shifts(
-    generator: Optional[torch.Generator], batch_size: int, dtype: torch.dtype, device
-) -> list[torch.Tensor]:
-    """One uniform (t,) Cranley-Patterson shift per greedy step t, from ``generator``."""
-    return [torch.rand(t, generator=generator, dtype=dtype, device=device)
-            for t in range(batch_size)]
+    k, t = bsel.shape
+    dt, dev = st.mu.dtype, st.mu.device
+    n_cand = st.x.shape[0] if pool is None else pool[0].shape[1]
+    if t == 0:
+        return (torch.zeros((k, 0), dtype=dt, device=dev),
+                torch.zeros((k, 0, 0), dtype=dt, device=dev),
+                torch.zeros((k, n_cand, 0), dtype=dt, device=dev))
+    h, groups = st.hyper, st.hyper_groups
+    mu_b = st.mu.gather(1, bsel)
+    xs = st.x[bsel]  # (K, t, D)
+    vs = st.v.gather(2, bsel[:, None, :].expand(-1, st.cap, -1))  # (K, cap, t)
+    k_bb = rbf_sessions(xs, xs, h.length_scale, h.var, groups)
+    cov_bb = k_bb - vs.mT @ vs + params.jitter * torch.eye(t, dtype=dt, device=dev)
+    if pool is None:
+        k_cb = rbf_sessions(st.x, xs, h.length_scale, h.var, groups, a2=st.x2)
+        return mu_b, cov_bb, k_cb - st.v.mT @ vs
+    x_pool, v_pool = pool
+    k_cb = rbf_sessions(x_pool, xs, h.length_scale, h.var, groups)
+    return mu_b, cov_bb, k_cb - v_pool.mT @ vs
 
 
 def pool_batch_moments(
@@ -269,63 +316,168 @@ def pool_batch_moments(
     whitened columns.  Returns (mu_b (t,), jittered cov_bb (t, t),
     cross (pool, t)).
     """
-    dt = state.mu.dtype
-    dev = state.mu.device
-    t = bsel.shape[0]
-    if t == 0:
-        return (state.mu[bsel], torch.zeros((0, 0), dtype=dt, device=dev),
-                torch.zeros((x_pool.shape[0], 0), dtype=dt, device=dev))
-    h = state.hyper
-    mu_b, cov_bb = gp_predict_full(state, bsel)
-    cov_bb = cov_bb + params.jitter * torch.eye(t, dtype=dt, device=dev)
-    k_pb = rbf_kernel(x_pool, state.x[bsel], h.length_scale, h.var)
-    return mu_b, cov_bb, k_pb - v_pool.T @ state.v[:, bsel]
+    out = _session_moments(stacked_view(state), params, bsel[None],
+                           (x_pool[None], v_pool[None]))
+    return tuple(a[0] for a in out)
 
 
-def _select_ital_pool(
+def score_candidates_mi(
     state: GPState,
+    batch: torch.Tensor,
+    t: int,
+    params: StrategyParams,
+    *,
+    n_qmc: int = 128,
+    block: int = MI_BLOCK,
+    shift: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """(N,) mutual information of appending each corpus point to ``batch[:t]``."""
+    st = stacked_view(state)
+    mu_b, cov_bb, cross = _session_moments(st, params, batch[None, :t])
+    return _session_scores(st.mu, st.sig2 + params.jitter, cross, mu_b, cov_bb, params,
+                           t=t, n_qmc=n_qmc, block=block,
+                           shift=None if shift is None else shift[None])[0]
+
+
+def candidate_pool_indices(
+    state: GPState | StackedGPState, ranking: torch.Tensor, pool_size: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-``pool_size`` unlabeled candidates by ``ranking``, as indices.
+
+    Returns ``(pool_idx (pool,) int64, pool_forbid (pool,) bool)``: the corpus
+    indices in descending-``ranking`` order, plus a flag on slots that fell on
+    excluded rows (only when the pool exceeds the selectable candidates).
+    Ties go to the lowest index, as with ``jax.lax.top_k``.  For a stack of K
+    sessions, ``ranking`` is (K, N) and both results (K, pool).
+    """
+    ranked = torch.where(labeled_mask(state), -torch.inf, ranking)
+    vals, pool_idx = top_k_stable(ranked, pool_size)
+    return pool_idx, ~torch.isfinite(vals)
+
+
+def draw_qmc_shifts(
+    generator: Optional[torch.Generator], batch_size: int, dtype: torch.dtype, device
+) -> list[torch.Tensor]:
+    """One uniform (t,) Cranley-Patterson shift per greedy step t, from ``generator``."""
+    return [torch.rand(t, generator=generator, dtype=dtype, device=device)
+            for t in range(batch_size)]
+
+
+def _greedy_picks(
+    st: StackedGPState,
     batch_size: int,
     params: StrategyParams,
-    pool_idx: torch.Tensor,
-    pool_forbid: torch.Tensor,
+    pool_idx: Optional[torch.Tensor],
+    forbid: torch.Tensor,
     *,
     n_qmc: int,
+    block: int,
+    refine_top: int,
+    refine_n_qmc: int,
+    qmc_shifts: Optional[Sequence[torch.Tensor]],
+) -> torch.Tensor:
+    """(K, batch_size) greedy ITAL batches of K sessions.
+
+    Candidates are each session's pool ``pool_idx`` (K, P), or the whole
+    corpus where it is None; ``forbid`` (K, P) marks the ineligible ones.
+    Only the candidates' moments are gathered and scored, so a pool's picks
+    equal those of the full scan masked to the pool, up to argmax tie order.
+    """
+    k = st.k
+    if pool_idx is None:
+        pool = None
+        mu_c, sig2_c = st.mu, st.sig2 + params.jitter
+    else:
+        pool = (st.x[pool_idx], st.v.gather(2, pool_idx[:, None, :].expand(-1, st.cap, -1)))
+        mu_c = st.mu.gather(1, pool_idx)
+        sig2_c = st.sig2.gather(1, pool_idx) + params.jitter
+    batch = torch.zeros((k, batch_size), dtype=torch.int64, device=st.idx.device)
+    forbid = forbid.clone()
+    for t in range(batch_size):
+        shift = None if qmc_shifts is None else qmc_shifts[t]
+        mu_b, cov_bb, cross = _session_moments(st, params, batch[:, :t], pool)
+        scores = _session_scores(mu_c, sig2_c, cross, mu_b, cov_bb, params, t=t,
+                                 n_qmc=n_qmc, block=block, shift=shift)
+        scores = torch.where(forbid, -torch.inf, scores)
+        if refine_top:
+            p = _refined_picks(scores, mu_c, sig2_c, cross, mu_b, cov_bb, params, t=t,
+                               refine_top=min(refine_top, forbid.shape[1]),
+                               refine_n_qmc=refine_n_qmc, shift=shift)
+        else:
+            p = torch.argmax(scores, dim=1)
+        batch[:, t] = p if pool_idx is None else pool_idx.gather(1, p[:, None])[:, 0]
+        forbid.scatter_(1, p[:, None], True)
+    return batch
+
+
+@register_stacked("ital")
+def select_ital_stacked(
+    st: StackedGPState,
+    batch_size: int,
+    generators: Sequence[Optional[torch.Generator]],
+    params: StrategyParams,
+    *,
+    n_qmc: int = 128,
     block: int = MI_BLOCK,
+    pool_size: int = 0,
+    subsample_size: int = 0,
     refine_top: int = 0,
     refine_n_qmc: int = 512,
     qmc_shifts: Optional[Sequence[torch.Tensor]] = None,
+    randomize_qmc: bool = False,
+    subsample_uniforms: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Greedy ITAL over a compact candidate pool — cost scales with the pool.
+    """(K, batch_size) ITAL batches of the K sessions of ``st`` (the
+    reference's ``jax.vmap(select_ital)``), each the batch
+    :func:`select_ital` picks for that session alone.
 
-    Only the pool's moments are gathered and scored; the picks equal those of
-    the full scan masked to the pool, up to argmax tie order.
+    Options as :func:`select_ital`.  Session k draws from ``generators[k]``
+    in the order its own selection draws: its subsample uniforms first, then
+    one shift per greedy step.  Fed draws: ``subsample_uniforms`` (K, N) and
+    ``qmc_shifts``, one (K, t) shift per step t.
     """
-    x_pool = state.x[pool_idx]  # (pool, D)
-    v_pool = state.v[:, pool_idx]  # (cap, pool)
-    mu_pool = state.mu[pool_idx]
-    sig2_pool = state.sig2[pool_idx] + params.jitter
-
-    batch = torch.zeros(batch_size, dtype=torch.int64, device=pool_idx.device)
-    forbid = pool_forbid.clone()
-    for t in range(batch_size):
-        shift = _step_shift(qmc_shifts, t)
-        mu_b, cov_bb, cross = pool_batch_moments(state, params, x_pool, v_pool, batch[:t])
-        scores = mi_scores_from_moments(
-            mu_pool, sig2_pool, cross, mu_b, cov_bb, params,
-            t=t, n_qmc=n_qmc, block=block, shift=shift,
+    if batch_size > MAX_MI_BATCH:
+        raise ValueError(
+            f"ITAL batch_size={batch_size} exceeds the supported maximum "
+            f"{MAX_MI_BATCH}: the feedback-configuration table grows 3^m "
+            f"(={3 ** batch_size}) and the fixed-lattice QMC accuracy is "
+            f"measured only through m={MAX_MI_BATCH}; use a smaller batch or "
+            f"multiple rounds"
         )
-        scores = torch.where(forbid, -torch.inf, scores)
-        if refine_top:
-            p = refined_pick(
-                scores, mu_pool, sig2_pool, cross, mu_b, cov_bb, params,
-                t=t, refine_top=min(refine_top, pool_idx.shape[0]),
-                refine_n_qmc=refine_n_qmc, shift=shift,
-            )
-        else:
-            p = torch.argmax(scores)
-        batch[t] = pool_idx[p]
-        forbid[p] = True
-    return batch
+    if pool_size and subsample_size:
+        raise ValueError(
+            "pool_size and subsample_size are mutually exclusive candidate "
+            "restrictions (reference ITAL applies one or the other)"
+        )
+    if qmc_shifts is not None and len(qmc_shifts) < batch_size:
+        raise ValueError(
+            f"qmc_shifts needs one shift per greedy step ({batch_size}), "
+            f"got {len(qmc_shifts)}"
+        )
+
+    n = st.x.shape[0]
+    dt, dev = st.mu.dtype, st.mu.device
+    draw_u = subsample_size and subsample_uniforms is None
+    draw_shifts = randomize_qmc and qmc_shifts is None
+    if draw_u or draw_shifts:
+        us, shifts = [], []
+        for g in generators:
+            if draw_u:
+                us.append(torch.rand(n, generator=g, dtype=dt, device=dev))
+            if draw_shifts:
+                shifts.append(draw_qmc_shifts(g, batch_size, dt, dev))
+        if draw_u:
+            subsample_uniforms = torch.stack(us)
+        if draw_shifts:
+            qmc_shifts = [torch.stack([s[t] for s in shifts]) for t in range(batch_size)]
+    if pool_size or subsample_size:
+        ranking = st.mu if pool_size else subsample_uniforms
+        pool_idx, forbid = candidate_pool_indices(st, ranking, min(pool_size or subsample_size, n))
+    else:
+        pool_idx, forbid = None, labeled_mask(st)
+    return _greedy_picks(st, batch_size, params, pool_idx, forbid, n_qmc=n_qmc, block=block,
+                         refine_top=refine_top, refine_n_qmc=refine_n_qmc,
+                         qmc_shifts=qmc_shifts)
 
 
 @register("ital")
@@ -363,67 +515,10 @@ def select_ital(
     items of an (N,) uniform draw, ``subsample_uniforms`` where given, else
     drawn from ``generator`` before the shifts.
     """
-    if batch_size > MAX_MI_BATCH:
-        raise ValueError(
-            f"ITAL batch_size={batch_size} exceeds the supported maximum "
-            f"{MAX_MI_BATCH}: the feedback-configuration table grows 3^m "
-            f"(={3 ** batch_size}) and the fixed-lattice QMC accuracy is "
-            f"measured only through m={MAX_MI_BATCH}; use a smaller batch or "
-            f"multiple rounds"
-        )
-    if pool_size and subsample_size:
-        raise ValueError(
-            "pool_size and subsample_size are mutually exclusive candidate "
-            "restrictions (reference ITAL applies one or the other)"
-        )
-    if qmc_shifts is not None and len(qmc_shifts) < batch_size:
-        raise ValueError(
-            f"qmc_shifts needs one shift per greedy step ({batch_size}), "
-            f"got {len(qmc_shifts)}"
-        )
-
-    n = state.mu.shape[0]
-    dt, dev = state.mu.dtype, state.mu.device
-    if subsample_size and subsample_uniforms is None:
-        subsample_uniforms = torch.rand(n, generator=generator, dtype=dt, device=dev)
-    if randomize_qmc and qmc_shifts is None:
-        qmc_shifts = draw_qmc_shifts(generator, batch_size, dt, dev)
-    if pool_size or subsample_size:
-        ranking = state.mu if pool_size else subsample_uniforms
-        pool_idx, pool_forbid = candidate_pool_indices(
-            state, ranking, min(pool_size or subsample_size, n))
-        return _select_ital_pool(
-            state, batch_size, params, pool_idx, pool_forbid, n_qmc=n_qmc,
-            block=block, refine_top=refine_top, refine_n_qmc=refine_n_qmc,
-            qmc_shifts=qmc_shifts,
-        )
-    if not refine_top:
-        return greedy_argmax_batch(
-            lambda batch, t: score_candidates_mi(
-                state, batch, t, params, n_qmc=n_qmc, block=block,
-                shift=_step_shift(qmc_shifts, t),
-            ),
-            state,
-            batch_size,
-        )
-    # Full-corpus scan with two-stage refinement: the per-step moments are
-    # kept so refined_pick re-scores the top candidates without recomputing
-    # the corpus-wide cross-covariance.
-    excluded = labeled_mask(state)
-    batch = torch.zeros(batch_size, dtype=torch.int64, device=state.idx.device)
-    for t in range(batch_size):
-        shift = _step_shift(qmc_shifts, t)
-        mu_b, cov_bb, cross, sig2 = _joint_posterior(state, batch, t, params.jitter)
-        scores = mi_scores_from_moments(
-            state.mu, sig2, cross, mu_b, cov_bb, params, t=t, n_qmc=n_qmc,
-            block=block, shift=shift,
-        )
-        scores = torch.where(excluded, -torch.inf, scores)
-        p = refined_pick(
-            scores, state.mu, sig2, cross, mu_b, cov_bb, params,
-            t=t, refine_top=min(refine_top, n), refine_n_qmc=refine_n_qmc,
-            shift=shift,
-        )
-        batch[t] = p
-        excluded[p] = True
-    return batch
+    return select_ital_stacked(
+        stacked_view(state), batch_size, [generator], params, n_qmc=n_qmc, block=block,
+        pool_size=pool_size, subsample_size=subsample_size, refine_top=refine_top,
+        refine_n_qmc=refine_n_qmc, randomize_qmc=randomize_qmc,
+        qmc_shifts=None if qmc_shifts is None else [s[None] for s in qmc_shifts],
+        subsample_uniforms=None if subsample_uniforms is None else subsample_uniforms[None],
+    )[0]

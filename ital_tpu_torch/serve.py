@@ -19,9 +19,16 @@ Concurrency:
   take many sessions in one request, lock them in one canonical order
   (duplicates dropped first) and keep each session's own semantics: its own
   generator, its own feedback bucket width, its own capacity error.  A
-  compatible group (same strategy, capacity, options and density) runs its
-  sessions one after another here; one stacked device program for the group
-  is ROADMAP.md, queue 1 item 10.
+  compatible group (same strategy, capacity, options and density) selects
+  with one stacked selection over the shared corpus
+  (:func:`ital_tpu_torch.select.base.get_stacked_strategy`; ITAL's is
+  :func:`ital_tpu_torch.select.ital.select_ital_stacked`), and the sessions
+  of one (width, capacity) feedback group take one stacked GP update
+  (:func:`ital_tpu_torch.models.gp.gp_update_stacked`), written back into
+  each session's buffers under its lock.  Groups larger than the memory
+  budget (``ITAL_TPU_COHORT_STATE_BYTES``, :meth:`RetrievalService.
+  _max_cohort_sessions`) run as several stacked programs, with the same
+  results.
 
 API (JSON bodies)::
 
@@ -73,13 +80,29 @@ import torch
 from ital_tpu_torch.models import gp as gp_mod
 from ital_tpu_torch.models.session import ActiveRetrieval, resolve_device
 from ital_tpu_torch.runner import DENSITY_STRATEGIES
-from ital_tpu_torch.select.base import filter_method_kwargs
+from ital_tpu_torch.select.base import filter_method_kwargs, get_stacked_strategy
 from ital_tpu_torch.utils import checkpoint as ckpt
 
 _MESH_UNPORTED = (
     "mesh-sharded serving is not ported to ital_tpu_torch yet: see ROADMAP.md, "
     "queue 1 item 15 (parallel/)"
 )
+
+# Peak device memory a stacked cohort program adds per session, in copies of
+# the session's (cap, N) f32 whitened buffer v: the rise of
+# torch.cuda.max_memory_allocated over K x cap x N x 4 bytes, measured at the
+# production configuration (25 000 x 512, cap 64, pool 4096, K = 8) on an
+# H100 80GB HBM3 at 700 W (chip_smoke.py phase 8: 15.65 and 1.26; PERF.md),
+# rounded up.  The selection's copies are mostly the MI scan's temporaries,
+# which grow with the pool and not with N, so at larger corpora they
+# overstate its need.
+SELECT_COPIES = 16
+UPDATE_COPIES = 2
+# The default of ITAL_TPU_COHORT_STATE_BYTES, the device memory a stacked
+# program may take beyond the live sessions and the corpus: a tenth of the
+# H100's 80 GB.  At 25 000 rows and cap 64 a selection takes 83 sessions at
+# a time, an update 671; at 1M rows 2 and 16.
+COHORT_STATE_BYTES = 8 << 30
 
 
 class NotFound(KeyError):
@@ -230,14 +253,24 @@ class RetrievalService:
         with lock:
             return [int(i) for i in sess.fetch_unlabelled(int(k))]
 
+    def _max_cohort_sessions(self, cap: int, copies: int) -> int:
+        """Largest session group one stacked program takes: the budget
+        (``ITAL_TPU_COHORT_STATE_BYTES``, default :data:`COHORT_STATE_BYTES`)
+        over ``copies`` (cap, N) f32 buffers per session, the program's
+        measured peak (:data:`SELECT_COPIES`, :data:`UPDATE_COPIES`)."""
+        budget = int(os.environ.get("ITAL_TPU_COHORT_STATE_BYTES", COHORT_STATE_BYTES))
+        per = copies * int(cap) * int(self.x.shape[0]) * 4
+        return max(1, budget // per)
+
     def next_batch_many(self, sids: list, k: int) -> Dict[str, list]:
         """Select for many sessions in one request.
 
         A compatible group (identical strategy, capacity, options and shared
-        density) goes to :meth:`_select_cohort_locked`; a mixed one, or a
-        single session, selects per session.  Either way each session draws
-        from its own generator, so the batches are those of one
-        ``GET /batch`` per session.
+        density) goes to :meth:`_select_cohort_locked`, in chunks of at most
+        :meth:`_max_cohort_sessions`; a mixed one, or a single session,
+        selects per session.  Either way each session draws from its own
+        generator, so the batches are those of one ``GET /batch`` per
+        session.
         """
         entries = self._lock_group(sids)
         try:
@@ -248,9 +281,13 @@ class RetrievalService:
                 and len({tuple(sorted(s.method_kwargs.items())) for s in sessions}) == 1
                 and _density_compatible(sessions)
             )
-            if compatible and len(sessions) > 1:
-                return self._select_cohort_locked(entries, int(k))
-            return self._select_each_locked(entries, int(k))
+            if not compatible or len(sessions) == 1:
+                return self._select_each_locked(entries, int(k))
+            limit = self._max_cohort_sessions(sessions[0].state.cap, SELECT_COPIES)
+            out: Dict[str, list] = {}
+            for i in range(0, len(entries), limit):
+                out.update(self._select_cohort_locked(entries[i:i + limit], int(k)))
+            return out
         finally:
             self._unlock_group(entries)
 
@@ -259,11 +296,23 @@ class RetrievalService:
         return {sid: [int(i) for i in s.fetch_unlabelled(k)] for sid, s, _ in entries}
 
     def _select_cohort_locked(self, entries, k: int) -> Dict[str, list]:
-        """A compatible, locked group's selection: its sessions one after
-        another.  The group could run as one stacked device program over the
-        shared corpus (ROADMAP.md, queue 1 item 10); that program is not
-        written yet."""
-        return self._select_each_locked(entries, k)
+        """A compatible, locked group's selection: one stacked selection of
+        the group's sessions (per user model, which the stack shares), each
+        drawing from its own generator."""
+        by_params: Dict[tuple, list] = {}
+        for e in entries:
+            by_params.setdefault(e[1].params_key, []).append(e)
+        out: Dict[str, list] = {}
+        for group in by_params.values():
+            sessions = [s for _, s, _ in group]
+            name = sessions[0].strategy_name
+            select = get_stacked_strategy(name)
+            batches = select(gp_mod.stack_states([s.state for s in sessions]), k,
+                             [s.generator for s in sessions], sessions[0].params,
+                             **filter_method_kwargs(name, sessions[0].method_kwargs))
+            out.update({sid: [int(i) for i in row]
+                        for (sid, _, _), row in zip(group, batches.cpu().numpy())})
+        return out
 
     def feedback(self, sid: str, labels: Dict[str, int]) -> dict:
         sess, lock = self._entry(sid)
@@ -279,7 +328,10 @@ class RetrievalService:
         its block pads to its own bucket width, clamped to its remaining
         capacity, as ``POST /feedback`` would; an empty dict changes nothing;
         a session whose labels overflow its capacity gets an ``{"error": ...}``
-        entry while the others are applied.
+        entry while the others are applied.  The sessions of one (width,
+        capacity) group take one stacked GP update per chunk of at most
+        :meth:`_max_cohort_sessions`, whatever their counts and
+        hyperparameters.
         """
         for sid in fb:
             self._entry(sid)  # an unknown session is a 404 before anything else
@@ -287,18 +339,36 @@ class RetrievalService:
         entries = self._lock_group(fb)
         try:
             out: Dict[str, dict] = {}
+            groups: Dict[tuple, list] = {}
             for sid, s, _ in entries:
                 labels = parsed[sid]
                 used, cap = s.state.count, s.state.cap
                 if labels and used + len(labels) > cap:
                     out[sid] = {"error": (f"labeled-slot capacity exceeded: {used} used + "
                                           f"{len(labels)} new > cap={cap}")}
-                    continue
-                s.update(labels)
-                out[sid] = {"labeled": int(s.state.count)}
-            return out
+                elif labels:
+                    idx, y = s.feedback_block(labels)
+                    groups.setdefault((len(idx), cap), []).append((s, idx, y))
+            for (_, cap), group in groups.items():
+                limit = self._max_cohort_sessions(cap, UPDATE_COPIES)
+                for i in range(0, len(group), limit):
+                    self._update_cohort_locked(group[i:i + limit])
+            return {sid: out.get(sid, {"labeled": int(s.state.count)}) for sid, s, _ in entries}
         finally:
             self._unlock_group(entries)
+
+    def _update_cohort_locked(self, group) -> None:
+        """One stacked GP update of locked sessions ``(session, idx, y)`` with
+        feedback blocks of one width, written back into each session's own
+        buffers once the whole update has succeeded."""
+        dev = self.x.device
+        states = [s.state for s, _, _ in group]
+        idx = torch.as_tensor(np.stack([i for _, i, _ in group]), device=dev)
+        y = np.stack([y for _, _, y in group])
+        st = gp_mod.stack_states(states)
+        gp_mod.gp_update_stacked(st, idx, torch.as_tensor(y, device=dev),
+                                 torch.as_tensor(y != 0, device=dev))
+        gp_mod.unstack_into(st, states)
 
     def ranking(self, sid: str, k: int) -> dict:
         sess, lock = self._entry(sid)

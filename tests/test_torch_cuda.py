@@ -257,3 +257,53 @@ def test_cuda_launch_count_is_exact_under_threads():
         sys.setswitchinterval(prev)
     torch.cuda.synchronize()
     assert rbf_hopper.LAUNCHES == before + 8 * 200
+
+
+@pytest.mark.cuda
+def test_cuda_stacked_select_and_update_match_the_cpu():
+    """Three sessions stacked on the card, one with other hyperparameters:
+    one stacked ITAL selection and one stacked GP update launch the kernel
+    once per block and hyperparameter group, pick the CPU's batches and
+    reach the CPU's posterior means within 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from ital_tpu_torch.models import gp as gp_mod
+    from ital_tpu_torch.select.base import StrategyParams
+    from ital_tpu_torch.select.ital import select_ital_stacked
+
+    rng = np.random.default_rng(5)
+    centers = rng.normal(size=(3, 128)) * 3.0
+    x = np.concatenate([c + rng.normal(size=(300, 128)) for c in centers]).astype(np.float32)
+    specs = [(3, 16.0, 1.0), (310, 16.0, 1.0), (620, 14.0, 0.9)]
+
+    def stack(dev):
+        states = []
+        for q, ls, var in specs:
+            st = gp_mod.gp_init(torch.from_numpy(x).to(dev), ls, var, 0.1, 16)
+            st = gp_mod.gp_set_query(st, q)
+            picks = torch.tensor([q + 1, q + 2, (q + 300) % 900, (q + 600) % 900], device=dev)
+            gp_mod.gp_update(st, picks, torch.tensor([1.0, 1.0, -1.0, -1.0], device=dev),
+                             torch.ones(4, dtype=torch.bool, device=dev))
+            states.append(st)
+        return gp_mod.stack_states(states)
+
+    kw = {"pool_size": 30, "n_qmc": 32, "refine_top": 8, "refine_n_qmc": 128}
+    new_idx = torch.tensor([[5, 6, 7, 8], [311, 312, 400, 401], [621, 700, 10, 11]])
+    new_y = torch.tensor([[1.0, 1.0, -1.0, 1.0], [1.0, -1.0, 1.0, 1.0], [1.0, 1.0, -1.0, -1.0]])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        st = stack(dev)
+        assert st.hyper_groups == [[0, 1], [2]]
+        params = StrategyParams.create(dev, label_prob=0.9, mistake_prob=0.05)
+        before = rbf_hopper.LAUNCHES
+        picks = select_ital_stacked(st, 4, [None] * 3, params, **kw)
+        selected = rbf_hopper.LAUNCHES - before
+        gp_mod.gp_update_stacked(st, new_idx.to(dev), new_y.to(dev),
+                                 torch.ones(3, 4, dtype=torch.bool, device=dev))
+        out[dev] = (picks.cpu(), st.mu.cpu(), selected, rbf_hopper.LAUNCHES - before - selected)
+    torch.cuda.synchronize()
+    picks_cpu, mu_cpu, _, _ = out["cpu"]
+    picks_card, mu_card, selected, updated = out["cuda"]
+    assert (selected, updated) == (2 * 2 * 3, 2 * 3)  # groups x blocks (x greedy steps 1-3)
+    assert torch.equal(picks_card, picks_cpu)
+    assert float((mu_card - mu_cpu).abs().max()) <= 1e-4

@@ -167,8 +167,8 @@ def test_capacity_guard():
 
 @pytest.mark.parametrize("change,item", [
     ({"mesh_devices": 2}, "item 15"),
-    ({"query_batch": 2}, "item 10"),
-    ({"fused_sessions": True}, "item 10"),
+    ({"mesh_devices": 2, "query_batch": 2}, "item 15"),  # cohorts run; the mesh not
+    ({"mesh_devices": 2, "fused_sessions": True}, "item 15"),
     ({"mesh_devices": 2, "gp": {"learn_every": 2}}, "item 15"),  # learning runs; the mesh not
 ])
 def test_unported_modes_raise(change, item):
