@@ -75,12 +75,29 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    Every stacked request must launch the kernel; each request kind's host
    latency, its launches and the device memory a stacked request adds (in
    copies of one session's (cap, N) f32 buffer, held to the server's budget
-   constants) are printed with the card's name and power limit.
+   model) are printed with the card's name and power limit.
+9. sharded: the corpus-sharded path (``ital_tpu_torch.parallel``).  A mesh of
+   one card must run on NCCL.  The kernel at the two whole-corpus shapes the
+   100 000-row path adds, (64, 100000, 512) and (4, 100000, 512) f32, against
+   its plain version and its bound.  Then ``configs/scale100k.ini``
+   (``corpus100k``, 100 000 x 512, ITAL, cap 64; depth cut to 1 class x 3
+   rounds) through the runner with ``mesh_devices = 8``, which clamps to the
+   card (a world of one on NCCL), beside the same configuration with
+   ``mesh_devices = 0`` (uncounted: the baseline): picks agree round by round
+   up to MI ties (``MI_TIE_ATOL``) and the AP curves while they do.  The same
+   for EMOC, MCMI[min] and SUD on the 25 000-row harness configuration (1
+   class x 2 rounds), up to ``EMOC_TIE_RTOL``.  The kernel's launch count is
+   reset before the sharded runs and must grow.  Select and update ms and
+   the device memory peak of both paths are printed with the card's name
+   and power limit.  Last, the memory one stacked selection and update of 8
+   production sessions add at 100 000 rows, which with phase 8's at 25 000
+   rows fits the server's select budget (``serve.SELECT_COPIES`` (cap, N)
+   copies plus ``serve.SELECT_FIXED_BYTES`` a session), held to it.
 
 The second-to-last line is a JSON object describing the kernel (launches on
-the main paths in all and per route, its bound, its time and the plain
-version's); the last line is ``{"ok": true, "device": {...}}``.  Imports
-nothing of JAX.
+the main paths in all, per route and per path, its bound, its time and the
+plain version's, and its times at the 100 000-row shapes); the last line is
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -146,6 +163,13 @@ COHORT_QB = 4
 COHORT_ROUNDS = 5
 COHORT_K = 8
 COHORT_KINDS = ("batch_select", "batch", "batch_feedback", "feedback")
+# Phase 9: configs/scale100k.ini (100 000 x 512, mesh_devices = 8, clamped to
+# the cards), depth cut to 1 class x 3 rounds; then the ring strategies on the
+# harness configuration's 25 000 rows, 1 class x 2 rounds.
+SCALE_CONFIG = ROOT / "configs" / "scale100k.ini"
+SCALE_OVERRIDES = ("EXPERIMENT.max_classes=1", "EXPERIMENT.n_rounds=3")
+RING_METHODS = ("emoc", "mcmi_min", "sud")
+RING_OVERRIDES = HARNESS_OVERRIDES + ("EXPERIMENT.max_classes=1", "EXPERIMENT.n_rounds=2")
 # The card's published peaks (H100 SXM, dense), for the kernel's bound: HBM
 # bytes per second, and TF32 and bf16 tensor operations per second (the f32
 # route does its products as 3xTF32: three TF32 products per f32 one).
@@ -904,8 +928,10 @@ def _cohort_runner(torch, ds, cfg, dev, smi: str) -> dict:
     return fused_launches
 
 
-def _cohort_http(torch, ds, cfg, dev, smi: str) -> None:
-    """Eight sessions through the cohort endpoints beside eight twins."""
+def _cohort_http(torch, ds, cfg, dev, smi: str):
+    """Eight sessions through the cohort endpoints beside eight twins.
+    Returns the device memory the largest stacked selection and update
+    added per session (None on the CPU)."""
     from ital_tpu_torch import serve
     from ital_tpu_torch.ops import rbf_hopper
 
@@ -1002,10 +1028,26 @@ def _cohort_http(torch, ds, cfg, dev, smi: str) -> None:
               f"session(s)): {len(ms)} requests, host ms median {np.median(ms):.3f} min "
               f"{min(ms):.3f} max {max(ms):.3f}; kernel launches per request "
               f"{min(launches[kind])}-{max(launches[kind])}{mem} [{smi}]")
-    if rise:
-        check(max(rise["batch_select"]) <= serve.SELECT_COPIES * per
-              and max(rise["batch_feedback"]) <= serve.UPDATE_COPIES * per,
-              "the stacked requests stay within the budget's copies")
+    if not rise:
+        return None
+    n, cap = ds.n, svc._entry(cohort[0])[0].state.cap
+    per_session = {kind: max(rise[kind]) / COHORT_K for kind in ("batch_select", "batch_feedback")}
+    _check_budget(per_session, cap, n)
+    return per_session
+
+
+def _check_budget(per_session: dict, cap: int, n: int) -> None:
+    """Hold the device memory a stacked request added per session to the
+    server's budget model (``serve.max_cohort_sessions``' terms)."""
+    from ital_tpu_torch import serve
+
+    model = {"batch_select": serve.SELECT_COPIES * cap * n * 4 + serve.SELECT_FIXED_BYTES,
+             "batch_feedback": serve.UPDATE_COPIES * cap * n * 4}
+    print(f"cohort budget at {n} rows, cap {cap}: per session " + "; ".join(
+        f"{kind} {per_session[kind] / 2**20:.2f} MiB against the model's "
+        f"{model[kind] / 2**20:.2f} MiB" for kind in model))
+    check(all(per_session[k] <= model[k] for k in model),
+          "the stacked requests stay within the budget model")
 
 
 def _cohort_kernel_forms(torch, ds, cfg, dev, smi: str) -> None:
@@ -1060,18 +1102,299 @@ def _cohort_kernel_forms(torch, ds, cfg, dev, smi: str) -> None:
                   f"|stacked - per-session launches| {diff:.2e} [{smi}]")
 
 
-def cohort_phase(torch, ds, cfg, dev, smi: str) -> dict:
+def cohort_phase(torch, ds, cfg, dev, smi: str) -> tuple[dict, dict]:
     """Phase 8: the stacked cohort programs, in the runner and over HTTP.
-    Returns the launches by route of two paths: the runner's fused run, and
-    the cohort (the runner's stacked runs and the HTTP cohort)."""
+    Returns the launches by route of two paths, the runner's fused run and
+    the cohort (the runner's stacked runs and the HTTP cohort), and the
+    device memory a stacked request added per session (None on the CPU)."""
     from ital_tpu_torch.ops import rbf_hopper
 
     if dev.type == "cuda":
         _cohort_kernel_forms(torch, ds, cfg, dev, smi)
         torch.cuda.synchronize()
     fused = _cohort_runner(torch, ds, cfg, dev, smi)
-    _cohort_http(torch, ds, cfg, dev, smi)
-    return {"fused": {"launches": fused}, "cohort": {"launches": dict(rbf_hopper.ROUTE_LAUNCHES)}}
+    rise = _cohort_http(torch, ds, cfg, dev, smi)
+    return ({"fused": {"launches": fused}, "cohort": {"launches": dict(rbf_hopper.ROUTE_LAUNCHES)}},
+            rise)
+
+
+@contextlib.contextmanager
+def _record_serial(method: str, record: list):
+    """Append ``(state before, batch)`` to ``record`` for each single-device
+    selection of ``method``."""
+    from ital_tpu_torch.models import gp as gp_mod
+    from ital_tpu_torch.select.base import STRATEGIES
+
+    orig = STRATEGIES[method]
+
+    @functools.wraps(orig)
+    def watched(state, *args, **kwargs):
+        before = gp_mod.gp_session_copy(state)
+        batch = orig(state, *args, **kwargs)
+        record.append((before, batch.tolist()))
+        return batch
+
+    STRATEGIES[method] = watched
+    try:
+        yield
+    finally:
+        STRATEGIES[method] = orig
+
+
+@contextlib.contextmanager
+def _record_sharded(record: list):
+    """Append each batch the sharded path selects to ``record``."""
+    from ital_tpu_torch.parallel import sharded
+
+    orig = sharded.make_sharded_select
+
+    def make(*args, **kwargs):
+        select = orig(*args, **kwargs)
+
+        def watched(*a, **kw):
+            batch = select(*a, **kw)
+            record.append(batch.tolist())
+            return batch
+
+        return watched
+
+    sharded.make_sharded_select = make
+    try:
+        yield
+    finally:
+        sharded.make_sharded_select = orig
+
+
+def _mi_gaps(torch, state, params, kw, picks) -> list[float]:
+    """A full-scan ITAL batch ``picks`` replayed step by step on ``state``:
+    each step's best MI minus the MI of that step's pick (0 where it is the
+    best), with the earlier picks as the partial batch."""
+    from ital_tpu_torch.select import ital
+    from ital_tpu_torch.select.base import labeled_mask
+
+    excluded = labeled_mask(state)
+    batch = torch.as_tensor(picks, device=state.mu.device)
+    gaps = []
+    for t, pick in enumerate(picks):
+        scores = ital.score_candidates_mi(state, batch, t, params, n_qmc=kw.get("n_qmc", 128))
+        scores = torch.where(excluded, -torch.inf, scores)
+        gaps.append(float(scores.max() - scores[pick]))
+        excluded[pick] = True
+    return gaps
+
+
+def _ring_gaps(torch, method, state, params, picks) -> list[float]:
+    """The relative score gap of each pick below the best eligible score on
+    ``state``, step by step, for a batch-independent ring strategy (scores
+    from the sharded functions on a mesh of one)."""
+    from ital_tpu_torch.parallel import make_mesh, sharded
+    from ital_tpu_torch.select.base import labeled_mask
+
+    with make_mesh(1, device=state.mu.device) as mesh:
+        st = sharded.shard_state(state, mesh)
+        valid = torch.ones_like(st.mu)
+        if method == "emoc":
+            scores = sharded._sharded_emoc_scores(mesh, st, valid)
+        elif method == "mcmi_min":
+            scores = sharded._sharded_mcmi_scores(mesh, st, valid)
+        else:
+            scores = sharded._LOCAL_SCORES[method](st, params)
+    excluded = labeled_mask(state)
+    gaps = []
+    for pick in picks:
+        best = float(torch.where(excluded, -torch.inf, scores).max())
+        gaps.append((best - float(scores[pick])) / abs(best))
+        excluded[pick] = True
+    return gaps
+
+
+def _sharded_vs_serial(torch, ds, cfg, dev, what: str, tie_gaps) -> dict:
+    """``cfg`` through the runner serially (uncounted: the baseline) and on
+    the mesh (counted); the picks must agree round by round up to the first
+    round whose picks differ only by ties (``tie_gaps(state, params, picks)``
+    on the serial state), and the AP curves while they agree.  Returns both
+    results and the device memory each run peaked at."""
+    from ital_tpu_torch import runner
+    from ital_tpu_torch.select.base import StrategyParams
+
+    serial, sharded_picks, out = [], [], {}
+    for mode, mesh in (("serial", 0), ("sharded", 8)):
+        run = dataclasses.replace(cfg, mesh_devices=mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with (_uncounted() if mode == "serial" else contextlib.nullcontext()), \
+                (_record_serial(cfg.method, serial) if mode == "serial"
+                 else _record_sharded(sharded_picks)):
+            out[mode] = runner.run_experiment(run, ds, device=dev)
+        out[mode]["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    check(out["sharded"].get("mesh_devices") == 1, f"{what}: the mesh clamped to one card")
+    params = StrategyParams.create(dev, label_prob=cfg.user.label_prob,
+                                   mistake_prob=cfg.user.mistake_prob)
+    rounds = cfg.n_rounds
+    n_sessions = len(out["serial"]["sessions"])
+    check(len(serial) == len(sharded_picks) == n_sessions * rounds, f"{what}: selections")
+    with _uncounted():
+        for k in range(n_sessions):
+            rows = range(k * rounds, (k + 1) * rounds)
+            r = next((r for r in range(rounds)
+                      if serial[rows[r]][1] != sharded_picks[rows[r]]), rounds)
+            if r < rounds:
+                state, picks = serial[rows[r]]
+                gaps = tie_gaps(state, params, sharded_picks[rows[r]])
+                print(f"{what} session {k}: round {r} serial {picks}, sharded "
+                      f"{sharded_picks[rows[r]]}; gaps on the serial state {gaps}")
+                check(all(g >= 0 for g in gaps), f"{what}: gaps are below the best")
+                out["gaps"] = gaps
+            check(np.abs(out["sharded"]["ap"][k, :r] - out["serial"]["ap"][k, :r]).max(
+                initial=0.0) <= 1e-6, f"{what}: AP curves agree while the picks do")
+            out.setdefault("apart", []).append(r)
+    return out
+
+
+def sharded_phase(torch, ds, cfg, dev, smi: str, rise25: dict) -> dict:
+    """Phase 9: the corpus-sharded path on NCCL; returns its launches by
+    route and the kernel's times at the 100 000-row shapes."""
+    from ital_tpu_torch.data.datasets import load_dataset
+    from ital_tpu_torch.ops import rbf_hopper
+    from ital_tpu_torch.parallel import make_mesh, sharded
+    from ital_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    with make_mesh(1, device=dev) as mesh:
+        check(mesh.backend == "nccl" and mesh.device == torch.device("cuda", 0),
+              f"a mesh of one card runs on NCCL: {mesh.backend} {mesh.device}")
+        check(torch.equal(sharded.psum(mesh, torch.ones(3, device=dev)),
+                          torch.ones(3, device=dev)), "NCCL all_reduce on a mesh of one")
+    scale = load_config(str(SCALE_CONFIG), SCALE_OVERRIDES)
+    big = load_dataset(scale.dataset, **scale.dataset_kwargs)
+    print(f"sharded: {scale.dataset} {big.x.shape[0]} x {big.x.shape[1]}, mesh_devices "
+          f"{scale.mesh_devices} on {torch.cuda.device_count()} card(s)")
+    shapes = _big_kernel_times(torch, big, scale, dev, smi)
+    torch.cuda.synchronize()
+
+    _reset_counts()  # the sharded path's count starts here
+    res = _sharded_vs_serial(
+        torch, big, scale, dev, "scale100k",
+        lambda st, p, picks: _mi_gaps(torch, st, p, scale.method_kwargs, picks))
+    check(rbf_hopper.LAUNCHES > 0, "the kernel launched on the sharded path")
+    check(all(abs(g) <= MI_TIE_ATOL for g in res.get("gaps", [])),
+          "sharded and serial picks differ only by MI ties")
+    for mode in ("serial", "sharded"):
+        r = res[mode]
+        print(f"sharded scale100k {mode}: MAP {[round(float(m), 6) for m in r['map']]}; select "
+              f"{r['select_ms']:.3f} ms mean, {r['select_ms_steady']:.3f} ms steady; update "
+              f"{r['update_ms']:.3f} ms mean, {r['update_ms_steady']:.3f} ms steady; first round "
+              f"{r['first_round_ms']:.1f} ms; device memory peak {r['peak_mib']:.1f} MiB [{smi}]")
+    print(f"sharded scale100k: first round whose picks differ, per session: {res['apart']} of "
+          f"{scale.n_rounds}; launches {rbf_hopper.LAUNCHES}")
+
+    base = load_config(str(HARNESS_CONFIG), RING_OVERRIDES)
+    for method in RING_METHODS:
+        before = rbf_hopper.LAUNCHES
+        res = _sharded_vs_serial(
+            torch, ds, dataclasses.replace(base, method=method), dev, f"ring {method}",
+            lambda st, p, picks, method=method: _ring_gaps(torch, method, st, p, picks))
+        check(all(g <= EMOC_TIE_RTOL for g in res.get("gaps", [])),
+              f"{method}: sharded and serial picks differ only by score ties")
+        s, m = res["serial"], res["sharded"]
+        print(f"sharded ring {method} ({ds.n} rows, {base.n_rounds} rounds): MAP serial "
+              f"{[round(float(v), 6) for v in s['map']]}, sharded "
+              f"{[round(float(v), 6) for v in m['map']]}; select ms steady serial "
+              f"{s['select_ms_steady']:.3f}, sharded {m['select_ms_steady']:.3f}; update ms "
+              f"steady serial {s['update_ms_steady']:.3f}, sharded {m['update_ms_steady']:.3f}; "
+              f"launches {rbf_hopper.LAUNCHES - before} [{smi}]")
+    launches = dict(rbf_hopper.ROUTE_LAUNCHES)
+    with _uncounted():
+        rise100 = _cohort_rise_at(torch, big, cfg, dev)
+    if rise25 is not None:
+        fit = _fit_budget(rise25, ds.n, rise100, big.n, CAP)
+        print(f"cohort budget fit from {ds.n} and {big.n} rows: select {fit['copies']:.3f} "
+              f"(cap, N) copies + {fit['fixed'] / 2**20:.2f} MiB a session; update per "
+              f"session {rise25['batch_feedback'] / 2**20:.2f} MiB at {ds.n}, "
+              f"{rise100['batch_feedback'] / 2**20:.2f} MiB at {big.n} [{smi}]")
+    _check_budget(rise100, CAP, big.n)
+    print(f"sharded phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "shapes": shapes}
+
+
+def _fit_budget(r_a: dict, n_a: int, r_b: dict, n_b: int, cap: int) -> dict:
+    """The select budget's per-session terms through two measurements:
+    ``copies`` (cap, N) f32 buffers plus ``fixed`` bytes."""
+    copies = (r_b["batch_select"] - r_a["batch_select"]) / ((n_b - n_a) * cap * 4)
+    return {"copies": copies, "fixed": r_a["batch_select"] - copies * n_a * cap * 4}
+
+
+def _cohort_rise_at(torch, ds, cfg, dev) -> dict:
+    """The device memory one stacked selection and one stacked update of
+    ``COHORT_K`` production sessions add per session over ``ds`` (two rounds,
+    the larger rise of each)."""
+    from ital_tpu_torch import serve
+
+    svc = serve.RetrievalService(
+        ds.x, length_scale=cfg.gp.length_scale, var=cfg.gp.var, noise=cfg.gp.noise, cap=CAP,
+        label_prob=cfg.user.label_prob, mistake_prob=cfg.user.mistake_prob,
+        method_kwargs=cfg.method_kwargs, device=dev)
+    rng = np.random.default_rng(SEED + 13)
+    classes = [int(c) for c in rng.choice(ds.classes, COHORT_K // 2, replace=False)]
+    queries = [(int(q), c) for c in classes for q in ds.queries_for_class(c, rng, 2)]
+    user = _user(rng, ds, cfg.user.label_prob, cfg.user.mistake_prob)
+    sids = []
+    for q, _ in queries:
+        sids.append(svc.create_session())
+        svc.set_query(sids[-1], q)
+    rise = {"batch_select": 0, "batch_feedback": 0}
+
+    def measured(kind, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        allocated = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        rise[kind] = max(rise[kind], (torch.cuda.max_memory_allocated() - allocated) / COHORT_K)
+        return out
+
+    for _ in range(2):
+        picks = measured("batch_select", lambda: svc.next_batch_many(sids, SERVE_K))
+        answers = {a: user(picks[a], c) for a, (_, c) in zip(sids, queries)}
+        measured("batch_feedback", lambda: svc.feedback_many(answers))
+    return rise
+
+
+def _big_kernel_times(torch, big, scale, dev, smi: str) -> list:
+    """The kernel at the whole-corpus shapes the 100 000-row path adds, f32:
+    against the plain version (error, event times in turns, profiler device
+    time) and against its bound.  Uncounted: comparisons, not the path."""
+    from ital_tpu_torch.ops import rbf_hopper
+    from ital_tpu_torch.ops.kernels import rbf_kernel, rbf_kernel_plain
+
+    x = torch.from_numpy(big.x).to(dev)
+    x2 = (x * x).sum(-1)
+    rng = np.random.default_rng(SEED + 17)
+    ls = torch.tensor(scale.gp.length_scale, device=dev)
+    var = torch.tensor(scale.gp.var, device=dev)
+    out = []
+    with _uncounted():
+        for m in (CAP, 4):
+            a = x[torch.from_numpy(rng.choice(big.n, size=m, replace=False)).to(dev)]
+            kern = functools.partial(rbf_kernel, a, x, ls, var, b2=x2)
+            plain = functools.partial(rbf_kernel_plain, a, x, ls, var, b2=x2)
+            err = float((kern() - plain()).abs().max())
+            (ms, spread), (plain_ms, plain_spread) = _time_turns_ms(torch, [kern, plain])
+            dev_us = _device_us(torch, kern)
+            bound, bound_by = rbf_bound_ms(m, big.n, big.x.shape[1], False, big.n)
+            route = rbf_hopper.choose_route(m, big.n, big.x.shape[1], a.dtype, a.data_ptr(),
+                                            x.data_ptr()).name
+            shape = f"{m}x{big.n}x{big.x.shape[1]} f32"
+            print(f"kernel: ({m}, {big.n}, {big.x.shape[1]}) b2: route {route}; max_abs_err "
+                  f"{err:.3e} (atol {F32_ATOL * scale.gp.var:.0e}); per launch ms {ms:.4f} "
+                  f"(spread {spread:.4f}), plain {plain_ms:.4f} (spread {plain_spread:.4f}); "
+                  f"device us {dev_us:.2f}; bound {bound * 1e3:.2f} us ({bound_by}), "
+                  f"{bound / ms * 100:.1f} % of it [{smi}]")
+            check(err <= F32_ATOL * scale.gp.var, f"{shape}: kernel against plain")
+            out.append({"shape": shape, "route": route, "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "device_us": dev_us, "bound_ms": bound,
+                        "bound_by": bound_by})
+    return out
 
 
 def emoc_replay_phase(torch, ds, replay) -> None:
@@ -1128,11 +1451,13 @@ def main() -> int:
     harness = harness_phase(torch, ds, torch.device("cuda"))
     emoc_replay_phase(torch, ds, harness["replay"])
     served = serve_phase(torch, ds, cfg, torch.device("cuda"), smi)
-    cohort = cohort_phase(torch, ds, cfg, torch.device("cuda"), smi)
+    cohort, rise25 = cohort_phase(torch, ds, cfg, torch.device("cuda"), smi)
+    shard = sharded_phase(torch, ds, cfg, torch.device("cuda"), smi, rise25)
     # At 512 features every RBF call of the paths takes the tensor-core route
     # (the router's rule, PERF.md); the tile kernel serves narrower or
     # unaligned features and is held against the plain version in phase 3.
-    paths = {"session": sess, "harness": harness, "serving": served, **cohort}
+    paths = {"session": sess, "harness": harness, "serving": served, **cohort,
+             "sharded": {"launches": shard["launches"]}}
     by_route = {r: sum(p["launches"][r] for p in paths.values()) for r in sess["launches"]}
     check(by_route["wgmma"] > 0, f"the tensor-core route launched on the main path: {by_route}")
     check(all(sum(p["launches"].values()) > 0 for p in paths.values()),
@@ -1156,6 +1481,7 @@ def main() -> int:
         # stops at the distances).
         "library_ms": None,
         "shape": "64x25000x512 f32",
+        "shapes_100k": shard["shapes"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

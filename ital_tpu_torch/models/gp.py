@@ -24,14 +24,18 @@ A cohort of K sessions over one corpus is a :class:`StackedGPState`: the
 session buffers and hyperparameters gain a leading session axis, the corpus
 stays shared, and :func:`gp_update_stacked` absorbs one feedback block per
 session in one pass (the reference's ``jax.vmap(gp_update)``), each session
-at its own count and with its own hyperparameters.  :func:`gp_update` is
-its one-session case, on views of the session's own buffers.
+at its own count and with its own hyperparameters.
+
+:func:`gp_fit`, :func:`gp_set_query` and :func:`gp_update` take a ``gather``
+hook that fetches corpus rows by global index: the corpus-sharded path
+(:mod:`ital_tpu_torch.parallel.sharded`) passes a collective gather, and the
+rest of the code, shard-local, is the single-device path's.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -258,15 +262,24 @@ def gp_session_copy(state: GPState, device=None) -> GPState:
     )
 
 
-def gp_fit(state: GPState) -> GPState:
+# Corpus rows by global index: (k,) int64 -> (k, D).
+GatherFn = Callable[[torch.Tensor], torch.Tensor]
+
+
+def _rows(state: GPState, idx: torch.Tensor, gather: Optional[GatherFn]) -> torch.Tensor:
+    return state.x[idx] if gather is None else gather(idx)
+
+
+def gp_fit(state: GPState, *, gather: Optional[GatherFn] = None) -> GPState:
     """Refit the posterior from the label buffers (from-scratch Cholesky).
 
     Replaces ``l``, ``beta``, ``v``, ``mu`` and ``sig2`` of ``state`` with
-    fresh tensors and returns it.
+    fresh tensors and returns it.  ``gather`` fetches the labeled rows (the
+    sharded path's collective gather); everything else is local.
     """
     h = state.hyper
     active = state.active
-    xl = state.x[state.idx]  # (cap, D)
+    xl = _rows(state, state.idx, gather)  # (cap, D)
 
     k_ll = rbf_kernel(xl, xl, h.length_scale, h.var)
     l = chol_ops.padded_cholesky(k_ll, active, h.noise)
@@ -284,7 +297,8 @@ def gp_fit(state: GPState) -> GPState:
     return state
 
 
-def gp_set_query(state: GPState, query_idx: int) -> GPState:
+def gp_set_query(state: GPState, query_idx: int, *,
+                 gather: Optional[GatherFn] = None) -> GPState:
     """Reset the session to a single positive label at the query image, and refit."""
     state.idx.zero_()
     state.idx[0] = int(query_idx)
@@ -293,7 +307,13 @@ def gp_set_query(state: GPState, query_idx: int) -> GPState:
     state.valid.zero_()
     state.valid[0] = True
     state.count = 1
-    return gp_fit(state)
+    return gp_fit(state, gather=gather)
+
+
+def _check_capacity(counts, b: int, cap: int) -> None:
+    for c in counts:
+        if c + b > cap:
+            raise ValueError(f"labeled-slot capacity exceeded: {c} used + {b} new > cap={cap}")
 
 
 def gp_update(
@@ -301,23 +321,51 @@ def gp_update(
     new_idx: torch.Tensor,
     new_y: torch.Tensor,
     new_valid: torch.Tensor,
+    *,
+    gather: Optional[GatherFn] = None,
 ) -> GPState:
     """Absorb a feedback block of ``b`` slots with an incremental Cholesky append.
 
     O(b * cap * N) instead of a refit; equal to appending to the buffers and
     calling :func:`gp_fit` (tested to tolerance).  Writes the session-owned
-    buffers of ``state`` in place and returns it.
+    buffers of ``state`` in place and returns it.  The same steps as
+    :func:`gp_update_stacked` on one session, without a stack around it.
 
     Args:
       new_idx: (b,) corpus indices shown to the user this round.
       new_y: (b,) labels in {-1, +1} (ignored where ``new_valid`` is False).
       new_valid: (b,) bool — False where the user skipped the item.
+      gather: fetches the labeled and the new rows (see :func:`gp_fit`).
 
     Raises ``ValueError`` when ``count + b > cap``.
     """
-    st = stacked_view(state)
-    gp_update_stacked(st, new_idx[None], new_y[None], new_valid[None])
-    state.count = st.counts[0]
+    h = state.hyper
+    b = new_idx.shape[0]
+    c = state.count
+    _check_capacity([c], b, state.cap)
+    active_old = state.active
+    new_idx = new_idx.to(torch.int64)
+    new_valid = new_valid.to(torch.bool)
+    new_y = torch.where(new_valid, new_y.to(state.mu.dtype), 0.0)
+
+    xl = _rows(state, state.idx, gather)  # (cap, D) current slots
+    xb = _rows(state, new_idx, gather)  # (b, D)
+    k_lb = torch.where(active_old[:, None], rbf_kernel(xl, xb, h.length_scale, h.var), 0.0)
+    k_bb = rbf_kernel(xb, xb, h.length_scale, h.var)
+    _, s, l_b = chol_ops.chol_append_block(state.l, k_lb, k_bb, c, new_valid, h.noise)
+
+    # Extend the whitened quantities by the same block.
+    k_b_all = rbf_kernel(xb, state.x, h.length_scale, h.var, b2=state.x2)  # (b, N)
+    k_b_all = torch.where(new_valid[:, None], k_b_all, 0.0)
+    v_b = chol_ops.tri_solve(l_b, k_b_all - s.T @ state.v)  # (b, N)
+    beta_b = chol_ops.tri_solve(l_b, new_y[:, None] - s.T @ state.beta[:, None])[:, 0]
+
+    for buf, vals in ((state.v, v_b), (state.beta, beta_b), (state.idx, new_idx),
+                      (state.y, new_y), (state.valid, new_valid)):
+        buf[c:c + b] = vals
+    state.mu += (v_b.T @ beta_b[:, None])[:, 0]
+    state.sig2.sub_((v_b * v_b).sum(0)).clamp_(min=1e-8)
+    state.count = c + b
     return state
 
 
@@ -339,11 +387,7 @@ def gp_update_stacked(
     h = st.hyper
     dt = st.mu.dtype
     b = new_idx.shape[-1]
-    for c in st.counts:
-        if c + b > st.cap:
-            raise ValueError(
-                f"labeled-slot capacity exceeded: {c} used + {b} new > cap={st.cap}"
-            )
+    _check_capacity(st.counts, b, st.cap)
     active_old = st.active
     new_idx = new_idx.to(torch.int64)
     new_valid = new_valid.to(torch.bool)

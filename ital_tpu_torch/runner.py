@@ -1,11 +1,11 @@
 """Experiment harness: simulated-feedback retrieval experiments, MAP-vs-rounds
-(port of the serial path of ``ital_tpu.runner``).
+(port of ``ital_tpu.runner``).
 
 For each repetition x class x query: reset the GP to the query, then loop
 ``select -> simulated user -> update -> AP`` for ``n_rounds``, and average
 the AP curves into a MAP-vs-rounds curve with per-round timing.  Everything
-runs on one explicit device; on a CUDA device every RBF block goes through
-the hand-written kernel.
+runs on one explicit device (or, with ``mesh_devices``, a mesh of them); on
+a CUDA device every RBF block goes through the hand-written kernel.
 
 Random draws are a function of (seed, repetition, class, query, round)
 alone (:func:`round_draws`), never carried from round to round, so a session
@@ -21,15 +21,23 @@ of a cohort's rounds): one stacked selection and one stacked GP update
 advance the whole cohort each round.  ``EXPERIMENT.fused_sessions`` issues
 each session's (or, with ``query_batch``, each cohort's) rounds with no host
 sync between them and reads its AP curve once at the end.  Both draw as the
-serial path draws, so the curves are the serial path's.  Not ported yet, and
-refused with ``NotImplementedError``: ``mesh_devices``.
+serial path draws, so the curves are the serial path's.
+
+``EXPERIMENT.mesh_devices = p`` shards the corpus over a mesh of p ranks
+(:mod:`ital_tpu_torch.parallel`), one per card (clamped to the cards there
+are) or, on the CPU, one per process, and runs each round as the sharded
+round; every rank draws the serial path's draws, so the curves are its
+curves.  Refused with ``NotImplementedError``, naming their ROADMAP items:
+a mesh with ``query_batch > 1`` or ``fused_sessions``, and a mesh with
+``cap >= GP.chol2d_threshold``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -38,7 +46,12 @@ from ital_tpu_torch.data import datasets as ds_mod
 from ital_tpu_torch.data.user import feedback_from_uniforms
 from ital_tpu_torch.models import gp as gp_mod
 from ital_tpu_torch.models.hyperopt import fit_hyperparams
-from ital_tpu_torch.select.base import StrategyParams, get_stacked_strategy, get_strategy
+from ital_tpu_torch.select.base import (
+    StrategyParams,
+    get_stacked_strategy,
+    get_strategy,
+    validate_method_kwargs,
+)
 from ital_tpu_torch.utils import checkpoint as ckpt
 from ital_tpu_torch.utils.config import ExperimentConfig, apply_matmul_precision
 from ital_tpu_torch.utils.logging import JsonlLogger, Timer, device_mem_mb
@@ -140,15 +153,12 @@ def run_experiment(
     ``first_round_ms``, the session list and the device's name; the cohort
     and fused modes the reference's keys for them (:func:`_run_stacked`).
     """
-    if cfg.mesh_devices:
-        raise NotImplementedError(
-            "mesh_devices is not ported to ital_tpu_torch yet: see ROADMAP.md, "
-            "queue 1 item 15 (parallel/)"
-        )
     dev = torch.device(device)
     if dataset is None:
         dataset = ds_mod.load_dataset(cfg.dataset, **cfg.dataset_kwargs)
     _check_capacity(cfg)
+    if cfg.mesh_devices:
+        return _run_sharded(cfg, dataset, dev)
     apply_matmul_precision(cfg)
 
     x = torch.from_numpy(dataset.x).to(dev)
@@ -173,18 +183,68 @@ def run_experiment(
                   "checkpoint_dir/resume/profile_dir are serial-mode features "
                   "and are ignored here")
         return _run_stacked(cfg, dataset, state0, params, select_kwargs, plan)
-    select = get_strategy(cfg.method)
+    ops = _serial_ops(cfg, dataset, params, select_kwargs, dev)
+    return _run_sessions(cfg, dataset, state0, ops, plan, dev, profile_dir=cfg.profile_dir,
+                         log_jsonl=cfg.log_jsonl)
 
-    logger = JsonlLogger(cfg.log_jsonl)
+
+@dataclasses.dataclass
+class _SessionOps:
+    """What a session's rounds run: the single-device functions
+    (:func:`_serial_ops`) or their forms on a mesh (:func:`_sharded_run`).
+
+    ``masks(c, q) -> (relevant, sel_forbid, exclude)``;
+    ``step(state, draws, masks, timer) -> (state, ap, recalls)``, one
+    round timed in the "select" and "update" spans; ``gather`` fetches
+    corpus rows by index (``None``: index the state's corpus);
+    ``save``/``load`` write and read a round checkpoint; ``log`` holds extra
+    JSONL fields.
+    """
+
+    masks: Callable
+    step: Callable
+    gather: Optional[Callable]
+    save: Callable
+    load: Callable
+    log: Dict[str, Any]
+
+
+def _serial_ops(cfg, dataset, params, select_kwargs, dev) -> _SessionOps:
+    select = get_strategy(cfg.method)
+    n = dataset.n
+
+    def masks(c, q):
+        relevant = torch.from_numpy(np.ascontiguousarray(dataset.relevance[:, c])).to(dev)
+        exclude = torch.zeros(n, dtype=torch.bool, device=dev)
+        exclude[q] = True
+        return relevant, None, exclude
+
+    def step(state, draws, session_masks, timer):
+        generator, u_label, u_flip = draws
+        relevant, _, exclude = session_masks
+        with timer.span("select"):
+            batch = select(state, cfg.batch_size, generator, params, **select_kwargs)
+        with timer.span("update"):
+            y, valid = feedback_from_uniforms(u_label, u_flip, batch, relevant,
+                                              params.label_prob, params.mistake_prob)
+            state = gp_mod.gp_update(state, batch, y, valid)
+            ap = average_precision(state.mu, relevant, exclude)
+            recalls = [recall_at_k(state.mu, relevant, min(k, n), exclude) for k in RECALL_KS]
+        return state, ap, recalls
+
+    return _SessionOps(masks=masks, step=step, gather=None, save=ckpt.save_session,
+                       load=ckpt.load_session, log={})
+
+
+def _run_sessions(cfg, dataset, state0, ops, plan, dev, *, profile_dir, log_jsonl):
+    """Every session of ``plan`` through ``ops``; the result dict."""
+    logger = JsonlLogger(log_jsonl)
     timer = Timer(dev)
     ap_curves = []
     try:
-        with _profiled(cfg.profile_dir, dev):
+        with _profiled(profile_dir, dev):
             for rep, c, q in plan:
-                ap_curves.append(_run_session(
-                    cfg, state0, params, select, select_kwargs, dataset, rep, c, q,
-                    timer, logger,
-                ))
+                ap_curves.append(_run_session(cfg, state0, ops, rep, c, q, timer, logger))
     finally:
         logger.close()
 
@@ -204,8 +264,7 @@ def run_experiment(
     }
 
 
-def _run_session(cfg, state0, params, select, select_kwargs, dataset, rep, c, q,
-                 timer, logger) -> list[float]:
+def _run_session(cfg, state0, ops, rep, c, q, timer, logger) -> list[float]:
     """One query session of ``n_rounds`` rounds, with checkpoint/resume.
 
     With ``cfg.checkpoint_dir`` every round snapshots the session;
@@ -214,37 +273,26 @@ def _run_session(cfg, state0, params, select, select_kwargs, dataset, rep, c, q,
     buffers before writing any.
     """
     dev = state0.mu.device
-    n = dataset.n
-    relevant = torch.from_numpy(np.ascontiguousarray(dataset.relevance[:, c])).to(dev)
-    exclude = torch.zeros(n, dtype=torch.bool, device=dev)
-    exclude[q] = True
-
-    state = gp_mod.gp_set_query(gp_mod.gp_session_copy(state0), q)
+    masks = ops.masks(c, q)
+    state = gp_mod.gp_set_query(gp_mod.gp_session_copy(state0), q, gather=ops.gather)
     curve: list[float] = []
     start_round = 0
     ckpt_path = None
     if cfg.checkpoint_dir:
         ckpt_path = os.path.join(cfg.checkpoint_dir, f"r{rep}_c{c}_q{q}.npz")
         if cfg.resume and os.path.exists(ckpt_path):
-            state, extras = ckpt.load_session(ckpt_path, state)
+            state, extras = ops.load(ckpt_path, state)
             curve = [float(v) for v in extras["curve"]]
             start_round = int(extras["next_round"])
 
     for rnd in range(start_round, cfg.n_rounds):
-        generator, u_label, u_flip = round_draws(cfg.seed, rep, c, q, rnd, cfg.batch_size, dev)
-        with timer.span("select"):
-            batch = select(state, cfg.batch_size, generator, params, **select_kwargs)
-        with timer.span("update"):
-            y, valid = feedback_from_uniforms(u_label, u_flip, batch, relevant,
-                                              params.label_prob, params.mistake_prob)
-            state = gp_mod.gp_update(state, batch, y, valid)
-            ap = average_precision(state.mu, relevant, exclude)
-            recalls = [recall_at_k(state.mu, relevant, min(k, n), exclude) for k in RECALL_KS]
+        draws = round_draws(cfg.seed, rep, c, q, rnd, cfg.batch_size, dev)
+        state, ap, recalls = ops.step(state, draws, masks, timer)
         if cfg.gp.learn_every and (rnd + 1) % cfg.gp.learn_every == 0:
-            state = _relearn_hyperparams(state, cfg)
+            state = _relearn_hyperparams(state, cfg, gather=ops.gather)
         elif cfg.gp.refit_every and (rnd + 1) % cfg.gp.refit_every == 0:
             # Periodic from-scratch refit: bounds long-horizon f32 append drift.
-            state = gp_mod.gp_fit(state)
+            state = gp_mod.gp_fit(state, gather=ops.gather)
         curve.append(float(ap))
         logger.log(
             rep=rep, cls=c, query=q, round=rnd, ap=curve[-1],
@@ -252,13 +300,96 @@ def _run_session(cfg, state0, params, select, select_kwargs, dataset, rep, c, q,
             labeled=int(state.active.sum()),
             device_mem_mb=round(device_mem_mb(dev), 1),
             **{f"recall@{k}": float(r) for k, r in zip(RECALL_KS, recalls)},
-            **_hyper_log_fields(state, cfg),
+            **_hyper_log_fields(state, cfg), **ops.log,
         )
         if ckpt_path:
-            ckpt.save_session(ckpt_path, state,
-                              extra={"curve": np.asarray(curve), "next_round": rnd + 1})
+            ops.save(ckpt_path, state, extra={"curve": np.asarray(curve), "next_round": rnd + 1})
         _maybe_inject_fault(rnd)
     return curve
+
+
+_MESH_PROGRAMS_UNPORTED = (
+    "a mesh with query_batch > 1 or fused_sessions is not ported to ital_tpu_torch "
+    "yet: see ROADMAP.md, queue 1 item 1 (the mesh's fused and cohort programs)")
+_MESH_BIGCAP_UNPORTED = (
+    "cap >= GP.chol2d_threshold on a mesh is not ported to ital_tpu_torch yet: see "
+    "ROADMAP.md, queue 1 item 3 (chol2d / bigcap)")
+
+
+def _run_sharded(cfg, dataset, dev) -> Dict[str, Any]:
+    """The per-round sharded path (``EXPERIMENT.mesh_devices``): a mesh of
+    ``mesh_devices`` ranks (on the card, clamped to the cards there are, as
+    the reference clamps to its devices) each runs :func:`_sharded_run` over
+    its corpus shard; returns rank 0's result."""
+    from ital_tpu_torch.parallel.launch import launch
+    from ital_tpu_torch.parallel.mesh import device_count
+
+    if (cfg.query_batch or 0) > 1 or cfg.fused_sessions:
+        raise NotImplementedError(_MESH_PROGRAMS_UNPORTED)
+    if cfg.gp.chol2d_threshold and cfg.cap >= cfg.gp.chol2d_threshold:
+        raise NotImplementedError(_MESH_BIGCAP_UNPORTED)
+    available = device_count(dev.type)
+    n_dev = cfg.mesh_devices
+    if available is not None and available < n_dev:
+        n_dev = max(available, 1)
+        print(f"# mesh_devices={cfg.mesh_devices} requested, {available} available "
+              f"-> using {n_dev}")
+    return launch(n_dev, _sharded_run, cfg, dataset, device=dev)
+
+
+def _sharded_run(mesh, cfg, dataset) -> Dict[str, Any]:
+    """One rank of the sharded experiment: the corpus padded to the mesh,
+    this rank's shard of ``gp_init`` (its density by a ring pass), then
+    every session of the plan through the sharded round.  The JSONL and the
+    profile are rank 0's."""
+    from ital_tpu_torch.parallel import sharded as sh
+
+    dev = mesh.device
+    apply_matmul_precision(cfg)
+    x_pad, n_real = sh.pad_to_devices(dataset.x, mesh.size)
+    n_pad = x_pad.shape[0]
+    shard_n = n_pad // mesh.size
+    lo = mesh.rank * shard_n
+    x = torch.from_numpy(np.ascontiguousarray(x_pad[lo:lo + shard_n])).to(dev)
+    state0 = gp_mod.gp_init(x, cfg.gp.length_scale, cfg.gp.var, cfg.gp.noise, cfg.cap,
+                            corpus_dtype=cfg.gp.corpus_dtype or None)
+    if cfg.method in DENSITY_STRATEGIES:
+        pad = torch.arange(n_pad, device=dev) >= n_real
+        state0.density = sh.make_sharded_density(mesh)(state0, pad)
+    params = StrategyParams.create(
+        dev, label_prob=cfg.user.label_prob, mistake_prob=cfg.user.mistake_prob,
+        tradeoff=float(cfg.method_kwargs.get("tradeoff", 0.5)),
+    )
+    select_kwargs = {k: v for k, v in cfg.method_kwargs.items() if k != "tradeoff"}
+    validate_method_kwargs(cfg.method, select_kwargs)
+    # The mesh's options are ITAL's; the ring strategies take fixed blocks.
+    round_fn = sh.make_sharded_round(mesh, strategy=cfg.method, batch_size=cfg.batch_size,
+                                     recall_ks=RECALL_KS,
+                                     **(select_kwargs if cfg.method == "ital" else {}))
+    relevance = np.zeros((n_pad, dataset.relevance.shape[1]), bool)
+    relevance[:n_real] = dataset.relevance
+
+    def masks(c, q):
+        relevant = torch.from_numpy(np.ascontiguousarray(relevance[:, c])).to(dev)
+        return (relevant, *sh.make_masks(n_pad, n_real, q, dev))
+
+    def step(state, draws, session_masks, timer):
+        state, _, ap, recalls = round_fn(state, *draws, *session_masks, params, timer=timer)
+        return state, ap, recalls
+
+    # Every session keeps state0's corpus shard: the labeled rows come from it.
+    ops = _SessionOps(
+        masks=masks, step=step, gather=lambda gidx: sh.gather_rows(mesh, state0.x, gidx),
+        save=lambda path, state, extra: sh.save_sharded_session(mesh, path, state, extra),
+        load=lambda path, state: sh.load_sharded_session(mesh, path, state),
+        log={"sharded": mesh.size},
+    )
+    rank0 = mesh.rank == 0
+    res = _run_sessions(cfg, dataset, state0, ops, _session_plan(cfg, dataset), dev,
+                        profile_dir=cfg.profile_dir if rank0 else None,
+                        log_jsonl=cfg.log_jsonl if rank0 else None)
+    res["mesh_devices"] = mesh.size
+    return res
 
 
 def _run_stacked(cfg, dataset, state0, params, select_kwargs, plan) -> Dict[str, Any]:
@@ -410,12 +541,16 @@ def _learn_kwargs(cfg: ExperimentConfig, state: gp_mod.GPState) -> Dict[str, Any
     return kw
 
 
-def _relearn_hyperparams(state: gp_mod.GPState, cfg: ExperimentConfig) -> gp_mod.GPState:
+def _relearn_hyperparams(state: gp_mod.GPState, cfg: ExperimentConfig, *,
+                         gather=None) -> gp_mod.GPState:
     """Re-learn the hyperparameters from the session's labels so far (type-II
-    ML, or MAP type-II with the ``GP.learn_*`` knobs), then refit the posterior."""
-    state.hyper = fit_hyperparams(state.x[state.idx], state.y, state.active, state.hyper,
+    ML, or MAP type-II with the ``GP.learn_*`` knobs), then refit the posterior.
+    On a mesh (``gather``: the collective row gather) every rank learns from
+    the gathered labeled rows alike, and the refit is the sharded one."""
+    rows = state.x[state.idx] if gather is None else gather(state.idx)
+    state.hyper = fit_hyperparams(rows, state.y, state.active, state.hyper,
                                   **_learn_kwargs(cfg, state))
-    return gp_mod.gp_fit(state)
+    return gp_mod.gp_fit(state, gather=gather)
 
 
 def _hyper_log_fields(state: gp_mod.GPState, cfg: ExperimentConfig) -> Dict[str, float]:

@@ -85,24 +85,36 @@ from ital_tpu_torch.utils import checkpoint as ckpt
 
 _MESH_UNPORTED = (
     "mesh-sharded serving is not ported to ital_tpu_torch yet: see ROADMAP.md, "
-    "queue 1 item 15 (parallel/)"
+    "queue 1 item 2 (ShardedRetrieval and serve --mesh)"
 )
 
-# Peak device memory a stacked cohort program adds per session, in copies of
-# the session's (cap, N) f32 whitened buffer v: the rise of
-# torch.cuda.max_memory_allocated over K x cap x N x 4 bytes, measured at the
-# production configuration (25 000 x 512, cap 64, pool 4096, K = 8) on an
-# H100 80GB HBM3 at 700 W (chip_smoke.py phase 8: 15.65 and 1.26; PERF.md),
-# rounded up.  The selection's copies are mostly the MI scan's temporaries,
-# which grow with the pool and not with N, so at larger corpora they
-# overstate its need.
-SELECT_COPIES = 16
+# Peak device memory a stacked cohort program adds per session: COPIES of the
+# session's (cap, N) f32 whitened buffer v (the stack and the corpus-wide
+# temporaries, which grow with N) plus FIXED_BYTES that do not grow with N
+# (the selection's MI scan over the session's pool).  From the rise of
+# torch.cuda.max_memory_allocated over K = 8 sessions at the production
+# settings (cap 64, pool 4096) on an H100 80GB HBM3 at 700 W (chip_smoke.py
+# phases 8 and 9; PERF.md): a selection added 95.55 MiB a session at 25 000
+# rows and 115.13 MiB at 100 000, which fit 1.07 copies + 89.0 MiB; an
+# update 1.26 and 1.24 copies.  Rounded up.
+SELECT_COPIES = 1.25
+SELECT_FIXED_BYTES = 96 << 20
 UPDATE_COPIES = 2
 # The default of ITAL_TPU_COHORT_STATE_BYTES, the device memory a stacked
 # program may take beyond the live sessions and the corpus: a tenth of the
-# H100's 80 GB.  At 25 000 rows and cap 64 a selection takes 83 sessions at
-# a time, an update 671; at 1M rows 2 and 16.
+# H100's 80 GB.  At cap 64 a selection then takes 79 sessions at a time at
+# 25 000 rows and 20 at 1M rows, an update 671 and 16.
 COHORT_STATE_BYTES = 8 << 30
+
+
+def max_cohort_sessions(cap: int, n: int, copies: float, fixed_bytes: int = 0) -> int:
+    """Largest session group one stacked program over an (n,)-row corpus
+    takes: the budget (``ITAL_TPU_COHORT_STATE_BYTES``, default
+    :data:`COHORT_STATE_BYTES`) over ``copies`` (cap, n) f32 buffers plus
+    ``fixed_bytes`` a session (:data:`SELECT_COPIES` and
+    :data:`SELECT_FIXED_BYTES`, :data:`UPDATE_COPIES`)."""
+    budget = int(os.environ.get("ITAL_TPU_COHORT_STATE_BYTES", COHORT_STATE_BYTES))
+    return max(1, int(budget // (copies * int(cap) * int(n) * 4 + fixed_bytes)))
 
 
 class NotFound(KeyError):
@@ -253,14 +265,9 @@ class RetrievalService:
         with lock:
             return [int(i) for i in sess.fetch_unlabelled(int(k))]
 
-    def _max_cohort_sessions(self, cap: int, copies: int) -> int:
-        """Largest session group one stacked program takes: the budget
-        (``ITAL_TPU_COHORT_STATE_BYTES``, default :data:`COHORT_STATE_BYTES`)
-        over ``copies`` (cap, N) f32 buffers per session, the program's
-        measured peak (:data:`SELECT_COPIES`, :data:`UPDATE_COPIES`)."""
-        budget = int(os.environ.get("ITAL_TPU_COHORT_STATE_BYTES", COHORT_STATE_BYTES))
-        per = copies * int(cap) * int(self.x.shape[0]) * 4
-        return max(1, budget // per)
+    def _max_cohort_sessions(self, cap: int, copies: float, fixed_bytes: int = 0) -> int:
+        """:func:`max_cohort_sessions` over this service's corpus."""
+        return max_cohort_sessions(cap, self.x.shape[0], copies, fixed_bytes)
 
     def next_batch_many(self, sids: list, k: int) -> Dict[str, list]:
         """Select for many sessions in one request.
@@ -283,7 +290,8 @@ class RetrievalService:
             )
             if not compatible or len(sessions) == 1:
                 return self._select_each_locked(entries, int(k))
-            limit = self._max_cohort_sessions(sessions[0].state.cap, SELECT_COPIES)
+            limit = self._max_cohort_sessions(sessions[0].state.cap, SELECT_COPIES,
+                                              SELECT_FIXED_BYTES)
             out: Dict[str, list] = {}
             for i in range(0, len(entries), limit):
                 out.update(self._select_cohort_locked(entries[i:i + limit], int(k)))

@@ -457,12 +457,24 @@ def test_cohort_budget_chunks_with_the_same_results(monkeypatch):
     from ital_tpu_torch import serve
 
     per = 32 * 120 * 4  # one (cap, N) f32 buffer
-    monkeypatch.setenv("ITAL_TPU_COHORT_STATE_BYTES", str(2 * serve.UPDATE_COPIES * per))
+    monkeypatch.setenv("ITAL_TPU_COHORT_STATE_BYTES", str(int(2 * serve.UPDATE_COPIES * per)))
     assert svc._max_cohort_sessions(32, serve.UPDATE_COPIES) == 2
-    assert svc._max_cohort_sessions(32, serve.SELECT_COPIES) == 1
+    assert svc._max_cohort_sessions(32, serve.SELECT_COPIES, serve.SELECT_FIXED_BYTES) == 1
     calls = _spy(monkeypatch, svc)
     _round(svc, cohort, twins, 0)
     assert len(calls["cohort"]) == 3 and calls["stacked"] == 3
+
+
+@pytest.mark.parametrize("n,select,update", [(25_000, 79, 671), (1_000_000, 20, 16)])
+def test_cohort_chunk_sizes_at_25k_and_1m_rows(monkeypatch, n, select, update):
+    """The default budget's chunks at cap 64: the selection's MI term does not
+    grow with N, so at 1M rows a selection still takes 20 sessions (charged
+    as 16 (cap, N) copies each it took 2)."""
+    from ital_tpu_torch import serve
+
+    monkeypatch.delenv("ITAL_TPU_COHORT_STATE_BYTES", raising=False)
+    assert serve.max_cohort_sessions(64, n, serve.SELECT_COPIES, serve.SELECT_FIXED_BYTES) == select
+    assert serve.max_cohort_sessions(64, n, serve.UPDATE_COPIES) == update
 
 
 def test_a_failing_stacked_program_fails_the_request(monkeypatch):

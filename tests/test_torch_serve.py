@@ -634,12 +634,13 @@ def test_service_runs_on_cuda_unless_asked_for_the_cpu(monkeypatch):
 
 
 def test_mesh_is_refused_naming_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
+    item = r"queue 1 item 2 \(ShardedRetrieval and serve --mesh\)"
+    with pytest.raises(NotImplementedError, match=item):
         RetrievalService(_corpus(), length_scale=2.5, mesh_devices=2, device="cpu")
     cfg = tconfig.load_config(str(ROOT / "configs" / "toy.ini"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
+    with pytest.raises(NotImplementedError, match=item):
         serve.service_from_config(cfg, mesh_devices=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
+    with pytest.raises(NotImplementedError, match=item):
         serve.main(["configs/toy.ini", "--mesh", "2", "--device", "cpu"])
 
 
