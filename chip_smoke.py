@@ -94,10 +94,36 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    rows fits the server's select budget (``serve.SELECT_COPIES`` (cap, N)
    copies plus ``serve.SELECT_FIXED_BYTES`` a session), held to it.
 
+10. mesh programs: the mesh's fused and cohort programs and the mesh
+   service (``parallel.sharded.make_sharded_session`` /
+   ``make_sharded_cohort``, ``parallel.interactive``).  The kernel at the
+   stacked shard shapes of a cohort of 4 at 100 000 rows, (16, 100000, 512)
+   and (100000, 12, 512) f32, against its plain version and its bound.
+   Then ``configs/scale100k.ini`` (100 000 x 512, depth cut to 2 classes x
+   2 queries x 3 rounds) through the runner with ``query_batch = 4`` and
+   ``fused_sessions``, and with ``fused_sessions`` alone, each on the mesh
+   (clamped to the card) beside its ``mesh_devices = 0`` run (uncounted):
+   picks agree round by round up to MI ties on the single-device state, the
+   AP curves while they agree.  With two cards or more the cohort also runs
+   on a world of 2 on NCCL; with one, a line says it did not.  Then the mesh
+   service (``mesh_devices = 1``, NCCL) over ``corpus100k`` at the
+   production selection options, cap 64: eight ITAL sessions through
+   ``/batch_select`` and ``/batch_feedback`` for three rounds beside eight
+   twins on a single-device service served one request at a time
+   (uncounted), which absorb the same answers (picks up to MI ties, each
+   mean within ``CPU_MU_ATOL`` of its twin's), then ``/ranking``, ``/learn``
+   (against the twin's within ``LEARN_RTOL``) and ``/snapshot`` ->
+   ``/restore``; the service is closed before the phase ends.  The launch
+   count is reset before the mesh runs and must grow in every mesh request
+   that forms RBF blocks; each request kind's host latency (device
+   synchronized), launches and device memory peak, and each mode's cohort
+   or session time, are printed with the card's name and power limit.
+
 The second-to-last line is a JSON object describing the kernel (launches on
 the main paths in all, per route and per path, its bound, its time and the
-plain version's, and its times at the 100 000-row shapes); the last line is
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+plain version's, and its times at the 100 000-row shapes and at the mesh
+cohort's stacked shard shapes); the last line is ``{"ok": true, "device":
+{...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -170,6 +196,11 @@ SCALE_CONFIG = ROOT / "configs" / "scale100k.ini"
 SCALE_OVERRIDES = ("EXPERIMENT.max_classes=1", "EXPERIMENT.n_rounds=3")
 RING_METHODS = ("emoc", "mcmi_min", "sud")
 RING_OVERRIDES = HARNESS_OVERRIDES + ("EXPERIMENT.max_classes=1", "EXPERIMENT.n_rounds=2")
+# Phase 10: configs/scale100k.ini cut to 2 classes x 2 queries x 3 rounds,
+# fused sessions and cohorts of 4 on the mesh (clamped to the cards).
+MESH_OVERRIDES = ("EXPERIMENT.max_classes=2", "EXPERIMENT.queries_per_class=2",
+                  "EXPERIMENT.n_rounds=3")
+MESH_QB = 4
 # The card's published peaks (H100 SXM, dense), for the kernel's bound: HBM
 # bytes per second, and TF32 and bf16 tensor operations per second (the f32
 # route does its products as 3xTF32: three TF32 products per f32 one).
@@ -1314,7 +1345,7 @@ def sharded_phase(torch, ds, cfg, dev, smi: str, rise25: dict) -> dict:
               f"{rise100['batch_feedback'] / 2**20:.2f} MiB at {big.n} [{smi}]")
     _check_budget(rise100, CAP, big.n)
     print(f"sharded phase: {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": launches, "shapes": shapes}
+    return {"launches": launches, "shapes": shapes, "big": big}
 
 
 def _fit_budget(r_a: dict, n_a: int, r_b: dict, n_b: int, cap: int) -> dict:
@@ -1397,6 +1428,314 @@ def _big_kernel_times(torch, big, scale, dev, smi: str) -> list:
     return out
 
 
+@contextlib.contextmanager
+def _record_stacked_ital(record: list):
+    """Append ``(each session's state before, picks (K, b))`` to ``record``
+    for each stacked single-device ITAL selection."""
+    from ital_tpu_torch.models import gp as gp_mod
+    from ital_tpu_torch.select import base
+
+    orig = base.STACKED["ital"]
+
+    def watched(st, *args, **kwargs):
+        before = [gp_mod.gp_session_copy(gp_mod.session_state(st, k)) for k in range(st.k)]
+        out = orig(st, *args, **kwargs)
+        record.append((before, out.tolist()))
+        return out
+
+    base.STACKED["ital"] = watched
+    try:
+        yield
+    finally:
+        base.STACKED["ital"] = orig
+
+
+@contextlib.contextmanager
+def _record_mesh_picks(record: list):
+    """Append the (K, b) picks of each selection of the mesh's fused and
+    cohort programs (one session's picks as K = 1) to ``record``."""
+    from ital_tpu_torch.parallel import sharded
+
+    orig = {name: getattr(sharded, name)
+            for name in ("make_sharded_select", "make_sharded_cohort_select")}
+
+    def wrap(make):
+        def made(*args, **kwargs):
+            select = make(*args, **kwargs)
+
+            def watched(*a, **kw):
+                out = select(*a, **kw)
+                record.append(out.reshape(-1, out.shape[-1]).tolist())
+                return out
+
+            return watched
+        return made
+
+    for name, make in orig.items():
+        setattr(sharded, name, wrap(make))
+    try:
+        yield
+    finally:
+        for name, make in orig.items():
+            setattr(sharded, name, make)
+
+
+def _per_session(calls: list, n_sessions: int, rounds: int, cohort: bool) -> list:
+    """``[session][round]`` picks from the calls of a cohort (call r: round r
+    of every session) or of sessions run one after another."""
+    if cohort:
+        return [[calls[r][k] for r in range(rounds)] for k in range(n_sessions)]
+    rows = [row for call in calls for row in call]
+    return [rows[k * rounds:(k + 1) * rounds] for k in range(n_sessions)]
+
+
+def _mesh_vs_single(torch, big, scale, dev, mode: str, change: dict, smi: str) -> dict:
+    """The runner's ``change`` mode on the mesh (counted) beside its
+    ``mesh_devices = 0`` run (uncounted): picks agree round by round up to
+    the first round whose picks differ by MI ties (on the single-device
+    state), the AP curves while they agree.  Returns both results."""
+    from ital_tpu_torch import runner
+    from ital_tpu_torch.ops import rbf_hopper
+    from ital_tpu_torch.select.base import StrategyParams
+
+    cohort = change.get("query_batch", 0) > 1
+    serial_calls, mesh_calls, res = [], [], {}
+    for run, mesh in (("single", 0), ("mesh", 8)):
+        cfg = dataclasses.replace(scale, mesh_devices=mesh, **change)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = rbf_hopper.LAUNCHES
+        with (_uncounted() if run == "single" else contextlib.nullcontext()), \
+                (_record_stacked_ital(serial_calls) if run == "single"
+                 else _record_mesh_picks(mesh_calls)):
+            res[run] = runner.run_experiment(cfg, big, device=dev)
+        torch.cuda.synchronize()
+        res[run]["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        res[run]["launches"] = rbf_hopper.LAUNCHES - before
+    check(res["mesh"]["mesh_devices"] == 1 and res["mesh"]["fused"] is True,
+          f"mesh {mode}: a fused run on the one card")
+    rounds, n_sess = scale.n_rounds, len(res["single"]["sessions"])
+    single = _per_session([c[1] for c in serial_calls], n_sess, rounds, cohort)
+    states = _per_session([c[0] for c in serial_calls], n_sess, rounds, cohort)
+    on_mesh = _per_session(mesh_calls, n_sess, rounds, cohort)
+    params = StrategyParams.create(dev, label_prob=scale.user.label_prob,
+                                   mistake_prob=scale.user.mistake_prob)
+    apart = []
+    with _uncounted():
+        for k in range(n_sess):
+            r = next((r for r in range(rounds) if single[k][r] != on_mesh[k][r]), rounds)
+            if r < rounds:
+                gaps = _mi_gaps(torch, states[k][r], params, scale.method_kwargs, on_mesh[k][r])
+                print(f"mesh {mode} session {k}: round {r} single {single[k][r]}, mesh "
+                      f"{on_mesh[k][r]}; MI gaps on the single-device state {gaps}")
+                check(all(0 <= g <= MI_TIE_ATOL for g in gaps),
+                      f"mesh {mode}: picks differ only by MI ties")
+            check(np.abs(res["mesh"]["ap"][k, :r] - res["single"]["ap"][k, :r]).max(
+                initial=0.0) <= 1e-6, f"mesh {mode}: AP curves agree while the picks do")
+            apart.append(r)
+    for run in ("single", "mesh"):
+        r = res[run]
+        # A cohort's select_ms is the whole cohort's time; a session's is per round.
+        total = r["select_ms"] if cohort else r["select_ms"] * rounds
+        what = (f"{'cohort of ' + str(change['query_batch']) if cohort else 'session'} "
+                f"{total:.3f} ms mean for {rounds} rounds ({total / rounds:.3f} ms a round), "
+                f"first {r['first_round_ms']:.1f} ms")
+        print(f"mesh {mode} {run}: MAP {[round(float(m), 6) for m in r['map']]}; {what}; "
+              f"device memory peak {r['peak_mib']:.1f} MiB; launches {r['launches']} [{smi}]")
+    print(f"mesh {mode}: first round whose picks differ, per session: {apart} of {rounds}")
+    return res
+
+
+def _mesh_kernel_shapes(torch, big, scale, dev, smi: str) -> list:
+    """The kernel at the stacked shard shapes the mesh cohort launches at
+    100 000 x 512: the cohort update's new rows against the shard (K b, N)
+    and the greedy step's shard against the K partial batches (N, K t), at
+    K = 4, b = 4, t = 3; against the plain version and the bound.
+    Uncounted: comparisons, not the path."""
+    from ital_tpu_torch.ops import rbf_hopper
+    from ital_tpu_torch.ops.kernels import rbf_kernel, rbf_kernel_plain
+
+    x = torch.from_numpy(big.x).to(dev)
+    x2 = (x * x).sum(-1)
+    rng = np.random.default_rng(SEED + 19)
+    ls = torch.tensor(scale.gp.length_scale, device=dev)
+    var = torch.tensor(scale.gp.var, device=dev)
+    k, n, d = MESH_QB, big.n, big.x.shape[1]
+
+    def rows(m):
+        return x[torch.from_numpy(rng.choice(n, size=m, replace=False)).to(dev)]
+
+    new, part = rows(k * SERVE_K), rows(k * (SERVE_K - 1))
+    shapes = [(f"({k * SERVE_K}, {n}, {d}) b2", new, x, {"b2": x2}),
+              (f"({n}, {k * (SERVE_K - 1)}, {d}) a2", x, part, {"a2": x2})]
+    out = []
+    with _uncounted():
+        for name, a, b, norms in shapes:
+            kern = functools.partial(rbf_kernel, a, b, ls, var, **norms)
+            plain = functools.partial(rbf_kernel_plain, a, b, ls, var, **norms)
+            err = float((kern() - plain()).abs().max())
+            (ms, spread), (plain_ms, plain_spread) = _time_turns_ms(torch, [kern, plain])
+            dev_us = _device_us(torch, kern)
+            bound, bound_by = rbf_bound_ms(a.shape[0], b.shape[0], d, False,
+                                           sum(v.numel() for v in norms.values()))
+            route = rbf_hopper.choose_route(a.shape[0], b.shape[0], d, a.dtype, a.data_ptr(),
+                                            b.data_ptr()).name
+            print(f"kernel: mesh cohort {name}: route {route}; max_abs_err {err:.3e} (atol "
+                  f"{F32_ATOL * scale.gp.var:.0e}); per launch ms {ms:.4f} (spread {spread:.4f}), "
+                  f"plain {plain_ms:.4f} (spread {plain_spread:.4f}); device us {dev_us:.2f}; "
+                  f"bound {bound * 1e3:.2f} us ({bound_by}), {bound / ms * 100:.1f} % of it [{smi}]")
+            check(err <= F32_ATOL * scale.gp.var, f"mesh cohort {name}: kernel against plain")
+            out.append({"shape": f"{name} f32", "route": route, "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "device_us": dev_us, "bound_ms": bound,
+                        "bound_by": bound_by})
+    return out
+
+
+def _mesh_service(torch, big, cfg, dev, smi: str) -> None:
+    """The mesh service (a mesh of one card, NCCL) over ``big`` at the
+    production selection options: ``COHORT_K`` ITAL sessions through
+    ``/batch_select`` and ``/batch_feedback`` for ``SERVE_ROUNDS`` rounds,
+    beside twins on a single-device service served one request at a time
+    (uncounted), which absorb the same answers; then ``/ranking``,
+    ``/learn`` (against the twin's) and ``/snapshot`` -> ``/restore``.
+    Closes the service, and its process group, before it returns."""
+    from ital_tpu_torch import serve
+    from ital_tpu_torch.ops import rbf_hopper
+
+    kw = dict(length_scale=cfg.gp.length_scale, var=cfg.gp.var, noise=cfg.gp.noise, cap=CAP,
+              label_prob=cfg.user.label_prob, mistake_prob=cfg.user.mistake_prob,
+              method_kwargs=dict(cfg.method_kwargs), corpus_name=big.name, device=dev)
+    t0 = time.perf_counter()
+    mesh = serve.RetrievalService(big.x, mesh_devices=1, **kw)
+    start_ms = (time.perf_counter() - t0) * 1e3
+    times, launches, peaks = {}, {}, {}
+
+    def timed(kind, fn):
+        """One request; its host time runs until the device is idle again."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = rbf_hopper.LAUNCHES
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.setdefault(kind, []).append((time.perf_counter() - t) * 1e3)
+        launches.setdefault(kind, []).append(rbf_hopper.LAUNCHES - before)
+        peaks[kind] = max(peaks.get(kind, 0), torch.cuda.max_memory_allocated())
+        return out
+
+    try:
+        h = mesh.health()
+        check(h["mesh_devices"] == 1 and mesh._world.mesh.backend == "nccl",
+              f"the mesh service runs a world of one card on NCCL: {h}")
+        with _uncounted():
+            single = serve.RetrievalService(big.x, **kw)
+        rng = np.random.default_rng(SEED + 23)
+        classes = [int(c) for c in rng.choice(big.classes, COHORT_K // 2, replace=False)]
+        queries = [(int(q), c) for c in classes for q in big.queries_for_class(c, rng, 2)]
+        user = _user(rng, big, cfg.user.label_prob, cfg.user.mistake_prob)
+        cohort, twins = [], []
+        for q, _ in queries:
+            sid = timed("create", mesh.create_session)
+            timed("query", lambda: mesh.set_query(sid, q))
+            cohort.append(sid)
+            with _uncounted():
+                twins.append(single.create_session())
+                single.set_query(twins[-1], q)
+        round_ms = []
+        for r in range(SERVE_ROUNDS):
+            picks = timed("batch_select", lambda: mesh.next_batch_many(cohort, SERVE_K))
+            for j, (a, b) in enumerate(zip(cohort, twins)):
+                with _uncounted():
+                    alone = single.next_batch(b, SERVE_K)
+                check(len(set(picks[a])) == SERVE_K, f"mesh serve round {r}: distinct picks")
+                if picks[a] != alone:
+                    twin = single._entry(b)[0]
+                    with _uncounted():
+                        gaps = _tie_gaps(twin, picks[a], twin.method_kwargs)
+                    print(f"mesh serve round {r} session {j}: mesh {picks[a]} single {alone}; "
+                          f"refined-MI gaps {gaps} (tie atol {MI_TIE_ATOL})")
+                    check(all(abs(g) <= MI_TIE_ATOL for g in gaps),
+                          "mesh and single-device batches differ only by ties")
+            answers = {a: user(picks[a], c) for a, (_, c) in zip(cohort, queries)}
+            got = timed("batch_feedback", lambda: mesh.feedback_many(answers))
+            round_ms.append(times["batch_select"][-1] + times["batch_feedback"][-1])
+            for a, b in zip(cohort, twins):
+                with _uncounted():
+                    alone = single.feedback(b, answers[a])
+                    err = float(np.abs(mesh._world.run(_mesh_scores, a)
+                                       - single._entry(b)[0].scores()).max())
+                check(got[a] == alone == {"labeled": 1 + (r + 1) * SERVE_K},
+                      f"mesh serve round {r}: labeled {got[a]} {alone}")
+                check(err <= CPU_MU_ATOL, f"mesh serve round {r}: mu within {CPU_MU_ATOL} "
+                                          f"of the twin's ({err})")
+        a, b = cohort[0], twins[0]
+        ranked = timed("ranking", lambda: mesh.ranking(a, 20))
+        with _uncounted():
+            want = single._entry(b)[0].scores()
+        check(len(set(ranked["top"])) == 20 and max(ranked["top"]) < big.n,
+              "the mesh ranking names 20 real rows")
+        check(np.allclose(ranked["scores"], want[ranked["top"]], atol=CPU_MU_ATOL),
+              "the mesh ranking's scores are the twin's")
+        learned = timed("learn", lambda: mesh.learn(a, steps=LEARN_STEPS))
+        with _uncounted():
+            twin_learned = single.learn(b, steps=LEARN_STEPS)
+        print(f"mesh serve learn: mesh {learned}, single-device {twin_learned}")
+        check(all(abs(learned[f] / twin_learned[f] - 1) <= LEARN_RTOL for f in learned),
+              f"the mesh /learn agrees with the single-device one within {LEARN_RTOL}")
+        blob = timed("snapshot", lambda: mesh.snapshot(a))
+        restored = timed("restore", lambda: mesh.restore(blob))
+        check(mesh.ranking(restored, 20)["top"] == mesh.ranking(a, 20)["top"],
+              "the restored session ranks as the snapshot's")
+    finally:
+        mesh.close()
+    check(all(n > 0 for k in ("query", "batch_select", "batch_feedback", "learn")
+              for n in launches[k]), f"the kernel launched in every mesh request: {launches}")
+    print(f"mesh serve: start {start_ms:.1f} ms (corpus {big.n} x {big.x.shape[1]} to the card); "
+          f"cohort round (batch_select + batch_feedback of {COHORT_K}) ms {round_ms} [{smi}]")
+    for kind, ms in times.items():
+        print(f"mesh serve {kind}: {len(ms)} requests, host ms median {np.median(ms):.3f} min "
+              f"{min(ms):.3f} max {max(ms):.3f}; kernel launches per request "
+              f"{min(launches[kind])}-{max(launches[kind])}; device memory peak "
+              f"{peaks[kind] / 2**20:.1f} MiB [{smi}]")
+
+
+def _mesh_scores(ctx, sid):
+    return ctx.sessions[sid].scores()
+
+
+def mesh_phase(torch, big, cfg, dev, smi: str) -> dict:
+    """Phase 10: the mesh's fused and cohort programs and the mesh service;
+    returns the mesh path's launches by route and the kernel's times at the
+    stacked shard shapes."""
+    from ital_tpu_torch import runner
+    from ital_tpu_torch.ops import rbf_hopper
+    from ital_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    scale = load_config(str(SCALE_CONFIG), MESH_OVERRIDES)
+    shapes = _mesh_kernel_shapes(torch, big, scale, dev, smi)
+    torch.cuda.synchronize()
+    _reset_counts()  # the mesh path's count starts here
+    for mode, change in (("query_batch+fused", {"query_batch": MESH_QB, "fused_sessions": True}),
+                         ("fused", {"fused_sessions": True})):
+        _mesh_vs_single(torch, big, scale, dev, mode, change, smi)
+    if torch.cuda.device_count() >= 2:
+        with _uncounted():
+            two = runner.run_experiment(dataclasses.replace(
+                scale, mesh_devices=2, query_batch=MESH_QB, fused_sessions=True), big, device=dev)
+        check(two["mesh_devices"] == 2 and bool(np.isfinite(two["ap"]).all()),
+              "a world of 2 on NCCL runs the cohort")
+        print(f"mesh query_batch+fused on a world of 2 (NCCL): MAP "
+              f"{[round(float(m), 6) for m in two['map']]}; cohort {two['select_ms']:.3f} ms "
+              f"[{smi}]")
+    else:
+        print(f"mesh: a world of 2 on NCCL did not run ({torch.cuda.device_count()} card)")
+    _mesh_service(torch, big, cfg, dev, smi)
+    check(rbf_hopper.LAUNCHES > 0, "the kernel launched on the mesh programs")
+    print(f"mesh phase: {time.perf_counter() - t_phase:.1f} s; launches {rbf_hopper.LAUNCHES}")
+    return {"launches": dict(rbf_hopper.ROUTE_LAUNCHES), "shapes": shapes}
+
+
 def emoc_replay_phase(torch, ds, replay) -> None:
     """Restore the card's EMOC checkpoint on the CPU and pick from it on the plain path."""
     from ital_tpu_torch.models import gp as gp_mod
@@ -1453,11 +1792,12 @@ def main() -> int:
     served = serve_phase(torch, ds, cfg, torch.device("cuda"), smi)
     cohort, rise25 = cohort_phase(torch, ds, cfg, torch.device("cuda"), smi)
     shard = sharded_phase(torch, ds, cfg, torch.device("cuda"), smi, rise25)
+    mesh = mesh_phase(torch, shard["big"], cfg, torch.device("cuda"), smi)
     # At 512 features every RBF call of the paths takes the tensor-core route
     # (the router's rule, PERF.md); the tile kernel serves narrower or
     # unaligned features and is held against the plain version in phase 3.
     paths = {"session": sess, "harness": harness, "serving": served, **cohort,
-             "sharded": {"launches": shard["launches"]}}
+             "sharded": {"launches": shard["launches"]}, "mesh": {"launches": mesh["launches"]}}
     by_route = {r: sum(p["launches"][r] for p in paths.values()) for r in sess["launches"]}
     check(by_route["wgmma"] > 0, f"the tensor-core route launched on the main path: {by_route}")
     check(all(sum(p["launches"].values()) > 0 for p in paths.values()),
@@ -1482,6 +1822,7 @@ def main() -> int:
         "library_ms": None,
         "shape": "64x25000x512 f32",
         "shapes_100k": shard["shapes"],
+        "shapes_mesh_cohort": mesh["shapes"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -22,7 +22,10 @@ Package layout
 ``utils``     Configs, metrics (AP, recall@k), checkpoints, JSONL logging
               and timers.
 ``round``     One full feedback round.
+``parallel``  The corpus-sharded mesh on ``torch.distributed``: sharded
+              rounds, fused sessions and cohorts, the mesh-sharded session.
 ``runner``    The experiment harness (MAP-vs-rounds); ``cli`` its command line.
+``serve``     The HTTP server, on one device or a mesh.
 """
 
 __version__ = "0.1.0"

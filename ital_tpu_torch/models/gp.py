@@ -201,6 +201,23 @@ def unstack_into(st: StackedGPState, states) -> None:
         s.count = st.counts[k]
 
 
+def refit_stacked(st: StackedGPState, refit: Callable[[GPState], GPState]) -> None:
+    """Replace each session of ``st`` by ``refit`` of it (a re-learn of its
+    hyperparameters and a refit of its posterior), in place.  The stack's
+    hyperparameters are replaced, not written, since a session's may be
+    shared with others, and each session becomes a group of its own, decided
+    without reading the values back."""
+    hyper = {f: getattr(st.hyper, f).clone() for f in _HYPER}
+    for k in range(st.k):
+        fitted = refit(session_state(st, k))
+        for f in ("l", "beta", "v", "mu", "sig2"):
+            getattr(st, f)[k].copy_(getattr(fitted, f))
+        for f in hyper:
+            hyper[f][k] = getattr(fitted.hyper, f)
+    st.hyper = GPHyper(**hyper)
+    st.hyper_groups = [[k] for k in range(st.k)]
+
+
 def _state_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.promote_types(x.dtype, torch.float32)
 
@@ -266,7 +283,7 @@ def gp_session_copy(state: GPState, device=None) -> GPState:
 GatherFn = Callable[[torch.Tensor], torch.Tensor]
 
 
-def _rows(state: GPState, idx: torch.Tensor, gather: Optional[GatherFn]) -> torch.Tensor:
+def _rows(state, idx: torch.Tensor, gather: Optional[GatherFn]) -> torch.Tensor:
     return state.x[idx] if gather is None else gather(idx)
 
 
@@ -374,6 +391,8 @@ def gp_update_stacked(
     new_idx: torch.Tensor,
     new_y: torch.Tensor,
     new_valid: torch.Tensor,
+    *,
+    gather: Optional[GatherFn] = None,
 ) -> StackedGPState:
     """:func:`gp_update` of K sessions at once, each at its own count and with
     its own hyperparameters; writes ``st`` in place and returns it.
@@ -381,8 +400,11 @@ def gp_update_stacked(
     ``new_idx``, ``new_y``, ``new_valid``: (K, b), one feedback block per
     session.  The RBF blocks take one kernel launch per group of sessions
     with equal hyperparameters (:func:`ital_tpu_torch.ops.kernels.rbf_sessions`),
-    the algebra one batched call per step.  Raises ``ValueError``, before
-    anything is written, when a session's ``count + b > cap``.
+    the algebra one batched call per step.  ``gather`` fetches the labeled
+    and the new rows of every session in one call, (K, cap + b) indices to
+    (K, cap + b, D) rows (the sharded path's collective gather).  Raises
+    ``ValueError``, before anything is written, when a session's
+    ``count + b > cap``.
     """
     h = st.hyper
     dt = st.mu.dtype
@@ -393,8 +415,8 @@ def gp_update_stacked(
     new_valid = new_valid.to(torch.bool)
     new_y = torch.where(new_valid, new_y.to(dt), 0.0)
 
-    xl = st.x[st.idx]  # (K, cap, D) current slots
-    xb = st.x[new_idx]  # (K, b, D)
+    # (K, cap, D) current slots and (K, b, D) new rows, fetched together.
+    xl, xb = _rows(st, torch.cat([st.idx, new_idx], -1), gather).split([st.cap, b], dim=-2)
     groups = st.hyper_groups
     k_lb = rbf_sessions(xl, xb, h.length_scale, h.var, groups)
     k_lb = torch.where(active_old[..., None], k_lb, 0.0)

@@ -16,7 +16,8 @@ rounds from the labels so far, then refit the posterior).
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -133,3 +134,45 @@ def fit_hyperparams(
     if not learn_noise:
         h.noise = hyper0.noise  # bit-exact pin (exp/log round trips)
     return h
+
+
+@dataclasses.dataclass(frozen=True)
+class LearnConfig:
+    """Online re-learning in the harness: every ``every`` rounds, ``steps``
+    of :func:`fit_hyperparams` at ``lr`` (the ``[GP] learn_*`` keys; the
+    reference's ``parallel.sharded.LearnConfig``).
+
+    ``prior_strength`` > 0 is MAP type-II with log-normal priors anchored at
+    ``center``, the configuration's initial (length_scale, var, noise), not
+    the current iterate, which would let the anchor wander with the
+    estimate; ``noise_floor`` bounds the learned noise from below.
+    """
+
+    every: int
+    steps: int = 50
+    lr: float = 0.05
+    learn_noise: bool = True
+    prior_strength: float = 0.0
+    noise_floor: float = 0.0
+    center: tuple = ()
+
+    @classmethod
+    def from_gp(cls, gp) -> "LearnConfig":
+        """The knobs of a ``utils.config.GPConfig``."""
+        return cls(gp.learn_every, gp.learn_steps, gp.learn_lr, gp.learn_noise,
+                   prior_strength=float(gp.learn_prior_strength),
+                   noise_floor=float(gp.learn_noise_floor),
+                   center=(gp.length_scale, gp.var, gp.noise))
+
+    def fit_kwargs(self, like: torch.Tensor) -> Dict[str, Any]:
+        """:func:`fit_hyperparams`' options, the prior's center in ``like``'s
+        dtype and device."""
+        kw: Dict[str, Any] = dict(steps=int(self.steps), lr=float(self.lr),
+                                  learn_noise=bool(self.learn_noise),
+                                  prior_strength=float(self.prior_strength),
+                                  noise_floor=float(self.noise_floor))
+        if kw["prior_strength"]:
+            ls, var, noise = (torch.tensor(v, dtype=like.dtype, device=like.device)
+                              for v in self.center)
+            kw["prior_center"] = GPHyper(length_scale=ls, var=var, noise=noise)
+        return kw

@@ -44,6 +44,40 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def feedback_block(state: gp_mod.GPState,
+                   feedback: Dict[int, int]) -> tuple[np.ndarray, np.ndarray]:
+    """The block a session absorbs for ``feedback``: (b,) int64 corpus
+    indices and (b,) float32 labels, 0 where skipped, padded to the bucket
+    width and clamped to the remaining capacity of ``state``.  Raises
+    ``ValueError`` when the labels overflow the capacity."""
+    used = state.count
+    cap = state.cap
+    if used + len(feedback) > cap:
+        raise ValueError(
+            f"labeled-slot capacity exceeded: {used} used + {len(feedback)} new "
+            f"> cap={cap}; construct the session with a larger `cap`"
+        )
+    b = min(-(-len(feedback) // _UPDATE_BUCKET) * _UPDATE_BUCKET, cap - used)
+    idx = np.zeros(b, dtype=np.int64)
+    idx[: len(feedback)] = np.fromiter(feedback.keys(), dtype=np.int64)
+    y = np.zeros(b, dtype=np.float32)
+    y[: len(feedback)] = [0 if v is None else int(v) for v in feedback.values()]
+    return idx, y
+
+
+def check_method_kwargs(strategy: str, method_kwargs: dict) -> None:
+    """Reject a session's options before anything is built: non-scalar
+    values, unknown strategies and options ``strategy`` does not declare."""
+    for name, v in method_kwargs.items():
+        if isinstance(v, str) or not isinstance(v, (int, float, bool, type(None))):
+            raise TypeError(
+                f"method_kwargs[{name!r}] must be a numeric/bool scalar "
+                f"(int/float/bool/None), got {type(v).__name__}"
+            )
+    get_strategy(strategy)  # fail fast on unknown strategy names
+    validate_method_kwargs(strategy, method_kwargs)
+
+
 class ActiveRetrieval:
     """One interactive retrieval session over a fixed corpus.
 
@@ -91,14 +125,7 @@ class ActiveRetrieval:
             self.state.density = gp_mod.corpus_density(self.state)
         self.strategy_name = strategy
         self.method_kwargs = dict(method_kwargs or {})
-        for name, v in self.method_kwargs.items():
-            if isinstance(v, str) or not isinstance(v, (int, float, bool, type(None))):
-                raise TypeError(
-                    f"method_kwargs[{name!r}] must be a numeric/bool scalar "
-                    f"(int/float/bool/None), got {type(v).__name__}"
-                )
-        get_strategy(strategy)  # fail fast on unknown strategy names
-        validate_method_kwargs(strategy, self.method_kwargs)
+        check_method_kwargs(strategy, self.method_kwargs)
         self.params = StrategyParams.create(
             self.device, label_prob=label_prob, mistake_prob=mistake_prob,
             tradeoff=tradeoff,
@@ -141,23 +168,9 @@ class ActiveRetrieval:
         )
 
     def feedback_block(self, feedback: Dict[int, int]) -> tuple[np.ndarray, np.ndarray]:
-        """The block :meth:`update` absorbs for ``feedback``: (b,) int64
-        corpus indices and (b,) float32 labels, 0 where skipped, padded to
-        the bucket width and clamped to the remaining capacity.  Raises
-        ``ValueError`` when the labels overflow the capacity."""
-        used = self.state.count
-        cap = self.state.cap
-        if used + len(feedback) > cap:
-            raise ValueError(
-                f"labeled-slot capacity exceeded: {used} used + {len(feedback)} new "
-                f"> cap={cap}; construct the session with a larger `cap`"
-            )
-        b = min(-(-len(feedback) // _UPDATE_BUCKET) * _UPDATE_BUCKET, cap - used)
-        idx = np.zeros(b, dtype=np.int64)
-        idx[: len(feedback)] = np.fromiter(feedback.keys(), dtype=np.int64)
-        y = np.zeros(b, dtype=np.float32)
-        y[: len(feedback)] = [0 if v is None else int(v) for v in feedback.values()]
-        return idx, y
+        """The block :meth:`update` absorbs for ``feedback``
+        (:func:`feedback_block`)."""
+        return feedback_block(self.state, feedback)
 
     def scores(self) -> np.ndarray:
         """Relevance scores (GP posterior mean) for the whole corpus (a copy)."""

@@ -30,12 +30,22 @@ collective ``gather``, so the sharded and single-device posteriors are one
 code path.  Random draws are made in full on every rank (each rank's
 generator seeded alike) and each rank takes its rows, so a sharded run draws
 what the single-device run draws.
+
+A cohort of K sessions over one shard is a ``StackedGPState`` laid out the
+same way (:func:`shard_cohort_state`): ``v`` (K, cap, N/p), ``mu`` and
+``sig2`` (K, N/p).  Its ITAL greedy step exchanges every session's partial
+batch in one sum and every session's argmax in one gather, so a cohort
+round pays its collectives once, not once per session
+(:func:`make_sharded_cohort_select`).  :func:`make_sharded_session` and
+:func:`make_sharded_cohort` run all of a session's or a cohort's rounds
+with no host read between them.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -44,15 +54,16 @@ import torch.distributed as dist
 
 from ital_tpu_torch.data.user import feedback_from_uniforms
 from ital_tpu_torch.models import gp as gp_mod
-from ital_tpu_torch.models.gp import GPState
+from ital_tpu_torch.models.gp import GPHyper, GPState, StackedGPState
+from ital_tpu_torch.models.hyperopt import LearnConfig, fit_hyperparams
 from ital_tpu_torch.ops import chol as chol_ops
-from ital_tpu_torch.ops.kernels import rbf_kernel
+from ital_tpu_torch.ops.kernels import rbf_kernel, rbf_sessions
 from ital_tpu_torch.parallel.mesh import Mesh
 from ital_tpu_torch.parallel.ring import ring_reduce_over_corpus
 from ital_tpu_torch.select import STRATEGIES
 from ital_tpu_torch.select import baselines as bl
 from ital_tpu_torch.select.base import StrategyParams
-from ital_tpu_torch.select.ital import MAX_MI_BATCH, MI_BLOCK, draw_qmc_shifts, mi_scores_from_moments
+from ital_tpu_torch.select.ital import MAX_MI_BATCH, MI_BLOCK, _session_scores, draw_qmc_shifts
 from ital_tpu_torch.utils.checkpoint import load_session, save_session
 from ital_tpu_torch.utils.metrics import average_precision, recall_at_k, top_k_stable
 
@@ -135,6 +146,33 @@ def shard_state(state: GPState, mesh: Mesh) -> GPState:
     )
 
 
+def shard_cohort_state(st: StackedGPState, mesh: Mesh) -> StackedGPState:
+    """This rank's shard of a full stack of K sessions, on the mesh's device
+    (the reference's ``cohort_pspecs`` layout): ``v`` (K, cap, N/p), ``mu``
+    and ``sig2`` (K, N/p), the shared ``x``, ``x2`` and ``density``'s rows;
+    the label buffers, factors, counts and hyperparameters replicated."""
+    n = st.x.shape[0]
+    if n % mesh.size:
+        raise ValueError(f"{n} corpus rows do not divide into {mesh.size} shards: pad first")
+    lo, hi = _bounds(mesh, n // mesh.size)
+    dev = mesh.device
+    x2 = st.x2
+    if x2 is None:
+        xf = st.x.to(torch.promote_types(st.x.dtype, torch.float32))
+        x2 = (xf * xf).sum(-1)
+    return StackedGPState(
+        x=_copy(st.x[lo:hi], dev), x2=_copy(x2[lo:hi], dev),
+        density=None if st.density is None else _copy(st.density[lo:hi], dev),
+        idx=_copy(st.idx, dev), y=_copy(st.y, dev), valid=_copy(st.valid, dev),
+        counts=list(st.counts), l=_copy(st.l, dev), beta=_copy(st.beta, dev),
+        v=_copy(st.v[..., lo:hi], dev), mu=_copy(st.mu[:, lo:hi], dev),
+        sig2=_copy(st.sig2[:, lo:hi], dev),
+        hyper=GPHyper(**{f: _copy(getattr(st.hyper, f), dev)
+                         for f in ("length_scale", "var", "noise")}),
+        hyper_groups=[list(g) for g in st.hyper_groups],
+    )
+
+
 # ---------------------------------------------------------------------------
 # Collectives
 # ---------------------------------------------------------------------------
@@ -163,14 +201,15 @@ def _owned(mesh: Mesh, shard_n: int, gidx: torch.Tensor):
 
 
 def gather_rows(mesh: Mesh, x_local: torch.Tensor, gidx: torch.Tensor) -> torch.Tensor:
-    """(k,) global indices -> (k, ...) rows of a row-sharded array, replicated:
-    each rank contributes the rows it owns and zeros elsewhere, and one sum
-    assembles them (exactly: each entry is one value plus zeros).  Sums in at
-    least f32, so a bf16 corpus crosses gloo too."""
+    """Global indices (any shape, e.g. (k,) or (K, t)) -> their rows of a
+    row-sharded array, replicated: each rank contributes the rows it owns
+    and zeros elsewhere, and one sum assembles them (exactly: each entry is
+    one value plus zeros).  Sums in at least f32, so a bf16 corpus crosses
+    gloo too."""
     rel, ok = _owned(mesh, x_local.shape[0], gidx)
     wide = torch.promote_types(x_local.dtype, torch.float32)
     rows = x_local[rel].to(wide)
-    rows = torch.where(ok.view(-1, *[1] * (rows.dim() - 1)), rows, 0.0)
+    rows = torch.where(ok.reshape(*ok.shape, *[1] * (x_local.dim() - 1)), rows, 0.0)
     return psum(mesh, rows).to(x_local.dtype)
 
 
@@ -186,27 +225,57 @@ def gather_scalars(mesh: Mesh, s_local: torch.Tensor, gidx: torch.Tensor) -> tor
     return psum(mesh, torch.where(ok, s_local[rel], 0.0))
 
 
+def _psum_parts(mesh: Mesh, parts: Sequence[torch.Tensor], ok: torch.Tensor) -> list:
+    """One sum for several gathers: ``parts`` (..., w_i) are this rank's
+    entries at indices whose ownership is ``ok`` (...); they cross as one
+    buffer in their widest dtype (at least f32) and come back replicated,
+    each in that dtype."""
+    wide = functools.reduce(torch.promote_types, [p.dtype for p in parts], torch.float32)
+    buf = torch.where(ok[..., None], torch.cat([p.to(wide) for p in parts], -1), 0.0)
+    return list(psum(mesh, buf).split([p.shape[-1] for p in parts], -1))
+
+
+def _all_gather_sessions(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """(K, n, ...) per rank -> (K, p n, ...): every rank's entries along
+    axis 1, in rank order, in one gather."""
+    out = all_gather_cat(mesh, x[None])  # (p, K, n, ...)
+    return out.movedim(0, 1).reshape(x.shape[0], -1, *x.shape[2:])
+
+
+def gather_mu(mesh: Mesh, mu_local: torch.Tensor) -> torch.Tensor:
+    """The posterior means over the whole padded corpus, replicated: (N,)
+    from (N/p,), or (K, N) from a stack's (K, N/p), in one gather."""
+    if mu_local.dim() == 1:
+        return all_gather_cat(mesh, mu_local)
+    return _all_gather_sessions(mesh, mu_local)
+
+
 def global_argmax(mesh: Mesh, scores_local: torch.Tensor, *,
                   offset: Optional[int] = None) -> torch.Tensor:
-    """The global index (0-d int64) of the largest score over every shard;
-    ties go to the lowest global index, as ``torch.argmax`` on the whole
-    vector.  ``offset``: this shard's first global index (default
-    ``rank * len(scores_local)``)."""
-    off = mesh.rank * scores_local.shape[0] if offset is None else offset
-    li = torch.argmax(scores_local)
-    # One gather of (value, index) pairs; f64 holds both exactly.
-    pair = torch.stack([scores_local[li].to(torch.float64), (li + off).to(torch.float64)])
-    pairs = all_gather_cat(mesh, pair).view(mesh.size, 2)
-    return pairs[torch.argmax(pairs[:, 0]), 1].to(torch.int64)
+    """The global index (int64) of the largest score over every shard, along
+    the last axis: 0-d for (n,) scores, (K,) for K sessions' (K, n); ties go
+    to the lowest global index, as ``torch.argmax`` on the whole vector.
+    ``offset``: this shard's first global index (default
+    ``rank * n``)."""
+    off = mesh.rank * scores_local.shape[-1] if offset is None else offset
+    li = torch.argmax(scores_local, dim=-1, keepdim=True)
+    # One gather of (value, index) pairs for every session; f64 holds both
+    # exactly.
+    pair = torch.cat([scores_local.gather(-1, li).to(torch.float64),
+                      (li + off).to(torch.float64)], -1)
+    pairs = all_gather_cat(mesh, pair[None])  # (p, ..., 2)
+    best = torch.argmax(pairs[..., 0], dim=0, keepdim=True)
+    return pairs[..., 1].gather(0, best)[0].to(torch.int64)
 
 
-def local_slot_mask(mesh: Mesh, state: GPState, *, extra_forbid: torch.Tensor) -> torch.Tensor:
+def local_slot_mask(mesh: Mesh, state, *, extra_forbid: torch.Tensor) -> torch.Tensor:
     """This shard's do-not-select mask: the labeled rows it owns, and
-    ``extra_forbid`` (its pad rows)."""
+    ``extra_forbid`` (its pad rows); (K, N/p) for a stack of K sessions."""
     shard_n = state.x.shape[0]
     rel, ok = _owned(mesh, shard_n, state.idx)
-    hits = torch.zeros(shard_n, dtype=torch.int32, device=state.idx.device)
-    hits.index_add_(0, rel, (ok & state.active).to(torch.int32))
+    hits = torch.zeros((*state.idx.shape[:-1], shard_n), dtype=torch.int32,
+                       device=state.idx.device)
+    hits.scatter_add_(-1, rel, (ok & state.active).to(torch.int32))
     return (hits > 0) | extra_forbid
 
 
@@ -217,12 +286,13 @@ def _sel_forbid_local(mesh: Mesh, state: GPState, sel_forbid: torch.Tensor) -> t
 
 
 def _forbid_pick(mesh: Mesh, forbid: torch.Tensor, gidx: torch.Tensor) -> None:
-    """Mark the picked global index ``gidx`` on the shard that owns it."""
-    rel, ok = _owned(mesh, forbid.shape[0], gidx.reshape(1))
-    forbid.index_put_((rel,), forbid[rel] | ok)
+    """Mark the picked global index ``gidx`` (0-d, or (K,) for the K rows of
+    a stack's ``forbid``) on the shard that owns it."""
+    rel, ok = _owned(mesh, forbid.shape[-1], gidx.reshape(*forbid.shape[:-1], 1))
+    forbid.scatter_(-1, rel, forbid.gather(-1, rel) | ok)
 
 
-def _row_gather(mesh: Mesh, state: GPState) -> Callable[[torch.Tensor], torch.Tensor]:
+def _row_gather(mesh: Mesh, state) -> Callable[[torch.Tensor], torch.Tensor]:
     return lambda gidx: gather_rows(mesh, state.x, gidx)
 
 
@@ -241,119 +311,202 @@ def _batch_block(mesh: Mesh, state: GPState, bsel: torch.Tensor):
     return xb, vb, mu_b, rbf_kernel(xb, xb, h.length_scale, h.var) - vb.T @ vb
 
 
-def _empty_moments(state: GPState, n_cand: int):
-    dt, dev = state.mu.dtype, state.mu.device
-    return (torch.zeros((0,), dtype=dt, device=dev), torch.zeros((0, 0), dtype=dt, device=dev),
-            torch.zeros((n_cand, 0), dtype=dt, device=dev))
+def _gather_moments(mesh: Mesh, st: StackedGPState, gidx: torch.Tensor, *,
+                    with_sig2: bool = False) -> tuple:
+    """Replicated moments of K sessions at their global indices ``gidx``
+    (K, t), in one sum: rows (K, t, D), whitened columns (K, cap, t), means
+    (K, t) and, ``with_sig2``, variances (K, t)."""
+    rel, ok = _owned(mesh, st.x.shape[0], gidx)
+    parts = [st.x[rel], st.v.gather(2, rel[:, None, :].expand(-1, st.cap, -1)).mT,
+             st.mu.gather(1, rel)[..., None]]
+    if with_sig2:
+        parts.append(st.sig2.gather(1, rel)[..., None])
+    xs, vt, *rest = _psum_parts(mesh, parts, ok)
+    # The rows leave the packed buffer contiguous: the CUDA kernel reads them.
+    return (xs.to(st.x.dtype).contiguous(), vt.mT, *(r[..., 0] for r in rest))
 
 
-def _sharded_ital_scores(mesh, state, batch, t, params, *, n_qmc, block, shift):
-    """This shard's MI scores for greedy step ``t`` — the sharded full scan.
-    Returns the scores and the step's moments ``(mu_b, cov_bb, cross)``,
-    which the refinement reuses."""
-    h = state.hyper
-    if t > 0:
-        xb, vb, mu_b, cov_bb = _batch_block(mesh, state, batch[:t])
-        cov_bb = cov_bb + params.jitter * torch.eye(t, dtype=cov_bb.dtype, device=cov_bb.device)
-        cross = rbf_kernel(state.x, xb, h.length_scale, h.var, a2=state.x2) - state.v.T @ vb
-    else:
-        mu_b, cov_bb, cross = _empty_moments(state, state.x.shape[0])
-    scores = mi_scores_from_moments(state.mu, state.sig2 + params.jitter, cross, mu_b, cov_bb,
-                                    params, t=t, n_qmc=n_qmc, block=block, shift=shift)
-    return scores, (mu_b, cov_bb, cross)
+def _batch_moments(st: StackedGPState, xs, vs, mu_b, params, x_cand, v_cand, a2=None):
+    """``(mu_b, jittered cov_bb (K, t, t), cross (K, P, t))`` of K partial
+    batches (rows ``xs`` (K, t, D), whitened columns ``vs`` (K, cap, t))
+    against candidates ``x_cand`` ((P, D) shared or (K, P, D)) with
+    whitened columns ``v_cand`` ((K, cap, P))."""
+    h, groups = st.hyper, st.hyper_groups
+    t = xs.shape[1]
+    eye = torch.eye(t, dtype=st.mu.dtype, device=st.mu.device)
+    cov_bb = rbf_sessions(xs, xs, h.length_scale, h.var, groups) - vs.mT @ vs + params.jitter * eye
+    cross = rbf_sessions(x_cand, xs, h.length_scale, h.var, groups, a2=a2) - v_cand.mT @ vs
+    return mu_b, cov_bb, cross
+
+
+def _no_moments(st: StackedGPState, n_cand: int):
+    k, dt, dev = st.k, st.mu.dtype, st.mu.device
+    return (torch.zeros((k, 0), dtype=dt, device=dev), torch.zeros((k, 0, 0), dtype=dt, device=dev),
+            torch.zeros((k, n_cand, 0), dtype=dt, device=dev))
 
 
 def _sharded_pool_indices(mesh: Mesh, ranking_local: torch.Tensor, pool_size: int,
                           pool_padded: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Replicated ``(pool_gidx, pool_forbid)``: the global top-``pool_size``
-    rows by ``ranking_local`` (ineligible rows already at -inf), padded to
+    rows by ``ranking_local`` ((N/p,), or (K, N/p) for K sessions, each
+    ranked apart; ineligible rows already at -inf), padded to
     ``pool_padded`` slots with forbidden ones.
 
-    Each shard's stable top-k is gathered in rank order and stably sorted,
-    so ties go to the lowest global index, as ``top_k_stable`` (and
-    ``jax.lax.top_k``) on the whole vector; slots on -inf rows come back
-    flagged in ``pool_forbid``.
+    Each shard's stable top-k is gathered in rank order as (value, index)
+    pairs, one gather for every session, and stably sorted, so ties go to
+    the lowest global index, as ``top_k_stable`` (and ``jax.lax.top_k``) on
+    the whole vector; slots on -inf rows come back flagged in
+    ``pool_forbid``.
     """
-    shard_n = ranking_local.shape[0]
-    vals_l, idx_l = top_k_stable(ranking_local, min(pool_size, shard_n))
-    vals = all_gather_cat(mesh, vals_l)
-    gidx = all_gather_cat(mesh, idx_l + mesh.rank * shard_n)
-    vals, order = torch.sort(vals, descending=True, stable=True)
-    pool_gidx = gidx[order[:pool_size]]
-    pool_forbid = ~torch.isfinite(vals[:pool_size])
-    pad = pool_padded - pool_gidx.shape[0]
+    lead = ranking_local.shape[:-1]
+    ranking = ranking_local.reshape(-1, ranking_local.shape[-1])
+    shard_n = ranking.shape[1]
+    vals_l, idx_l = top_k_stable(ranking, min(pool_size, shard_n))
+    pairs = _all_gather_sessions(mesh, torch.stack(
+        [vals_l.to(torch.float64), (idx_l + mesh.rank * shard_n).to(torch.float64)], -1))
+    vals, order = torch.sort(pairs[..., 0], dim=1, descending=True, stable=True)
+    pool_gidx = pairs[..., 1].gather(1, order[:, :pool_size]).to(torch.int64)
+    pool_forbid = ~torch.isfinite(vals[:, :pool_size])
+    pad = pool_padded - pool_gidx.shape[1]
     if pad > 0:
-        pool_gidx = torch.cat([pool_gidx, pool_gidx[:1].expand(pad)])
-        pool_forbid = torch.cat([pool_forbid, pool_forbid.new_ones(pad)])
-    return pool_gidx, pool_forbid
+        pool_gidx = torch.cat([pool_gidx, pool_gidx[:, :1].expand(-1, pad)], 1)
+        pool_forbid = torch.cat([pool_forbid, pool_forbid.new_ones((pool_forbid.shape[0], pad))], 1)
+    return pool_gidx.reshape(*lead, -1), pool_forbid.reshape(*lead, -1)
 
 
-def _sharded_refined_pick(mesh, state, scores_masked, moments, params, *, t, refine_top,
-                          refine_n_qmc, shift) -> torch.Tensor:
-    """Two-stage greedy pick on the mesh (``select.ital.refined_pick``): the
-    global top ``refine_top`` candidates by base score, their moments
-    gathered, re-scored at ``refine_n_qmc`` points on every rank alike, so
-    every rank takes the same winner without a second argmax exchange."""
-    mu_b, cov_bb, cross = moments
-    top_gidx, top_forbid = _sharded_pool_indices(mesh, scores_masked, refine_top, refine_top)
-    mu_c = gather_scalars(mesh, state.mu, top_gidx)
-    sig2_c = gather_scalars(mesh, state.sig2, top_gidx) + params.jitter
-    cross_c = gather_rows(mesh, cross, top_gidx) if t else cross.new_zeros((refine_top, 0))
-    refined = mi_scores_from_moments(mu_c, sig2_c, cross_c, mu_b, cov_bb, params, t=t,
-                                     n_qmc=refine_n_qmc, shift=shift)
-    refined = torch.where(top_forbid, -torch.inf, refined)
-    return top_gidx[torch.argmax(refined)]
-
-
-def _sharded_ital_pool_greedy(mesh, state, params, pool_gidx, pool_forbid, batch_size, *,
-                              n_qmc, block, refine_top, refine_n_qmc, shifts) -> torch.Tensor:
-    """Compact-pool greedy ITAL on the mesh (``select.ital``'s pool path).
-
-    The pool's rows, kernel columns and moments are gathered once per
-    selection; each rank scores its slice of the pool at each greedy step,
-    and the argmax runs in pool positions (lowest position on ties, as the
-    single-device pool vector).  With refinement the slices' scores are
-    gathered and the re-score of the top runs on every rank alike.
-    """
-    h = state.hyper
-    n_pool = pool_gidx.shape[0]
-    pp = n_pool // mesh.size
-    lo = mesh.rank * pp
-    x_pool = gather_rows(mesh, state.x, pool_gidx)
-    v_pool = gather_cols(mesh, state.v, pool_gidx)
-    mu_pool = gather_scalars(mesh, state.mu, pool_gidx)
-    sig2_pool = gather_scalars(mesh, state.sig2, pool_gidx) + params.jitter
-    x_my, v_my = x_pool[lo:lo + pp], v_pool[:, lo:lo + pp]
-    dev = pool_gidx.device
-    forbid = pool_forbid.clone()
-    batch = torch.zeros(batch_size, dtype=torch.int64, device=dev)
-    pos = torch.zeros(batch_size, dtype=torch.int64, device=dev)
+def _sharded_scan_greedy(mesh, st, params, forbid, batch_size, *, n_qmc, block, refine_top,
+                         refine_n_qmc, shifts) -> torch.Tensor:
+    """(K, batch_size) full-scan greedy ITAL batches on the mesh: each rank
+    scores its shard's candidates for every session in one MI call a step
+    (:func:`ital_tpu_torch.select.ital._session_scores`), and a step moves
+    the partial batches' moments in one sum and K (value, index) pairs in
+    one gather, whatever K.  With refinement the global top ``refine_top``
+    of each session are gathered (one gather, one sum) and re-scored on
+    every rank alike, so every rank takes the same winner without a second
+    argmax exchange."""
+    n_loc = st.x.shape[0]
+    mu_c, sig2_c = st.mu, st.sig2 + params.jitter
+    batch = torch.zeros((st.k, batch_size), dtype=torch.int64, device=st.idx.device)
+    forbid = forbid.clone()
     for t in range(batch_size):
         shift = None if shifts is None else shifts[t]
         if t > 0:
-            p = pos[:t]
-            xb, vb, mu_b = x_pool[p], v_pool[:, p], mu_pool[p]
-            cov_bb = (rbf_kernel(xb, xb, h.length_scale, h.var) - vb.T @ vb
-                      + params.jitter * torch.eye(t, dtype=vb.dtype, device=dev))
-            cross = rbf_kernel(x_my, xb, h.length_scale, h.var) - v_my.T @ vb
+            xs, vs, mu_b = _gather_moments(mesh, st, batch[:, :t])
+            moments = _batch_moments(st, xs, vs, mu_b, params, st.x, st.v, a2=st.x2)
         else:
-            mu_b, cov_bb, cross = _empty_moments(state, pp)
-        scores = mi_scores_from_moments(mu_pool[lo:lo + pp], sig2_pool[lo:lo + pp], cross, mu_b,
-                                        cov_bb, params, t=t, n_qmc=n_qmc, block=block,
-                                        shift=shift)
-        scores = torch.where(forbid[lo:lo + pp], -torch.inf, scores)
+            moments = _no_moments(st, n_loc)
+        scores = _session_scores(mu_c, sig2_c, moments[2], *moments[:2], params, t=t,
+                                 n_qmc=n_qmc, block=block, shift=shift)
+        masked = torch.where(forbid, -torch.inf, scores)
         if refine_top:
-            vals, top = top_k_stable(all_gather_cat(mesh, scores), min(refine_top, n_pool))
-            cross_top = all_gather_cat(mesh, cross)[top] if t else cross.new_zeros((top.shape[0], 0))
-            refined = mi_scores_from_moments(mu_pool[top], sig2_pool[top], cross_top, mu_b, cov_bb,
-                                             params, t=t, n_qmc=refine_n_qmc, shift=shift)
-            win = top[torch.argmax(torch.where(torch.isfinite(vals), refined, -torch.inf))]
+            top_gidx, top_forbid = _sharded_pool_indices(mesh, masked, refine_top, refine_top)
+            rel, ok = _owned(mesh, n_loc, top_gidx)
+            mu_t, sig2_t, cross_t = _psum_parts(
+                mesh, [mu_c.gather(1, rel)[..., None], sig2_c.gather(1, rel)[..., None],
+                       moments[2].gather(1, rel[..., None].expand(-1, -1, t))], ok)
+            refined = _session_scores(mu_t[..., 0], sig2_t[..., 0], cross_t, *moments[:2], params,
+                                      t=t, n_qmc=refine_n_qmc, shift=shift)
+            refined = torch.where(top_forbid, -torch.inf, refined)
+            nxt = top_gidx.gather(1, torch.argmax(refined, dim=1, keepdim=True))[:, 0]
+        else:
+            nxt = global_argmax(mesh, masked)
+        batch[:, t] = nxt
+        _forbid_pick(mesh, forbid, nxt)
+    return batch
+
+
+def _sharded_pool_greedy(mesh, st, params, pool_gidx, pool_forbid, batch_size, *, n_qmc, block,
+                         refine_top, refine_n_qmc, shifts) -> torch.Tensor:
+    """(K, batch_size) compact-pool greedy ITAL batches on the mesh
+    (``select.ital``'s pool path).
+
+    The pools' rows, kernel columns and moments are gathered once per
+    selection, in one sum; each rank scores its slice of every session's
+    pool at each greedy step, and the argmax runs in pool positions (lowest
+    position on ties, as the single-device pool vector), one gather for all
+    sessions.  With refinement the slices' scores and cross-covariances are
+    gathered (one gather) and the re-score of each session's top runs on
+    every rank alike.
+    """
+    k, n_pool = pool_gidx.shape
+    pp = n_pool // mesh.size
+    lo = mesh.rank * pp
+    x_pool, v_pool, mu_pool, sig2_pool = _gather_moments(mesh, st, pool_gidx, with_sig2=True)
+    sig2_pool = sig2_pool + params.jitter
+    x_my, v_my = x_pool[:, lo:lo + pp], v_pool[:, :, lo:lo + pp]
+    mu_my, sig2_my = mu_pool[:, lo:lo + pp], sig2_pool[:, lo:lo + pp]
+    dev = pool_gidx.device
+    forbid = pool_forbid.clone()
+    batch = torch.zeros((k, batch_size), dtype=torch.int64, device=dev)
+    pos = torch.zeros((k, batch_size), dtype=torch.int64, device=dev)
+    for t in range(batch_size):
+        shift = None if shifts is None else shifts[t]
+        if t > 0:
+            p = pos[:, :t]
+            xb = x_pool.gather(1, p[..., None].expand(-1, -1, x_pool.shape[-1]))
+            vb = v_pool.gather(2, p[:, None, :].expand(-1, st.cap, -1))
+            moments = _batch_moments(st, xb, vb, mu_pool.gather(1, p), params, x_my, v_my)
+        else:
+            moments = _no_moments(st, pp)
+        scores = _session_scores(mu_my, sig2_my, moments[2], *moments[:2], params, t=t,
+                                 n_qmc=n_qmc, block=block, shift=shift)
+        scores = torch.where(forbid[:, lo:lo + pp], -torch.inf, scores)
+        if refine_top:
+            both = _all_gather_sessions(mesh, torch.cat([scores[..., None], moments[2]], -1))
+            vals, top = top_k_stable(both[..., 0], min(refine_top, n_pool))
+            cross_top = both[..., 1:].gather(1, top[..., None].expand(-1, -1, t))
+            refined = _session_scores(mu_pool.gather(1, top), sig2_pool.gather(1, top), cross_top,
+                                      *moments[:2], params, t=t, n_qmc=refine_n_qmc, shift=shift)
+            refined = torch.where(torch.isfinite(vals), refined, -torch.inf)
+            win = top.gather(1, torch.argmax(refined, dim=1, keepdim=True))[:, 0]
         else:
             win = global_argmax(mesh, scores, offset=lo)
-        pos[t] = win
-        batch[t] = pool_gidx[win]
-        forbid[win] = True
+        pos[:, t] = win
+        batch[:, t] = pool_gidx.gather(1, win[:, None])[:, 0]
+        forbid.scatter_(1, win[:, None], True)
     return batch
+
+
+def _sharded_ital(mesh, st, generators, sel_forbid, params, batch_size, *, n_qmc, block,
+                  pool_size, subsample_size, refine_top, refine_n_qmc, randomize_qmc,
+                  qmc_shifts=None, subsample_uniforms=None, n_real=None) -> torch.Tensor:
+    """(K, batch_size) ITAL batches of the K sessions of the stack ``st`` on
+    the mesh, each the batch the single-device ``select_ital`` picks for
+    that session alone (``select_ital_stacked`` on the mesh).  Session k
+    draws from ``generators[k]`` in the single-device order: its subsample
+    uniforms over the real rows (padded), then one shift per greedy step.
+    Fed draws: ``subsample_uniforms`` (K, N) and ``qmc_shifts``, one (K, t)
+    shift per step t.  ``n_real``: the real rows, where the caller knows
+    them (else one read of ``sel_forbid``)."""
+    n_pad, n_loc = sel_forbid.shape[0], st.x.shape[0]
+    lo, hi = _bounds(mesh, n_loc)
+    dt, dev = st.mu.dtype, st.mu.device
+    draw_u = subsample_size and subsample_uniforms is None
+    draw_shifts = randomize_qmc and qmc_shifts is None
+    if draw_u or draw_shifts:
+        if draw_u and n_real is None:
+            n_real = int(n_pad - int(sel_forbid.sum()))
+        us, shifts = [], []
+        for g in generators:
+            if draw_u:
+                us.append(_padded_uniforms(g, n_real, n_pad, st.mu))
+            if draw_shifts:
+                shifts.append(draw_qmc_shifts(g, batch_size, dt, dev))
+        if draw_u:
+            subsample_uniforms = torch.stack(us)
+        if draw_shifts:
+            qmc_shifts = [torch.stack([s[t] for s in shifts]) for t in range(batch_size)]
+    forbid = local_slot_mask(mesh, st, extra_forbid=sel_forbid[lo:hi])
+    kw = dict(n_qmc=n_qmc, block=block, refine_top=refine_top, refine_n_qmc=refine_n_qmc,
+              shifts=qmc_shifts)
+    if pool_size or subsample_size:
+        ranking = st.mu if pool_size else subsample_uniforms[:, lo:hi]
+        size = min(pool_size or subsample_size, n_pad)
+        pool_gidx, pool_forbid = _sharded_pool_indices(
+            mesh, torch.where(forbid, -torch.inf, ranking), size, -(-size // mesh.size) * mesh.size)
+        return _sharded_pool_greedy(mesh, st, params, pool_gidx, pool_forbid, batch_size, **kw)
+    kw["refine_top"] = min(refine_top, n_pad)
+    return _sharded_scan_greedy(mesh, st, params, forbid, batch_size, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -577,40 +730,31 @@ def make_sharded_select(
     if pool_size and subsample_size:
         raise ValueError("pool_size and subsample_size are mutually exclusive candidate "
                          "restrictions (reference ITAL applies one or the other)")
-    ital_kw = dict(n_qmc=n_qmc, block=block)
+    ital_kw = _ital_options(n_qmc=n_qmc, block=block, pool_size=pool_size,
+                            subsample_size=subsample_size, refine_top=refine_top,
+                            refine_n_qmc=refine_n_qmc, randomize_qmc=randomize_qmc)
 
     def select(state: GPState, generator, sel_forbid: torch.Tensor, params: StrategyParams, *,
                qmc_shifts: Optional[Sequence[torch.Tensor]] = None,
                subsample_uniforms: Optional[torch.Tensor] = None,
-               uniforms: Optional[torch.Tensor] = None) -> torch.Tensor:
+               uniforms: Optional[torch.Tensor] = None,
+               n_real: Optional[int] = None) -> torch.Tensor:
+        if strategy == "ital":
+            return _sharded_ital(
+                mesh, gp_mod.stacked_view(state), [generator], sel_forbid, params, batch_size,
+                qmc_shifts=None if qmc_shifts is None else [s[None] for s in qmc_shifts],
+                subsample_uniforms=None if subsample_uniforms is None else subsample_uniforms[None],
+                n_real=n_real, **ital_kw)[0]
         n_pad = sel_forbid.shape[0]
         lo, hi = _bounds(mesh, state.x.shape[0])
         pad_local = _sel_forbid_local(mesh, state, sel_forbid)
         forbid = local_slot_mask(mesh, state, extra_forbid=pad_local)
         valid_local = 1.0 - pad_local.to(state.mu.dtype)
-        dev = state.mu.device
-
-        def n_real() -> int:
-            return int(n_pad - int(sel_forbid.sum()))
+        if n_real is None and strategy in ("random", "rbmal"):
+            n_real = int(n_pad - int(sel_forbid.sum()))
 
         if strategy == "random" and uniforms is None:
-            uniforms = _padded_uniforms(generator, n_real(), n_pad, state.mu)
-        if strategy == "ital":
-            if subsample_size and subsample_uniforms is None:
-                subsample_uniforms = _padded_uniforms(generator, n_real(), n_pad, state.mu)
-            if randomize_qmc and qmc_shifts is None:
-                qmc_shifts = draw_qmc_shifts(generator, batch_size, state.mu.dtype, dev)
-            if pool_size or subsample_size:
-                ranking = state.mu if pool_size else subsample_uniforms[lo:hi]
-                size = min(pool_size or subsample_size, n_pad)
-                pool_gidx, pool_forbid = _sharded_pool_indices(
-                    mesh, torch.where(forbid, -torch.inf, ranking), size,
-                    -(-size // mesh.size) * mesh.size)
-                return _sharded_ital_pool_greedy(
-                    mesh, state, params, pool_gidx, pool_forbid, batch_size,
-                    refine_top=refine_top, refine_n_qmc=refine_n_qmc, shifts=qmc_shifts,
-                    **ital_kw)
-
+            uniforms = _padded_uniforms(generator, n_real, n_pad, state.mu)
         scores = None
         if strategy in _LOCAL_SCORES:
             scores = _LOCAL_SCORES[strategy](state, params)
@@ -626,18 +770,12 @@ def make_sharded_select(
         if strategy in _DIVERSITY_BASES:
             div_base = _DIVERSITY_BASES[strategy](state)
         if strategy == "rbmal":
-            n_corpus = n_real()
             n_lab = state.active.sum()
             unc = 1.0 - torch.tanh(state.mu).abs()
 
-        batch = torch.zeros(batch_size, dtype=torch.int64, device=dev)
+        batch = torch.zeros(batch_size, dtype=torch.int64, device=state.mu.device)
         for t in range(batch_size):
-            moments = shift = None
-            if strategy == "ital":
-                shift = None if qmc_shifts is None else qmc_shifts[t]
-                scores, moments = _sharded_ital_scores(mesh, state, batch, t, params,
-                                                       shift=shift, **ital_kw)
-            elif strategy == "ital_regression":
+            if strategy == "ital_regression":
                 scores = _sharded_regression_scores(mesh, state, batch, t, params)
             elif strategy == "emoc_batch":
                 scores = _sharded_emoc_batch_scores(mesh, state, batch, t, valid_local)
@@ -646,20 +784,57 @@ def make_sharded_select(
                 if t > 0:
                     sim = torch.maximum(sim, _max_sim(mesh, state, batch[:t]))
                 if strategy == "rbmal":
-                    alpha = (n_corpus - n_lab - t).to(state.mu.dtype) / n_corpus
+                    alpha = (n_real - n_lab - t).to(state.mu.dtype) / n_real
                     scores = alpha * (1.0 - sim) + (1.0 - alpha) * unc
                 else:
                     scores = div_base - params.tradeoff * sim
-            masked = torch.where(forbid, -torch.inf, scores)
-            if strategy == "ital" and refine_top:
-                nxt = _sharded_refined_pick(mesh, state, masked, moments, params, t=t,
-                                            refine_top=min(refine_top, n_pad),
-                                            refine_n_qmc=refine_n_qmc, shift=shift)
-            else:
-                nxt = global_argmax(mesh, masked)
+            nxt = global_argmax(mesh, torch.where(forbid, -torch.inf, scores))
             batch[t] = nxt
             _forbid_pick(mesh, forbid, nxt)
         return batch
+
+    return select
+
+
+def _ital_options(*, n_qmc: int = 128, block: int = MI_BLOCK, pool_size: int = 0,
+                  subsample_size: int = 0, refine_top: int = 0, refine_n_qmc: int = 512,
+                  randomize_qmc: bool = False) -> dict:
+    """ITAL's options with the defaults of :func:`make_sharded_select`."""
+    return dict(n_qmc=n_qmc, block=block, pool_size=pool_size, subsample_size=subsample_size,
+                refine_top=refine_top, refine_n_qmc=refine_n_qmc, randomize_qmc=randomize_qmc)
+
+
+def make_sharded_cohort_select(mesh: Mesh, *, strategy: str = "ital", batch_size: int = 4,
+                               **options):
+    """The selection of K sessions over one corpus shard at once (the
+    reference's session-batched ``make_sharded_cohort_select``).
+
+    Returns ``select(st, generators, sel_forbid, params, *, qmc_shifts=None,
+    subsample_uniforms=None, uniforms=None, n_real=None) -> (K, batch_size)``
+    for this rank's shard ``st`` of a :class:`~gp_mod.StackedGPState`
+    (:func:`shard_cohort_state`), each row the batch
+    :func:`make_sharded_select` picks for that session alone with its own
+    generator and hyperparameters.  Fed draws are (K, ...): ``qmc_shifts``
+    one (K, t) shift per step, ``subsample_uniforms`` and ``uniforms``
+    (K, N).  ``options`` as :func:`make_sharded_select`.  For ITAL a greedy
+    step's exchanges serve every session at once (:func:`_sharded_ital`),
+    so a round pays its collectives once for the cohort; the other
+    strategies select session by session.
+    """
+    select_one = make_sharded_select(mesh, strategy=strategy, batch_size=batch_size, **options)
+    ital_kw = _ital_options(**options)
+
+    def select(st: StackedGPState, generators, sel_forbid: torch.Tensor, params: StrategyParams,
+               *, qmc_shifts=None, subsample_uniforms=None, uniforms=None,
+               n_real: Optional[int] = None) -> torch.Tensor:
+        if strategy == "ital":
+            return _sharded_ital(mesh, st, generators, sel_forbid, params, batch_size,
+                                 qmc_shifts=qmc_shifts, subsample_uniforms=subsample_uniforms,
+                                 n_real=n_real, **ital_kw)
+        return torch.stack([
+            select_one(gp_mod.session_state(st, k), g, sel_forbid, params, n_real=n_real,
+                       uniforms=None if uniforms is None else uniforms[k])
+            for k, g in enumerate(generators)])
 
     return select
 
@@ -730,19 +905,146 @@ def make_sharded_density(mesh: Mesh):
 
 
 # ---------------------------------------------------------------------------
+# Fused sessions and cohorts: every round of a session, or of K sessions, with
+# no host read between rounds
+# ---------------------------------------------------------------------------
+
+
+def relearn(mesh: Mesh, state: GPState, learn: LearnConfig) -> GPState:
+    """Re-learn a session's hyperparameters from its labels and refit it on
+    the mesh (the reference's ``_relearn`` in the fused loop).
+
+    The labeled rows are gathered (one sum), every rank runs the ascent on
+    them, and rank 0's three values are broadcast, so the ranks go on with
+    one fit bit for bit whatever their arithmetic; the refit is ``gp_fit``
+    with the collective gather.
+    """
+    rows = gather_rows(mesh, state.x, state.idx)
+    h = fit_hyperparams(rows, state.y, state.active, state.hyper, **learn.fit_kwargs(state.mu))
+    vals = torch.stack([h.length_scale, h.var, h.noise]).detach().to(state.mu.dtype).contiguous()
+    dist.broadcast(vals, src=0, group=mesh.group)
+    state.hyper = GPHyper(length_scale=vals[0], var=vals[1], noise=vals[2])
+    return gp_mod.gp_fit(state, gather=_row_gather(mesh, state))
+
+
+def _fused(n_rounds: int, advance, learn: Optional[LearnConfig], relearn_fn, state):
+    """``n_rounds`` of ``advance(state, rnd) -> (state, ap)``, the re-learn
+    after the AP of every ``learn.every``-th round (the serial cadence); the
+    APs stay on the device, stacked along the last axis."""
+    aps = []
+    for rnd in range(n_rounds):
+        state, ap = advance(state, rnd)
+        if learn and learn.every and (rnd + 1) % learn.every == 0:
+            state = relearn_fn(state)
+        aps.append(ap)
+    return state, torch.stack(aps, -1)
+
+
+def _count_real(sel_forbid: torch.Tensor) -> int:
+    """The real rows of a padded corpus, read once before a session's rounds."""
+    return int(sel_forbid.shape[0] - int(sel_forbid.sum()))
+
+
+def make_sharded_session(mesh: Mesh, *, strategy: str = "ital", batch_size: int = 4,
+                         n_rounds: int = 10, learn: Optional[LearnConfig] = None, **options):
+    """A whole session on the mesh: all ``n_rounds`` rounds of
+    :func:`make_sharded_round` with no host read between them (the
+    reference's ``make_sharded_session``).
+
+    Returns ``session_fn(state, draws, relevant, sel_forbid, ap_exclude,
+    params, *, fed=None) -> (state, aps)``: ``draws[r]`` is round r's
+    ``(generator, u_label, u_flip)`` (``runner.round_draws``, made before the
+    first round), ``fed[r]`` optional fed draws of round r's selection, and
+    ``aps`` the (n_rounds,) AP curve on the device, which the caller reads
+    once.  ``learn`` re-learns every ``learn.every`` rounds (:func:`relearn`).
+    The rounds are the per-round path's, so the curves are its curves.
+    """
+    round_fn = make_sharded_round(mesh, strategy=strategy, batch_size=batch_size, **options)
+
+    def session(state, draws, relevant, sel_forbid, ap_exclude, params, *, fed=None):
+        n_real = _count_real(sel_forbid)
+
+        def advance(st, rnd):
+            st, _, ap, _ = round_fn(st, *draws[rnd], relevant, sel_forbid, ap_exclude, params,
+                                    n_real=n_real, **(fed[rnd] if fed else {}))
+            return st, ap
+
+        return _fused(n_rounds, advance, learn, lambda st: relearn(mesh, st, learn), state)
+
+    return session
+
+
+def make_sharded_cohort_update(mesh: Mesh):
+    """``update(st, idx, y, valid) -> st``: ``gp_update_stacked`` of K
+    sessions' feedback blocks (K, b) on the mesh, each at its own count and
+    with its own hyperparameters; the rows of every session are gathered in
+    one sum.  The density plays no part in an update: a caller that stacked
+    sessions with different vectors writes the results back into each
+    session (``models.gp.unstack_into``), which keeps its own."""
+    return lambda st, idx, y, valid: gp_mod.gp_update_stacked(st, idx, y, valid,
+                                                              gather=_row_gather(mesh, st))
+
+
+def make_sharded_cohort(mesh: Mesh, *, strategy: str = "ital", batch_size: int = 4,
+                        n_rounds: int = 10, learn: Optional[LearnConfig] = None, **options):
+    """A cohort of K sessions on the mesh, every round of all of them with no
+    host read between rounds (the reference's ``make_sharded_cohort``).
+
+    Returns ``cohort_fn(st, draws, relevant, sel_forbid, ap_exclude, params,
+    *, fed=None) -> (st, aps)``: ``st`` is this rank's shard of a
+    :class:`~gp_mod.StackedGPState`, ``draws[r]`` round r's ``(generators,
+    u_label, u_flip)`` (one generator per session, (K, b) uniforms),
+    ``relevant`` and ``ap_exclude`` (K, N), ``sel_forbid`` (N,), and ``aps``
+    the (K, n_rounds) AP curves on the device.  A round is one cohort
+    selection (:func:`make_sharded_cohort_select`), the users, one
+    :func:`make_sharded_cohort_update` and the APs of one gathered (K, N)
+    mean: for ITAL its collectives are paid once for the cohort, not once
+    per session.  ``learn`` re-learns each session apart
+    (:func:`relearn`).  Each session's curve is its own session's.
+    """
+    select = make_sharded_cohort_select(mesh, strategy=strategy, batch_size=batch_size, **options)
+    update = make_sharded_cohort_update(mesh)
+
+    def cohort(st, draws, relevant, sel_forbid, ap_exclude, params, *, fed=None):
+        n_real = _count_real(sel_forbid)
+
+        def advance(stk, rnd):
+            generators, u_label, u_flip = draws[rnd]
+            batch = select(stk, generators, sel_forbid, params, n_real=n_real,
+                           **(fed[rnd] if fed else {}))
+            y, valid = feedback_from_uniforms(u_label, u_flip, batch, relevant,
+                                              params.label_prob, params.mistake_prob)
+            update(stk, batch, y, valid)
+            return stk, average_precision(gather_mu(mesh, stk.mu), relevant, ap_exclude)
+
+        def relearn_all(stk):
+            gp_mod.refit_stacked(stk, lambda one: relearn(mesh, one, learn))
+            return stk
+
+        return _fused(n_rounds, advance, learn, relearn_all, st)
+
+    return cohort
+
+
+# ---------------------------------------------------------------------------
 # Checkpoints
 # ---------------------------------------------------------------------------
 
 
-def save_sharded_session(mesh: Mesh, path: str, state: GPState, extra=None) -> None:
-    """Write the gathered session (``v``, ``mu``, ``sig2`` and ``density``
-    over the padded corpus) in the single-device snapshot layout
-    (``utils.checkpoint.save_session``).  Every rank takes part in the
-    gathers; rank 0 writes."""
-    full = dataclasses.replace(
+def gather_session(mesh: Mesh, state: GPState) -> GPState:
+    """The session with ``v``, ``mu``, ``sig2`` and ``density`` gathered over
+    the padded corpus (the corpus stays the shard); every rank takes part."""
+    return dataclasses.replace(
         state, v=all_gather_cat(mesh, state.v.T).T, mu=all_gather_cat(mesh, state.mu),
         sig2=all_gather_cat(mesh, state.sig2),
         density=None if state.density is None else all_gather_cat(mesh, state.density))
+
+
+def save_sharded_session(mesh: Mesh, path: str, state: GPState, extra=None) -> None:
+    """Write the gathered session (:func:`gather_session`) in the
+    single-device snapshot layout (``utils.checkpoint.save_session``).
+    Every rank takes part in the gathers; rank 0 writes."""
+    full = gather_session(mesh, state)
     if mesh.rank == 0:
         save_session(path, full, extra)
 

@@ -27,9 +27,11 @@ serial path draws, so the curves are the serial path's.
 (:mod:`ital_tpu_torch.parallel`), one per card (clamped to the cards there
 are) or, on the CPU, one per process, and runs each round as the sharded
 round; every rank draws the serial path's draws, so the curves are its
-curves.  Refused with ``NotImplementedError``, naming their ROADMAP items:
-a mesh with ``query_batch > 1`` or ``fused_sessions``, and a mesh with
-``cap >= GP.chol2d_threshold``.
+curves.  With ``query_batch > 1`` or ``fused_sessions`` the mesh runs each
+session or cohort fused (``parallel.sharded.make_sharded_session`` /
+``make_sharded_cohort``).  The per-round mesh with ``cap >=
+GP.chol2d_threshold`` is refused with ``NotImplementedError``, naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ import torch
 from ital_tpu_torch.data import datasets as ds_mod
 from ital_tpu_torch.data.user import feedback_from_uniforms
 from ital_tpu_torch.models import gp as gp_mod
-from ital_tpu_torch.models.hyperopt import fit_hyperparams
+from ital_tpu_torch.models.hyperopt import LearnConfig, fit_hyperparams
 from ital_tpu_torch.select.base import (
     StrategyParams,
     get_stacked_strategy,
@@ -308,26 +310,46 @@ def _run_session(cfg, state0, ops, rep, c, q, timer, logger) -> list[float]:
     return curve
 
 
-_MESH_PROGRAMS_UNPORTED = (
-    "a mesh with query_batch > 1 or fused_sessions is not ported to ital_tpu_torch "
-    "yet: see ROADMAP.md, queue 1 item 1 (the mesh's fused and cohort programs)")
 _MESH_BIGCAP_UNPORTED = (
     "cap >= GP.chol2d_threshold on a mesh is not ported to ital_tpu_torch yet: see "
     "ROADMAP.md, queue 1 item 3 (chol2d / bigcap)")
 
 
 def _run_sharded(cfg, dataset, dev) -> Dict[str, Any]:
-    """The per-round sharded path (``EXPERIMENT.mesh_devices``): a mesh of
+    """The sharded path (``EXPERIMENT.mesh_devices``): a mesh of
     ``mesh_devices`` ranks (on the card, clamped to the cards there are, as
     the reference clamps to its devices) each runs :func:`_sharded_run` over
-    its corpus shard; returns rank 0's result."""
+    its corpus shard; returns rank 0's result.  With ``query_batch > 1`` or
+    ``fused_sessions`` the sessions run fused (a mesh cohort always does, as
+    the reference's), keeping the replicated factor past
+    ``GP.chol2d_threshold`` with the reference's warning; the per-round path
+    past it raises."""
     from ital_tpu_torch.parallel.launch import launch
     from ital_tpu_torch.parallel.mesh import device_count
 
-    if (cfg.query_batch or 0) > 1 or cfg.fused_sessions:
-        raise NotImplementedError(_MESH_PROGRAMS_UNPORTED)
-    if cfg.gp.chol2d_threshold and cfg.cap >= cfg.gp.chol2d_threshold:
+    qb = int(cfg.query_batch or 0)
+    fused = qb > 1 or bool(cfg.fused_sessions)
+    crossed = bool(cfg.gp.chol2d_threshold and cfg.cap >= cfg.gp.chol2d_threshold)
+    if crossed and not fused:
         raise NotImplementedError(_MESH_BIGCAP_UNPORTED)
+    if crossed:
+        per_chip_mb = cfg.cap * cfg.cap * 4 / 1e6 * max(qb, 1)
+        print(f"# WARNING: cap={cfg.cap} crossed chol2d_threshold={cfg.gp.chol2d_threshold} "
+              f"but fused/cohort sessions cannot use the distributed chol2d refit (the "
+              f"factor must stay replicated inside the fused program): ~{per_chip_mb:.0f} MB "
+              f"of Cholesky factor per chip"
+              + (f" ({qb} cohort sessions x cap^2)" if qb > 1 else "")
+              + ". Raise GP.chol2d_threshold to silence this (the distributed refit is "
+              "ROADMAP.md, queue 1 item 3).")
+    if fused and cfg.gp.refit_every:
+        print(_REFIT_IGNORED)
+    if qb > 1 and not cfg.fused_sessions:
+        print("# sharded cohorts run fused (all rounds in one device program); per-round "
+              "JSONL granularity is traded away")
+    if fused and (cfg.checkpoint_dir or cfg.resume or cfg.profile_dir):
+        print("# fused_sessions runs each session as one device program; "
+              "checkpoint_dir/resume/profile_dir are serial-mode features "
+              "and are ignored here")
     available = device_count(dev.type)
     n_dev = cfg.mesh_devices
     if available is not None and available < n_dev:
@@ -340,8 +362,8 @@ def _run_sharded(cfg, dataset, dev) -> Dict[str, Any]:
 def _sharded_run(mesh, cfg, dataset) -> Dict[str, Any]:
     """One rank of the sharded experiment: the corpus padded to the mesh,
     this rank's shard of ``gp_init`` (its density by a ring pass), then
-    every session of the plan through the sharded round.  The JSONL and the
-    profile are rank 0's."""
+    every session of the plan through the sharded round, or fused
+    (:func:`_sharded_fused_run`).  The JSONL and the profile are rank 0's."""
     from ital_tpu_torch.parallel import sharded as sh
 
     dev = mesh.device
@@ -353,8 +375,8 @@ def _sharded_run(mesh, cfg, dataset) -> Dict[str, Any]:
     x = torch.from_numpy(np.ascontiguousarray(x_pad[lo:lo + shard_n])).to(dev)
     state0 = gp_mod.gp_init(x, cfg.gp.length_scale, cfg.gp.var, cfg.gp.noise, cfg.cap,
                             corpus_dtype=cfg.gp.corpus_dtype or None)
+    pad = torch.arange(n_pad, device=dev) >= n_real
     if cfg.method in DENSITY_STRATEGIES:
-        pad = torch.arange(n_pad, device=dev) >= n_real
         state0.density = sh.make_sharded_density(mesh)(state0, pad)
     params = StrategyParams.create(
         dev, label_prob=cfg.user.label_prob, mistake_prob=cfg.user.mistake_prob,
@@ -363,11 +385,18 @@ def _sharded_run(mesh, cfg, dataset) -> Dict[str, Any]:
     select_kwargs = {k: v for k, v in cfg.method_kwargs.items() if k != "tradeoff"}
     validate_method_kwargs(cfg.method, select_kwargs)
     # The mesh's options are ITAL's; the ring strategies take fixed blocks.
-    round_fn = sh.make_sharded_round(mesh, strategy=cfg.method, batch_size=cfg.batch_size,
-                                     recall_ks=RECALL_KS,
-                                     **(select_kwargs if cfg.method == "ital" else {}))
+    options = select_kwargs if cfg.method == "ital" else {}
     relevance = np.zeros((n_pad, dataset.relevance.shape[1]), bool)
     relevance[:n_real] = dataset.relevance
+    rank0 = mesh.rank == 0
+    plan = _session_plan(cfg, dataset)
+    if (cfg.query_batch or 0) > 1 or cfg.fused_sessions:
+        run = dataclasses.replace(cfg, log_jsonl=cfg.log_jsonl if rank0 else None)
+        res = _sharded_fused_run(mesh, run, dataset, plan, state0, params, options, relevance, pad)
+        res["mesh_devices"] = mesh.size
+        return res
+    round_fn = sh.make_sharded_round(mesh, strategy=cfg.method, batch_size=cfg.batch_size,
+                                     recall_ks=RECALL_KS, **options)
 
     def masks(c, q):
         relevant = torch.from_numpy(np.ascontiguousarray(relevance[:, c])).to(dev)
@@ -384,11 +413,50 @@ def _sharded_run(mesh, cfg, dataset) -> Dict[str, Any]:
         load=lambda path, state: sh.load_sharded_session(mesh, path, state),
         log={"sharded": mesh.size},
     )
-    rank0 = mesh.rank == 0
-    res = _run_sessions(cfg, dataset, state0, ops, _session_plan(cfg, dataset), dev,
+    res = _run_sessions(cfg, dataset, state0, ops, plan, dev,
                         profile_dir=cfg.profile_dir if rank0 else None,
                         log_jsonl=cfg.log_jsonl if rank0 else None)
     res["mesh_devices"] = mesh.size
+    return res
+
+
+def _sharded_fused_run(mesh, cfg, dataset, plan, state0, params, options, relevance,
+                       pad) -> Dict[str, Any]:
+    """The fused modes on the mesh: each session
+    (:func:`~ital_tpu_torch.parallel.sharded.make_sharded_session`) or each
+    cohort of ``query_batch`` (:func:`~ital_tpu_torch.parallel.sharded.
+    make_sharded_cohort`) runs all its rounds with no host read between
+    them, from the draws :func:`round_draws` gives the single-device run, so
+    the curves are that run's.  Rows carry ``sharded``; a cohort's result
+    also ``fused``, as the reference's."""
+    from ital_tpu_torch.parallel import sharded as sh
+
+    dev = mesh.device
+    size = max(cfg.query_batch or 0, 1)
+    learn = LearnConfig.from_gp(cfg.gp) if cfg.gp.learn_every else None
+    kw = dict(strategy=cfg.method, batch_size=cfg.batch_size, n_rounds=cfg.n_rounds,
+              learn=learn, **options)
+    program = sh.make_sharded_cohort(mesh, **kw) if size > 1 else sh.make_sharded_session(mesh, **kw)
+    set_query = sh.make_sharded_set_query(mesh)
+
+    def run_chunk(chunk):
+        k = len(chunk)
+        relevant = torch.from_numpy(np.stack([relevance[:, c] for _, c, _ in chunk])).to(dev)
+        exclude = pad.repeat(k, 1)
+        exclude[torch.arange(k, device=dev), torch.tensor([q for *_, q in chunk], device=dev)] = True
+        states = [set_query(gp_mod.gp_session_copy(state0), q) for *_, q in chunk]
+        if size == 1:
+            draws = [round_draws(cfg.seed, *chunk[0], rnd, cfg.batch_size, dev)
+                     for rnd in range(cfg.n_rounds)]
+            _, aps = program(states[0], draws, relevant[0], pad, exclude[0], params)
+            aps = aps[None]
+        else:
+            draws = [_cohort_draws(cfg, chunk, rnd, dev) for rnd in range(cfg.n_rounds)]
+            _, aps = program(gp_mod.stack_states(states), draws, relevant, pad, exclude, params)
+        return aps.cpu().numpy()  # the one host read of the chunk
+
+    res = _run_fused(cfg, dataset, plan, dev, run_chunk, log={"sharded": mesh.size})
+    res["fused"] = True
     return res
 
 
@@ -404,63 +472,95 @@ def _run_stacked(cfg, dataset, state0, params, select_kwargs, plan) -> Dict[str,
     round's APs come to the host and each session logs a row per round.
     Fused, every round's draws are made before the first round is issued,
     the rounds then run with no host sync, and the AP curves come to the
-    host once per cohort.  ``GP.refit_every`` is ignored, as the reference
-    ignores it here.
+    host once per cohort (:func:`_run_fused`).  ``GP.refit_every`` is
+    ignored, as the reference ignores it here.
     """
     if cfg.gp.refit_every:
-        print("# GP.refit_every is a serial/per-round-sharded feature; the "
-              "fused/cohort device programs keep the pure incremental append "
-              "(drift measured benign - ARCHITECTURE.md) and ignore it")
+        print(_REFIT_IGNORED)
     dev = state0.mu.device
     n = dataset.n
     select = get_stacked_strategy(cfg.method)
-    size = max(cfg.query_batch or 0, 1)
+
+    def masks(chunk):
+        relevant = torch.from_numpy(
+            np.stack([dataset.relevance[:, c] for _, c, _ in chunk])).to(dev)
+        exclude = torch.zeros((len(chunk), n), dtype=torch.bool)
+        exclude[torch.arange(len(chunk)), torch.tensor([q for *_, q in chunk])] = True
+        return relevant, exclude.to(dev)
+
+    def advance(st, chunk_masks, rnd, draws):
+        return _cohort_round(cfg, st, select, params, select_kwargs, draws, *chunk_masks, rnd)
+
+    if cfg.fused_sessions:
+        def run_chunk(chunk):
+            chunk_masks = masks(chunk)
+            draws = [_cohort_draws(cfg, chunk, rnd, dev) for rnd in range(cfg.n_rounds)]
+            st = _stack_queries(state0, chunk)
+            curves = torch.stack([advance(st, chunk_masks, rnd, draws[rnd])
+                                  for rnd in range(cfg.n_rounds)], dim=1)
+            return curves.cpu().numpy()  # the one host sync
+
+        return _run_fused(cfg, dataset, plan, dev, run_chunk)
+
     logger = JsonlLogger(cfg.log_jsonl)
     timer = Timer(dev)
+    ap_rows = np.zeros((len(plan), cfg.n_rounds))
+    try:
+        for start in range(0, len(plan), cfg.query_batch):
+            chunk = plan[start:start + cfg.query_batch]
+            chunk_masks = masks(chunk)
+            st = _stack_queries(state0, chunk)
+            for rnd in range(cfg.n_rounds):
+                draws = _cohort_draws(cfg, chunk, rnd, dev)
+                with timer.span("round"):
+                    aps = advance(st, chunk_masks, rnd, draws).cpu().numpy()
+                ap_rows[start:start + len(chunk), rnd] = aps
+                for j, (rep, c, q) in enumerate(chunk):
+                    logger.log(rep=rep, cls=c, query=q, round=rnd, ap=float(aps[j]),
+                               round_ms=timer.last_ms("round"), query_batch=cfg.query_batch)
+    finally:
+        logger.close()
+    return _stacked_result(cfg, dataset, plan, dev, ap_rows, timer, "round")
+
+
+_REFIT_IGNORED = ("# GP.refit_every is a serial/per-round-sharded feature; the "
+                  "fused/cohort device programs keep the pure incremental append "
+                  "(drift measured benign - ARCHITECTURE.md) and ignore it")
+
+
+def _run_fused(cfg, dataset, plan, dev, run_chunk, *, log=None) -> Dict[str, Any]:
+    """The fused modes' loop: the plan in chunks of ``query_batch`` sessions
+    (1 without it), ``run_chunk(chunk) -> (K, n_rounds)`` AP curves on the
+    host, one JSONL row per session with its curve, the chunk's time
+    (``session_ms`` or ``cohort_ms``) and the ``log`` fields."""
+    size = max(cfg.query_batch or 0, 1)
     span = "round" if size > 1 else "session"
+    logger = JsonlLogger(cfg.log_jsonl)
+    timer = Timer(dev)
     ap_rows = np.zeros((len(plan), cfg.n_rounds))
     try:
         for start in range(0, len(plan), size):
             chunk = plan[start:start + size]
-            k = len(chunk)
-            relevant = torch.from_numpy(
-                np.stack([dataset.relevance[:, c] for _, c, _ in chunk])).to(dev)
-            exclude = torch.zeros((k, n), dtype=torch.bool)
-            exclude[torch.arange(k), torch.tensor([q for *_, q in chunk])] = True
-            exclude = exclude.to(dev)
-
-            def advance(st, rnd, draws):
-                return _cohort_round(cfg, st, select, params, select_kwargs, draws,
-                                     relevant, exclude, rnd)
-
-            if not cfg.fused_sessions:
-                st = _stack_queries(state0, chunk)
-                for rnd in range(cfg.n_rounds):
-                    draws = _cohort_draws(cfg, chunk, rnd, dev)
-                    with timer.span("round"):
-                        aps = advance(st, rnd, draws).cpu().numpy()
-                    ap_rows[start:start + k, rnd] = aps
-                    for j, (rep, c, q) in enumerate(chunk):
-                        logger.log(rep=rep, cls=c, query=q, round=rnd, ap=float(aps[j]),
-                                   round_ms=timer.last_ms("round"), query_batch=cfg.query_batch)
-                continue
             with timer.span(span):
-                draws = [_cohort_draws(cfg, chunk, rnd, dev) for rnd in range(cfg.n_rounds)]
-                st = _stack_queries(state0, chunk)
-                curves = torch.stack([advance(st, rnd, draws[rnd])
-                                      for rnd in range(cfg.n_rounds)], dim=1)
-                curves = curves.cpu().numpy()  # the one host sync
-            ap_rows[start:start + k] = curves
+                curves = run_chunk(chunk)
+            ap_rows[start:start + len(chunk)] = curves
             took = round(timer.last_ms(span), 3)
             fields = ({"session_ms": took} if size == 1
                       else {"cohort_ms": took, "query_batch": cfg.query_batch})
             for j, (rep, c, q) in enumerate(chunk):
                 logger.log(rep=rep, cls=c, query=q, ap_curve=[float(v) for v in curves[j]],
-                           **fields)
+                           **fields, **(log or {}))
     finally:
         logger.close()
+    return _stacked_result(cfg, dataset, plan, dev, ap_rows, timer, span)
 
-    per_round = cfg.n_rounds if size == 1 else 1
+
+def _stacked_result(cfg, dataset, plan, dev, ap_rows, timer, span) -> Dict[str, Any]:
+    """The result dict of the cohort and fused modes (the reference's keys:
+    ``update_ms`` 0, ``fused`` or ``query_batch``), their times per round
+    from the ``span`` spans."""
+    size = max(cfg.query_batch or 0, 1)
+    per_round = cfg.n_rounds if span != "round" else 1
     out = {
         "ap": ap_rows,
         "map": ap_rows.mean(axis=0) if ap_rows.size else np.zeros(cfg.n_rounds),
@@ -508,37 +608,15 @@ def _cohort_round(cfg, st, select, params, select_kwargs, draws, relevant, exclu
 
 def _relearn_stacked(st: gp_mod.StackedGPState, cfg: ExperimentConfig) -> None:
     """:func:`_relearn_hyperparams` for each session of a stack, written back
-    into the stack; the stack's hyperparameters are replaced, not written,
-    since a session's may be shared with others."""
-    hyper = {f: getattr(st.hyper, f).clone() for f in ("length_scale", "var", "noise")}
-    for k in range(st.k):
-        fitted = _relearn_hyperparams(gp_mod.session_state(st, k), cfg)
-        for f in ("l", "beta", "v", "mu", "sig2"):
-            getattr(st, f)[k].copy_(getattr(fitted, f))
-        for f in hyper:
-            hyper[f][k] = getattr(fitted.hyper, f)
-    st.hyper = gp_mod.GPHyper(**hyper)
-    # Sessions learned from their own labels: one group each, decided
-    # without reading the values back (a host sync the fused mode avoids).
-    st.hyper_groups = [[k] for k in range(st.k)]
+    into the stack (:func:`~gp_mod.refit_stacked`)."""
+    gp_mod.refit_stacked(st, lambda state: _relearn_hyperparams(state, cfg))
 
 
 def _learn_kwargs(cfg: ExperimentConfig, state: gp_mod.GPState) -> Dict[str, Any]:
-    """``fit_hyperparams`` options from the config.  The MAP type-II prior
-    (``GP.learn_prior_strength``) is anchored at the config's initial
+    """``fit_hyperparams`` options from the config (:class:`LearnConfig`):
+    the MAP type-II prior is anchored at the config's initial
     hyperparameters, not the current iterate, which would let it wander."""
-    kw: Dict[str, Any] = dict(
-        steps=cfg.gp.learn_steps, lr=cfg.gp.learn_lr, learn_noise=cfg.gp.learn_noise,
-        prior_strength=float(cfg.gp.learn_prior_strength),
-        noise_floor=float(cfg.gp.learn_noise_floor),
-    )
-    if kw["prior_strength"]:
-        def t(v):
-            return torch.tensor(v, dtype=state.mu.dtype, device=state.mu.device)
-
-        kw["prior_center"] = gp_mod.GPHyper(length_scale=t(cfg.gp.length_scale),
-                                            var=t(cfg.gp.var), noise=t(cfg.gp.noise))
-    return kw
+    return LearnConfig.from_gp(cfg.gp).fit_kwargs(state.mu)
 
 
 def _relearn_hyperparams(state: gp_mod.GPState, cfg: ExperimentConfig, *,

@@ -1,10 +1,20 @@
-"""HTTP serving layer for interactive retrieval sessions (port of ``ital_tpu.serve``, one device).
+"""HTTP serving layer for interactive retrieval sessions (port of ``ital_tpu.serve``).
 
 A small stdlib-only HTTP front end over
 :class:`ital_tpu_torch.models.session.ActiveRetrieval`.  One process owns the
 card; the corpus is one device tensor shared by every session (features are
 never copied per session), and on the card every RBF block of a request goes
 through the hand-written kernel.
+
+With ``mesh_devices = p`` (``--mesh p``) the corpus is padded to the mesh and
+sharded over p devices, one rank each (:class:`ital_tpu_torch.parallel.
+interactive.MeshWorld`): rank 0 is this process, which holds only its shard,
+and a mesh of p > 1 starts p - 1 worker ranks.  Sessions are
+:class:`~ital_tpu_torch.parallel.interactive.ShardedRetrieval`, every request
+runs as one command on every rank, and the cohort endpoints run one sharded
+cohort selection (``parallel.sharded.make_sharded_cohort_select``) or update
+(``make_sharded_cohort_update``) per group.  Batches, rankings, snapshots and
+learned values are the single-device service's.
 
 Concurrency:
 
@@ -29,6 +39,10 @@ Concurrency:
   budget (``ITAL_TPU_COHORT_STATE_BYTES``, :meth:`RetrievalService.
   _max_cohort_sessions`) run as several stacked programs, with the same
   results.
+* On a mesh service one lock orders every mesh command, since every rank
+  must issue its collectives in the same order: requests for different
+  sessions serialize at the mesh, not only at the device.  The session
+  locks are taken first, then the mesh lock.
 
 API (JSON bodies)::
 
@@ -60,11 +74,13 @@ Start: ``python -m ital_tpu_torch.serve configs/digits.ini --port 8080
 [--device cpu]`` (console script ``ital-tpu-torch-serve``); the config's
 [DATA]/[GP]/[USER]/[EXPERIMENT]/[METHOD] sections supply the corpus,
 hyperparameters, user model, default strategy and its options.
-``--device`` defaults to ``cuda`` and fails without a card.
+``--device`` defaults to ``cuda`` and fails without a card; ``--mesh N``
+shards the corpus over N cards (or, with ``--device cpu``, N gloo processes).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import io
 import json
 import os
@@ -79,14 +95,11 @@ import torch
 
 from ital_tpu_torch.models import gp as gp_mod
 from ital_tpu_torch.models.session import ActiveRetrieval, resolve_device
+from ital_tpu_torch.parallel import interactive
+from ital_tpu_torch.parallel import sharded as sh
 from ital_tpu_torch.runner import DENSITY_STRATEGIES
 from ital_tpu_torch.select.base import filter_method_kwargs, get_stacked_strategy
 from ital_tpu_torch.utils import checkpoint as ckpt
-
-_MESH_UNPORTED = (
-    "mesh-sharded serving is not ported to ital_tpu_torch yet: see ROADMAP.md, "
-    "queue 1 item 2 (ShardedRetrieval and serve --mesh)"
-)
 
 # Peak device memory a stacked cohort program adds per session: COPIES of the
 # session's (cap, N) f32 whitened buffer v (the stack and the corpus-wide
@@ -109,10 +122,11 @@ COHORT_STATE_BYTES = 8 << 30
 
 def max_cohort_sessions(cap: int, n: int, copies: float, fixed_bytes: int = 0) -> int:
     """Largest session group one stacked program over an (n,)-row corpus
-    takes: the budget (``ITAL_TPU_COHORT_STATE_BYTES``, default
-    :data:`COHORT_STATE_BYTES`) over ``copies`` (cap, n) f32 buffers plus
-    ``fixed_bytes`` a session (:data:`SELECT_COPIES` and
-    :data:`SELECT_FIXED_BYTES`, :data:`UPDATE_COPIES`)."""
+    (on a mesh, one rank's shard) takes: the budget
+    (``ITAL_TPU_COHORT_STATE_BYTES``, default :data:`COHORT_STATE_BYTES`)
+    over ``copies`` (cap, n) f32 buffers plus ``fixed_bytes`` a session
+    (:data:`SELECT_COPIES` and :data:`SELECT_FIXED_BYTES`,
+    :data:`UPDATE_COPIES`)."""
     budget = int(os.environ.get("ITAL_TPU_COHORT_STATE_BYTES", COHORT_STATE_BYTES))
     return max(1, int(budget // (copies * int(cap) * int(n) * 4 + fixed_bytes)))
 
@@ -148,6 +162,9 @@ class RetrievalService:
     ``corpus_dtype="bfloat16"``, as bfloat16.  ``method_kwargs`` are the
     default strategy options of every session (the config's [METHOD]
     section); each session keeps those its strategy declares.
+    ``mesh_devices = p`` shards the corpus over a mesh of p devices of
+    ``device``'s type (this process is rank 0 and holds only its shard);
+    :meth:`close` then stops the mesh's workers and its process group.
     """
 
     def __init__(
@@ -167,67 +184,98 @@ class RetrievalService:
         corpus_dtype: str = "",
         device=None,
     ):
-        if mesh_devices:
-            raise NotImplementedError(_MESH_UNPORTED)
         dev = resolve_device(device)
-        if isinstance(x, torch.Tensor):
-            xt = x.to(dev, torch.float32)
+        self._world: Optional[interactive.MeshWorld] = None
+        if mesh_devices:
+            x_np = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
+            self._world = interactive.MeshWorld(int(mesh_devices), x_np, device=dev,
+                                                corpus_dtype=corpus_dtype)
+            # Rank 0's shard: the only corpus rows this process holds.
+            self.x = self._world.ctx.x
+            self.n_real = self._world.ctx.n_real
         else:
-            xt = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
-        if corpus_dtype and corpus_dtype != "float32":
-            xt = xt.to(getattr(torch, corpus_dtype))
-        # The one device copy: sessions keep this tensor as their corpus.
-        self.x = xt.contiguous()
-        self.n_real = int(self.x.shape[0])
+            if isinstance(x, torch.Tensor):
+                xt = x.to(dev, torch.float32)
+            else:
+                xt = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+            if corpus_dtype and corpus_dtype != "float32":
+                xt = xt.to(getattr(torch, corpus_dtype))
+            # The one device copy: sessions keep this tensor as their corpus.
+            self.x = xt.contiguous()
+            self.n_real = int(self.x.shape[0])
         self.defaults = dict(
             length_scale=length_scale, var=var, noise=noise, cap=cap,
             strategy=strategy, label_prob=label_prob, mistake_prob=mistake_prob,
         )
         self.method_kwargs = dict(method_kwargs or {})
         self.corpus_name = corpus_name
-        # sid -> (ActiveRetrieval, its lock).
+        # sid -> (ActiveRetrieval or ShardedRetrieval, its lock).
         self._sessions: Dict[str, tuple] = {}
         self._next = 0
         self._lock = threading.Lock()
         # The corpus density, built once per length scale (its only input)
-        # and shared by every density-strategy session at that scale.
+        # and shared by every density-strategy session at that scale.  On a
+        # mesh each rank keeps its own shard of it (MeshContext).
         self._density_by_ls: Dict[float, torch.Tensor] = {}
 
     def health(self) -> dict:
         return {"ok": True, "corpus": self.corpus_name, "n": self.n_real,
-                "sessions": len(self._sessions), "mesh_devices": 0,
+                "sessions": len(self._sessions),
+                "mesh_devices": 0 if self._world is None else self._world.mesh.size,
                 "device": str(self.x.device)}
+
+    def close(self) -> None:
+        """Stop a mesh service's worker ranks and destroy its process group
+        (nothing to do on one device); idempotent."""
+        if self._world is not None:
+            self._world.close()
+
+    def _mesh(self, sid: str, fn, *args):
+        """Run a mesh command for session ``sid``, whose lock the caller
+        holds (so no delete of it runs meanwhile)."""
+        if sid not in self._world.ctx.sessions:
+            raise NotFound(f"no such session {sid!r}")
+        return self._world.run(fn, sid, *args)
 
     def create_session(self, **overrides) -> str:
         """A new session over the shared corpus; ``overrides`` replace the
         service's defaults, and ``method_kwargs`` layer over its options
         (the session's constructor rejects names its strategy does not
-        declare)."""
+        declare, and a mesh session options the mesh does not take)."""
         mkw_over = overrides.pop("method_kwargs", None)
         cfg = {**self.defaults, **{k: v for k, v in overrides.items() if v is not None}}
         strategy = str(cfg["strategy"])
-        sess = ActiveRetrieval(
-            self.x,
+        kwargs = dict(
             length_scale=float(cfg["length_scale"]), var=float(cfg["var"]),
             noise=float(cfg["noise"]), cap=int(cfg["cap"]), strategy=strategy,
             label_prob=float(cfg["label_prob"]), mistake_prob=float(cfg["mistake_prob"]),
             method_kwargs={**filter_method_kwargs(strategy, self.method_kwargs),
                            **(mkw_over or {})},
         )
-        if strategy in DENSITY_STRATEGIES:
+        density_ls = float(cfg["length_scale"]) if strategy in DENSITY_STRATEGIES else None
+        if self._world is not None:
+            interactive.check_mesh_options(strategy, kwargs["method_kwargs"])
+            with self._lock:
+                sid = f"s{self._next}"
+                self._next += 1
+            sess = self._world.run(_mesh_create, sid, kwargs, density_ls)
+            with self._lock:
+                self._sessions[sid] = (sess, threading.Lock())
+            return sid
+        sess = ActiveRetrieval(self.x, **kwargs)
+        if density_ls is not None:
             # Built outside the registry lock, which guards only dict reads and
             # writes; racing creators may both build it, and the first insert
             # wins (the two are the same values).
-            ls = float(cfg["length_scale"])
             with self._lock:
-                dens = self._density_by_ls.get(ls)
+                dens = self._density_by_ls.get(density_ls)
             if dens is None:
                 dens = gp_mod.corpus_density(sess.state)
                 with self._lock:
-                    dens = self._density_by_ls.setdefault(ls, dens)
+                    dens = self._density_by_ls.setdefault(density_ls, dens)
             sess.state.density = dens
             # The cohort-compatibility key of the shared vector.
-            sess._density_ls = ls
+            sess._density_ls = density_ls
         with self._lock:
             sid = f"s{self._next}"
             self._next += 1
@@ -258,15 +306,30 @@ class RetrievalService:
     def set_query(self, sid: str, index: int) -> None:
         sess, lock = self._entry(sid)
         with lock:
-            sess.update_query(int(index))
+            if self._world is None:
+                sess.update_query(int(index))
+                return
+            if not 0 <= int(index) < self.n_real:
+                raise ValueError(f"query index {index} outside the corpus of {self.n_real}")
+            self._mesh(sid, _mesh_set_query, int(index))
 
     def next_batch(self, sid: str, k: int) -> list:
         sess, lock = self._entry(sid)
         with lock:
-            return [int(i) for i in sess.fetch_unlabelled(int(k))]
+            return self._fetch_locked(sid, sess, int(k))
+
+    def _fetch_locked(self, sid: str, sess, k: int) -> list:
+        if self._world is None:
+            return [int(i) for i in sess.fetch_unlabelled(k)]
+        # Every rank selects from rank 0's generator state.
+        return self._mesh(sid, _mesh_select, k, sess.generator.get_state())
 
     def _max_cohort_sessions(self, cap: int, copies: float, fixed_bytes: int = 0) -> int:
-        """:func:`max_cohort_sessions` over this service's corpus."""
+        """:func:`max_cohort_sessions` over this service's corpus: on a mesh,
+        over rank 0's shard, since each rank holds its (cap, N/p) columns of
+        every stacked copy.  The fixed term stays whole: each rank scores
+        only its slice of a pool, but the gathered pool and the refinement
+        are whole on every rank, so it bounds a rank's MI temporaries."""
         return max_cohort_sessions(cap, self.x.shape[0], copies, fixed_bytes)
 
     def next_batch_many(self, sids: list, k: int) -> Dict[str, list]:
@@ -289,7 +352,7 @@ class RetrievalService:
                 and _density_compatible(sessions)
             )
             if not compatible or len(sessions) == 1:
-                return self._select_each_locked(entries, int(k))
+                return {sid: self._fetch_locked(sid, s, int(k)) for sid, s, _ in entries}
             limit = self._max_cohort_sessions(sessions[0].state.cap, SELECT_COPIES,
                                               SELECT_FIXED_BYTES)
             out: Dict[str, list] = {}
@@ -299,33 +362,37 @@ class RetrievalService:
         finally:
             self._unlock_group(entries)
 
-    @staticmethod
-    def _select_each_locked(entries, k: int) -> Dict[str, list]:
-        return {sid: [int(i) for i in s.fetch_unlabelled(k)] for sid, s, _ in entries}
-
     def _select_cohort_locked(self, entries, k: int) -> Dict[str, list]:
         """A compatible, locked group's selection: one stacked selection of
         the group's sessions (per user model, which the stack shares), each
-        drawing from its own generator."""
+        drawing from its own generator; on a mesh one sharded cohort
+        selection."""
         by_params: Dict[tuple, list] = {}
         for e in entries:
             by_params.setdefault(e[1].params_key, []).append(e)
         out: Dict[str, list] = {}
         for group in by_params.values():
             sessions = [s for _, s, _ in group]
-            name = sessions[0].strategy_name
-            select = get_stacked_strategy(name)
-            batches = select(gp_mod.stack_states([s.state for s in sessions]), k,
-                             [s.generator for s in sessions], sessions[0].params,
-                             **filter_method_kwargs(name, sessions[0].method_kwargs))
-            out.update({sid: [int(i) for i in row]
-                        for (sid, _, _), row in zip(group, batches.cpu().numpy())})
+            if self._world is not None:
+                rows = self._world.run(_mesh_cohort_select, [sid for sid, _, _ in group], k,
+                                       [s.generator.get_state() for s in sessions])
+            else:
+                name = sessions[0].strategy_name
+                select = get_stacked_strategy(name)
+                rows = select(gp_mod.stack_states([s.state for s in sessions]), k,
+                              [s.generator for s in sessions], sessions[0].params,
+                              **filter_method_kwargs(name, sessions[0].method_kwargs)).tolist()
+            out.update({sid: [int(i) for i in row] for (sid, _, _), row in zip(group, rows)})
         return out
 
     def feedback(self, sid: str, labels: Dict[str, int]) -> dict:
         sess, lock = self._entry(sid)
         with lock:
-            sess.update(_parse_labels(labels))
+            parsed = _parse_labels(labels)
+            if self._world is None:
+                sess.update(parsed)
+            elif parsed:
+                self._mesh(sid, _mesh_absorb, *sess.feedback_block(parsed))
             return {"labeled": int(sess.state.count)}
 
     def feedback_many(self, fb: Dict[str, Dict[str, int]]) -> Dict[str, dict]:
@@ -339,7 +406,7 @@ class RetrievalService:
         entry while the others are applied.  The sessions of one (width,
         capacity) group take one stacked GP update per chunk of at most
         :meth:`_max_cohort_sessions`, whatever their counts and
-        hyperparameters.
+        hyperparameters (on a mesh, one sharded cohort update).
         """
         for sid in fb:
             self._entry(sid)  # an unknown session is a 404 before anything else
@@ -356,7 +423,7 @@ class RetrievalService:
                                           f"{len(labels)} new > cap={cap}")}
                 elif labels:
                     idx, y = s.feedback_block(labels)
-                    groups.setdefault((len(idx), cap), []).append((s, idx, y))
+                    groups.setdefault((len(idx), cap), []).append((sid, s, idx, y))
             for (_, cap), group in groups.items():
                 limit = self._max_cohort_sessions(cap, UPDATE_COPIES)
                 for i in range(0, len(group), limit):
@@ -366,52 +433,69 @@ class RetrievalService:
             self._unlock_group(entries)
 
     def _update_cohort_locked(self, group) -> None:
-        """One stacked GP update of locked sessions ``(session, idx, y)`` with
-        feedback blocks of one width, written back into each session's own
-        buffers once the whole update has succeeded."""
-        dev = self.x.device
-        states = [s.state for s, _, _ in group]
-        idx = torch.as_tensor(np.stack([i for _, i, _ in group]), device=dev)
-        y = np.stack([y for _, _, y in group])
-        st = gp_mod.stack_states(states)
-        gp_mod.gp_update_stacked(st, idx, torch.as_tensor(y, device=dev),
-                                 torch.as_tensor(y != 0, device=dev))
-        gp_mod.unstack_into(st, states)
+        """One stacked GP update of locked sessions ``(sid, session, idx, y)``
+        with feedback blocks of one width, written back into each session's
+        own buffers once the whole update has succeeded."""
+        idx = np.stack([i for _, _, i, _ in group])
+        y = np.stack([y for _, _, _, y in group])
+        if self._world is not None:
+            self._world.run(_mesh_cohort_update, [sid for sid, *_ in group], idx, y)
+            return
+        _update_stacked([s.state for _, s, _, _ in group], idx, y, gp_mod.gp_update_stacked)
 
     def ranking(self, sid: str, k: int) -> dict:
         sess, lock = self._entry(sid)
         with lock:
-            top = sess.top_k(int(k))
-            scores = sess.scores()
-        return {"top": [int(i) for i in top],
-                "scores": [round(float(scores[i]), 6) for i in top]}
+            if self._world is None:
+                top = sess.top_k(int(k))
+                values = sess.scores()[top]
+            else:
+                top, values = self._mesh(sid, _mesh_ranking, int(k))
+        return {"top": [int(i) for i in top], "scores": [round(float(v), 6) for v in values]}
 
     def learn(self, sid: str, steps: int = 50, prior_strength: float = 0.0,
               noise_floor: float = 0.0) -> dict:
         if prior_strength < 0 or noise_floor < 0:
             raise ValueError("prior_strength/noise_floor must be >= 0")
+        kw = dict(steps=int(steps), prior_strength=float(prior_strength),
+                  noise_floor=float(noise_floor))
         sess, lock = self._entry(sid)
         with lock:
-            return sess.learn_hyperparams(
-                steps=int(steps), prior_strength=float(prior_strength),
-                noise_floor=float(noise_floor),
-            )
+            if self._world is None:
+                return sess.learn_hyperparams(**kw)
+            # The fit runs here on the gathered rows, so a fit that fails
+            # fails the request before any rank changes the session.
+            vals = sess.fit_hyperparams(self._mesh(sid, _mesh_labeled_rows), **kw)
+            self._mesh(sid, _mesh_refit, vals)
+            return dict(zip(("length_scale", "var", "noise"), vals))
 
     def delete(self, sid: str) -> None:
         with self._lock:
-            self._sessions.pop(sid, None)
+            entry = self._sessions.get(sid)
+        if entry is None:
+            return
+        with entry[1]:
+            with self._lock:
+                self._sessions.pop(sid, None)
+            if self._world is not None and sid in self._world.ctx.sessions:
+                self._world.run(_mesh_delete, sid)
 
     # -- snapshot / restore (failover through utils.checkpoint) -------------
 
     def snapshot(self, sid: str) -> bytes:
-        """A session (everything but the shared corpus) as npz bytes.
+        """A session (everything but the shared corpus) as npz bytes; on a
+        mesh, gathered over the padded corpus (the reference mesh service's
+        layout).
 
         The session's buffers are copied to the host under its lock, since
         updates write them in place; serialization runs outside every lock.
         """
         sess, lock = self._entry(sid)
         with lock:
-            state = gp_mod.gp_session_copy(sess.state, device="cpu")
+            if self._world is None:
+                state = gp_mod.gp_session_copy(sess.state, device="cpu")
+            else:
+                state = self._mesh(sid, _mesh_snapshot)
             q = -1 if sess.query is None else int(sess.query)
             mkw = dict(sess.method_kwargs)
         with tempfile.TemporaryDirectory() as d:
@@ -426,30 +510,126 @@ class RetrievalService:
                 return fh.read()
 
     def restore(self, blob: bytes) -> str:
-        """A new session from :meth:`snapshot` bytes over the same corpus.
+        """A new session from :meth:`snapshot` bytes over the same corpus
+        (on a mesh, re-laid over the mesh).
 
         Capacity and strategy options come from the snapshot; strategy and
         user model from the service's defaults.
         """
         with np.load(io.BytesIO(blob)) as npz:
             cap = int(npz["state_idx"].shape[0])
+            rows = int(npz["state_mu"].shape[0])
+        if self._world is not None and rows != self._world.ctx.n_pad:
+            raise ValueError(f"a snapshot over {rows} rows does not fit this mesh service's "
+                             f"{self._world.ctx.n_pad} padded rows")
         sid = self.create_session(cap=cap)
         sess, lock = self._entry(sid)
         with lock:
-            state, extra = ckpt.load_session(io.BytesIO(blob), sess.state)
-            sess.state = state
-            q = int(extra["query"]) if "query" in extra else -1
-            sess.query = None if q < 0 else q
-            if "method_kwargs" in extra:
-                # Replaced, not merged: the snapshot holds the merge that was
-                # in force when it was taken.
-                sess.method_kwargs = json.loads(str(extra["method_kwargs"]))
-            if state.density is not None:
-                # The restored density may come from another length scale
-                # than this service's; a unique key keeps the session out of
-                # cohort groups.
-                sess._density_ls = ("restored", sid)
+            if self._world is not None:
+                self._mesh(sid, _mesh_restore, blob)
+            else:
+                _restore_into(sess, sid, *ckpt.load_session(io.BytesIO(blob), sess.state))
         return sid
+
+
+def _restore_into(sess, sid: str, state, extra) -> None:
+    """Give ``sess`` a restored ``state`` and the snapshot's query and options."""
+    sess.state = state
+    q = int(extra["query"]) if "query" in extra else -1
+    sess.query = None if q < 0 else q
+    if "method_kwargs" in extra:
+        # Replaced, not merged: the snapshot holds the merge that was in
+        # force when it was taken.
+        sess.method_kwargs = json.loads(str(extra["method_kwargs"]))
+    if state.density is not None:
+        # The restored density may come from another length scale than this
+        # service's; a unique key keeps the session out of cohort groups.
+        sess._density_ls = ("restored", sid)
+
+
+def _update_stacked(states, idx: np.ndarray, y: np.ndarray, update) -> None:
+    """``update`` (a stacked GP update) of ``states`` with (K, b) feedback
+    blocks, written back into each state's own buffers once it succeeded."""
+    dev = states[0].mu.device
+    st = gp_mod.stack_states(states)
+    update(st, torch.as_tensor(idx, device=dev), torch.as_tensor(y, device=dev),
+           torch.as_tensor(y != 0, device=dev))
+    gp_mod.unstack_into(st, states)
+
+
+# -- mesh commands: run on every rank of a mesh service (MeshWorld.run) -------
+
+
+def _mesh_create(ctx, sid: str, kwargs: dict, density_ls: Optional[float]):
+    sess = interactive.ShardedRetrieval(ctx.x, ctx.n_real, ctx.n_pad, ctx.mesh, **kwargs)
+    if density_ls is not None:
+        dens = ctx.density_by_ls.get(density_ls)
+        if dens is None:
+            dens = sh.make_sharded_density(ctx.mesh)(sess.state, ctx.pad)
+            ctx.density_by_ls[density_ls] = dens
+        sess.state.density = dens
+        sess._density_ls = density_ls
+    ctx.sessions[sid] = sess
+    return sess
+
+
+def _mesh_set_query(ctx, sid: str, index: int) -> None:
+    ctx.sessions[sid].update_query(index)
+
+
+def _mesh_select(ctx, sid: str, k: int, generator_state) -> list:
+    sess = ctx.sessions[sid]
+    sess.generator.set_state(generator_state)
+    return [int(i) for i in sess.fetch_unlabelled(k)]
+
+
+def _mesh_cohort_select(ctx, sids: list, k: int, generator_states) -> list:
+    sessions = [ctx.sessions[sid] for sid in sids]
+    for sess, g in zip(sessions, generator_states):
+        sess.generator.set_state(g)
+    first = sessions[0]
+    select = sh.make_sharded_cohort_select(ctx.mesh, strategy=first.strategy_name, batch_size=k,
+                                           **first.selection_options())
+    batches = select(gp_mod.stack_states([s.state for s in sessions]),
+                     [s.generator for s in sessions], first.pad_forbid, first.params,
+                     n_real=ctx.n_real)
+    return batches.tolist()
+
+
+def _mesh_absorb(ctx, sid: str, idx: np.ndarray, y: np.ndarray) -> None:
+    ctx.sessions[sid].absorb(idx, y)
+
+
+def _mesh_cohort_update(ctx, sids: list, idx: np.ndarray, y: np.ndarray) -> None:
+    _update_stacked([ctx.sessions[sid].state for sid in sids], idx, y,
+                    sh.make_sharded_cohort_update(ctx.mesh))
+
+
+def _mesh_ranking(ctx, sid: str, k: int) -> tuple:
+    return ctx.sessions[sid].ranked(k)
+
+
+def _mesh_labeled_rows(ctx, sid: str) -> torch.Tensor:
+    return ctx.sessions[sid].labeled_rows()
+
+
+def _mesh_refit(ctx, sid: str, values) -> None:
+    ctx.sessions[sid].refit(values)
+
+
+def _mesh_delete(ctx, sid: str) -> None:
+    ctx.sessions.pop(sid, None)
+
+
+def _mesh_snapshot(ctx, sid: str) -> gp_mod.GPState:
+    full = sh.gather_session(ctx.mesh, ctx.sessions[sid].state)
+    return dataclasses.replace(gp_mod.gp_session_copy(full, device="cpu"),
+                               density=None if full.density is None else full.density.cpu())
+
+
+def _mesh_restore(ctx, sid: str, blob: bytes) -> None:
+    sess = ctx.sessions[sid]
+    _restore_into(sess, sid, *sh.load_sharded_session(ctx.mesh, io.BytesIO(blob), sess.state))
 
 
 _SESSION_RE = re.compile(
@@ -556,21 +736,32 @@ class _Handler(BaseHTTPRequestHandler):
         return self._json(404, {"error": f"no route {method} {path}"})
 
 
+class _Server(ThreadingHTTPServer):
+    service: RetrievalService
+
+    def shutdown(self) -> None:
+        """Stop serving, then close the service (a mesh service's workers);
+        a service without ``close`` is left as it is."""
+        super().shutdown()
+        getattr(self.service, "close", lambda: None)()
+
+
 def make_server(service: RetrievalService, port: int = 0) -> ThreadingHTTPServer:
     """Bind a server on 127.0.0.1 (port 0: an ephemeral one); the caller
-    runs ``serve_forever``."""
+    runs ``serve_forever``.  Its ``shutdown`` closes the service."""
     handler = type("BoundHandler", (_Handler,), {"service": service})
-    return ThreadingHTTPServer(("127.0.0.1", port), handler)
+    srv = _Server(("127.0.0.1", port), handler)
+    srv.service = service
+    return srv
 
 
 def service_from_config(cfg, *, mesh_devices: int = 0, device=None) -> RetrievalService:
     """A service from an :class:`ExperimentConfig` (dataset, GP, user, method)
-    on ``device`` (default ``cuda``)."""
+    on ``device`` (default ``cuda``); ``mesh_devices > 0`` shards the corpus
+    over that many devices (the ``--mesh`` flag)."""
     from ital_tpu_torch.data import datasets as ds_mod
     from ital_tpu_torch.utils.config import apply_matmul_precision
 
-    if mesh_devices:
-        raise NotImplementedError(_MESH_UNPORTED)
     dev = resolve_device(device)
     apply_matmul_precision(cfg)
     ds = ds_mod.load_dataset(cfg.dataset, **cfg.dataset_kwargs)
@@ -581,12 +772,13 @@ def service_from_config(cfg, *, mesh_devices: int = 0, device=None) -> Retrieval
         label_prob=cfg.user.label_prob, mistake_prob=cfg.user.mistake_prob,
         corpus_name=ds.name,
         method_kwargs={k: v for k, v in cfg.method_kwargs.items() if k != "tradeoff"},
-        corpus_dtype=cfg.gp.corpus_dtype, device=dev,
+        mesh_devices=mesh_devices, corpus_dtype=cfg.gp.corpus_dtype, device=dev,
     )
 
 
 def main(argv=None) -> int:
     import argparse
+    import signal
 
     from ital_tpu_torch.utils.config import load_config
 
@@ -596,25 +788,28 @@ def main(argv=None) -> int:
     ap.add_argument("overrides", nargs="*")
     ap.add_argument("--port", type=int, default=8080)
     ap.add_argument("--mesh", type=int, default=0, metavar="N",
-                    help="shard the corpus over N devices (not ported yet: raises)")
+                    help="shard the corpus over N devices, one rank each (0: one device)")
     ap.add_argument("--device", default="cuda", help="torch device to serve on (default: cuda)")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(_MESH_UNPORTED)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         ap.error(f"--device {args.device}: no CUDA device is available "
                  f"(pass --device cpu to serve on the CPU)")
     cfg = load_config(args.config, tuple(args.overrides))
-    srv = make_server(service_from_config(cfg, device=device), args.port)
+    svc = service_from_config(cfg, mesh_devices=args.mesh, device=device)
+    srv = make_server(svc, args.port)
+    mesh = f", mesh of {args.mesh}" if args.mesh else ""
     print(f"# serving {cfg.dataset} on http://127.0.0.1:{srv.server_address[1]} "
-          f"({device})", flush=True)
+          f"({device}{mesh})", flush=True)
+    # SIGTERM ends the server like ^C, so a mesh's workers are stopped.
+    signal.signal(signal.SIGTERM, signal.default_int_handler)
     try:
         srv.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:
         srv.server_close()
+        svc.close()
     return 0
 
 

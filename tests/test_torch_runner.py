@@ -167,9 +167,6 @@ def test_capacity_guard():
 
 @pytest.mark.parametrize("change,item", [
     ({"mesh_devices": 2, "gp": {"chol2d_threshold": 16}}, "item 3"),  # cap 16 crosses it
-    ({"mesh_devices": 2, "query_batch": 2}, "item 1"),  # cohorts and the mesh run; not both
-    ({"mesh_devices": 2, "fused_sessions": True}, "item 1"),
-    ({"mesh_devices": 2, "query_batch": 2, "fused_sessions": True}, "item 1"),
 ])
 def test_unported_modes_raise(change, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, queue 1 {item}"):

@@ -617,7 +617,7 @@ def test_snapshot_under_concurrent_feedback_is_never_torn():
     assert max(counts) == 61
 
 
-# -- entry points: the card by default, no mesh ------------------------------
+# -- entry points: the card by default, and the mesh --------------------------
 
 def test_service_runs_on_cuda_unless_asked_for_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -633,15 +633,47 @@ def test_service_runs_on_cuda_unless_asked_for_the_cpu(monkeypatch):
     assert svc.x.device.type == "cpu" and svc.health()["n"] == svc.x.shape[0]
 
 
-def test_mesh_is_refused_naming_its_roadmap_item():
-    item = r"queue 1 item 2 \(ShardedRetrieval and serve --mesh\)"
-    with pytest.raises(NotImplementedError, match=item):
-        RetrievalService(_corpus(), length_scale=2.5, mesh_devices=2, device="cpu")
-    cfg = tconfig.load_config(str(ROOT / "configs" / "toy.ini"))
-    with pytest.raises(NotImplementedError, match=item):
-        serve.service_from_config(cfg, mesh_devices=2, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        serve.main(["configs/toy.ini", "--mesh", "2", "--device", "cpu"])
+def test_mesh_serves_from_every_entry_point(monkeypatch):
+    """``mesh_devices`` / ``--mesh`` serve on a gloo mesh of CPU processes
+    when asked for the CPU, and fail without a card otherwise."""
+    svc = RetrievalService(_corpus(), length_scale=2.5, mesh_devices=2, device="cpu")
+    try:
+        assert svc.health()["mesh_devices"] == 2 and svc.health()["n"] == 120
+        sid = svc.create_session()
+        svc.set_query(sid, 3)
+        assert len(svc.next_batch(sid, 2)) == 2
+    finally:
+        svc.close()
+    cfg = tconfig.load_config(str(ROOT / "configs" / "toy.ini"), ("DATA.n_per_class=20",))
+    svc = serve.service_from_config(cfg, mesh_devices=2, device="cpu")
+    try:
+        assert svc.health()["mesh_devices"] == 2 and svc.x.device.type == "cpu"
+    finally:
+        svc.close()
+    p = subprocess.Popen(
+        [sys.executable, "-m", "ital_tpu_torch.serve", "configs/toy.ini", "DATA.n_per_class=20",
+         "--port", "0", "--mesh", "2", "--device", "cpu"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT)},
+    )
+    watchdog = threading.Timer(120, p.kill)  # a server that never starts fails the test
+    watchdog.start()
+    try:
+        line = p.stdout.readline()
+        assert line.startswith("# serving toy on http://127.0.0.1:"), (line, p.stderr.read())
+        assert "mesh of 2" in line
+        code, h = _req(f"{line.split()[4]}/healthz")
+        assert code == 200 and h["mesh_devices"] == 2 and h["device"] == "cpu"
+    finally:
+        watchdog.cancel()
+        p.terminate()
+        assert p.wait(timeout=60) == 0  # SIGTERM closes the mesh and exits cleanly
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        serve.main(["configs/toy.ini", "--mesh", "2"])
+    assert exc.value.code == 2
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RetrievalService(_corpus(), length_scale=2.5, mesh_devices=2)
 
 
 def test_module_serves_a_config_on_the_cpu():
