@@ -118,12 +118,33 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    that forms RBF blocks; each request kind's host latency (device
    synchronized), launches and device memory peak, and each mode's cohort
    or session time, are printed with the card's name and power limit.
+11. large cap: the per-round mesh past ``GP.chol2d_threshold``
+   (``parallel.bigcap``, ``parallel.chol2d``: ``l`` in block-rows and a
+   distributed refit every round).  The kernel at the refit's two shapes,
+   (1024, 100000, 512) f32 with b2 and (1024, 1024, 512) f32, against its
+   plain version and its bound.  Then ``configs/scale100k.ini`` at cap 1024
+   and ``GP.chol2d_threshold = 1024`` with ITAL's production options (pool
+   4096, n_qmc 32, top 64 re-scored at 512; the reference's own large-cap
+   record), cut to 1 class x 3 rounds, on the mesh (clamped to the card),
+   checkpointing every round, beside the same run with
+   ``GP.chol2d_threshold = 0`` (the replicated factor, uncounted): the
+   bigcap run must report ``"chol2d": True`` with one rank's ``l`` (cap / p,
+   cap), its picks must agree round by round up to MI ties (on the
+   replicated state) and its posterior mean within ``CPU_MU_ATOL`` while
+   they do.  Its round-1 snapshot must load into the single-device
+   ``load_session`` on the CPU with a (cap, cap) ``l``, and a copy resumed
+   from it (uncounted) must give the uninterrupted curve.  The launch
+   count is reset before the bigcap run and must grow in every refit of
+   the "update" span.  Select and update ms and the device memory peak of
+   both runs, the refit's split (kernel blocks, Cholesky, beta, whitening,
+   the rest; CUDA events) and its kernels by device time
+   (``torch.profiler``) are printed with the card's name and power limit.
 
 The second-to-last line is a JSON object describing the kernel (launches on
 the main paths in all, per route and per path, its bound, its time and the
-plain version's, and its times at the 100 000-row shapes and at the mesh
-cohort's stacked shard shapes); the last line is ``{"ok": true, "device":
-{...}}``.  Imports nothing of JAX.
+plain version's, and its times at the 100 000-row shapes, at the mesh
+cohort's stacked shard shapes and at the large-cap refit's shapes); the
+last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -201,6 +222,11 @@ RING_OVERRIDES = HARNESS_OVERRIDES + ("EXPERIMENT.max_classes=1", "EXPERIMENT.n_
 MESH_OVERRIDES = ("EXPERIMENT.max_classes=2", "EXPERIMENT.queries_per_class=2",
                   "EXPERIMENT.n_rounds=3")
 MESH_QB = 4
+# Phase 11: the reference's own large-cap record (scripts/record_bigcap_session.py
+# with the fast selection of results/bigcap_session_100k_fastsel.json).
+BIGCAP_OVERRIDES = SCALE_OVERRIDES + (
+    "GP.cap=1024", "GP.chol2d_threshold=1024", "METHOD.pool_size=4096", "METHOD.n_qmc=32",
+    "METHOD.refine_top=64", "METHOD.refine_n_qmc=512")
 # The card's published peaks (H100 SXM, dense), for the kernel's bound: HBM
 # bytes per second, and TF32 and bf16 tensor operations per second (the f32
 # route does its products as 3xTF32: three TF32 products per f32 one).
@@ -1392,40 +1418,17 @@ def _cohort_rise_at(torch, ds, cfg, dev) -> dict:
 
 
 def _big_kernel_times(torch, big, scale, dev, smi: str) -> list:
-    """The kernel at the whole-corpus shapes the 100 000-row path adds, f32:
-    against the plain version (error, event times in turns, profiler device
-    time) and against its bound.  Uncounted: comparisons, not the path."""
-    from ital_tpu_torch.ops import rbf_hopper
-    from ital_tpu_torch.ops.kernels import rbf_kernel, rbf_kernel_plain
-
+    """The kernel at the whole-corpus shapes the 100 000-row path adds, f32,
+    with b2: against the plain version and against its bound."""
     x = torch.from_numpy(big.x).to(dev)
     x2 = (x * x).sum(-1)
     rng = np.random.default_rng(SEED + 17)
     ls = torch.tensor(scale.gp.length_scale, device=dev)
     var = torch.tensor(scale.gp.var, device=dev)
-    out = []
-    with _uncounted():
-        for m in (CAP, 4):
-            a = x[torch.from_numpy(rng.choice(big.n, size=m, replace=False)).to(dev)]
-            kern = functools.partial(rbf_kernel, a, x, ls, var, b2=x2)
-            plain = functools.partial(rbf_kernel_plain, a, x, ls, var, b2=x2)
-            err = float((kern() - plain()).abs().max())
-            (ms, spread), (plain_ms, plain_spread) = _time_turns_ms(torch, [kern, plain])
-            dev_us = _device_us(torch, kern)
-            bound, bound_by = rbf_bound_ms(m, big.n, big.x.shape[1], False, big.n)
-            route = rbf_hopper.choose_route(m, big.n, big.x.shape[1], a.dtype, a.data_ptr(),
-                                            x.data_ptr()).name
-            shape = f"{m}x{big.n}x{big.x.shape[1]} f32"
-            print(f"kernel: ({m}, {big.n}, {big.x.shape[1]}) b2: route {route}; max_abs_err "
-                  f"{err:.3e} (atol {F32_ATOL * scale.gp.var:.0e}); per launch ms {ms:.4f} "
-                  f"(spread {spread:.4f}), plain {plain_ms:.4f} (spread {plain_spread:.4f}); "
-                  f"device us {dev_us:.2f}; bound {bound * 1e3:.2f} us ({bound_by}), "
-                  f"{bound / ms * 100:.1f} % of it [{smi}]")
-            check(err <= F32_ATOL * scale.gp.var, f"{shape}: kernel against plain")
-            out.append({"shape": shape, "route": route, "max_abs_err": err, "ms": ms,
-                        "plain_ms": plain_ms, "device_us": dev_us, "bound_ms": bound,
-                        "bound_by": bound_by})
-    return out
+    n, d = big.x.shape
+    return _kernel_shapes(torch, "sharded", [
+        (f"{m}x{n}x{d}", x[torch.from_numpy(rng.choice(n, size=m, replace=False)).to(dev)], x,
+         {"b2": x2}) for m in (CAP, 4)], ls, var, smi)
 
 
 @contextlib.contextmanager
@@ -1550,11 +1553,7 @@ def _mesh_kernel_shapes(torch, big, scale, dev, smi: str) -> list:
     """The kernel at the stacked shard shapes the mesh cohort launches at
     100 000 x 512: the cohort update's new rows against the shard (K b, N)
     and the greedy step's shard against the K partial batches (N, K t), at
-    K = 4, b = 4, t = 3; against the plain version and the bound.
-    Uncounted: comparisons, not the path."""
-    from ital_tpu_torch.ops import rbf_hopper
-    from ital_tpu_torch.ops.kernels import rbf_kernel, rbf_kernel_plain
-
+    K = 4, b = 4, t = 3; against the plain version and the bound."""
     x = torch.from_numpy(big.x).to(dev)
     x2 = (x * x).sum(-1)
     rng = np.random.default_rng(SEED + 19)
@@ -1566,11 +1565,23 @@ def _mesh_kernel_shapes(torch, big, scale, dev, smi: str) -> list:
         return x[torch.from_numpy(rng.choice(n, size=m, replace=False)).to(dev)]
 
     new, part = rows(k * SERVE_K), rows(k * (SERVE_K - 1))
-    shapes = [(f"({k * SERVE_K}, {n}, {d}) b2", new, x, {"b2": x2}),
-              (f"({n}, {k * (SERVE_K - 1)}, {d}) a2", x, part, {"a2": x2})]
+    return _kernel_shapes(torch, "mesh cohort", [
+        (f"({k * SERVE_K}, {n}, {d}) b2", new, x, {"b2": x2}),
+        (f"({n}, {k * (SERVE_K - 1)}, {d}) a2", x, part, {"a2": x2})], ls, var, smi)
+
+
+def _kernel_shapes(torch, what: str, shapes, ls, var, smi: str) -> list:
+    """Each ``(name, a, b, norms)`` of ``shapes`` through the kernel, f32,
+    against its plain version (error within ``F32_ATOL`` x var, event times
+    in turns, profiler device time) and against its bound.  Uncounted:
+    comparisons, not the path."""
+    from ital_tpu_torch.ops import rbf_hopper
+    from ital_tpu_torch.ops.kernels import rbf_kernel, rbf_kernel_plain
+
     out = []
     with _uncounted():
         for name, a, b, norms in shapes:
+            d = a.shape[1]
             kern = functools.partial(rbf_kernel, a, b, ls, var, **norms)
             plain = functools.partial(rbf_kernel_plain, a, b, ls, var, **norms)
             err = float((kern() - plain()).abs().max())
@@ -1580,11 +1591,11 @@ def _mesh_kernel_shapes(torch, big, scale, dev, smi: str) -> list:
                                            sum(v.numel() for v in norms.values()))
             route = rbf_hopper.choose_route(a.shape[0], b.shape[0], d, a.dtype, a.data_ptr(),
                                             b.data_ptr()).name
-            print(f"kernel: mesh cohort {name}: route {route}; max_abs_err {err:.3e} (atol "
-                  f"{F32_ATOL * scale.gp.var:.0e}); per launch ms {ms:.4f} (spread {spread:.4f}), "
+            print(f"kernel: {what} {name}: route {route}; max_abs_err {err:.3e} (atol "
+                  f"{F32_ATOL * float(var):.0e}); per launch ms {ms:.4f} (spread {spread:.4f}), "
                   f"plain {plain_ms:.4f} (spread {plain_spread:.4f}); device us {dev_us:.2f}; "
                   f"bound {bound * 1e3:.2f} us ({bound_by}), {bound / ms * 100:.1f} % of it [{smi}]")
-            check(err <= F32_ATOL * scale.gp.var, f"mesh cohort {name}: kernel against plain")
+            check(err <= F32_ATOL * float(var), f"{what} {name}: kernel against plain")
             out.append({"shape": f"{name} f32", "route": route, "max_abs_err": err, "ms": ms,
                         "plain_ms": plain_ms, "device_us": dev_us, "bound_ms": bound,
                         "bound_by": bound_by})
@@ -1736,6 +1747,264 @@ def mesh_phase(torch, big, cfg, dev, smi: str) -> dict:
     return {"launches": dict(rbf_hopper.ROUTE_LAUNCHES), "shapes": shapes}
 
 
+@contextlib.contextmanager
+def _record_rounds(record: list, *, keep_states: bool):
+    """Append ``{"picks", "mu"}`` (the posterior mean after the round) for
+    each round of the sharded and the large-cap per-round paths, and with
+    ``keep_states`` ``"before"``: a host copy of the session buffers the
+    round selected from (off the card, so the run's memory peak is its own)."""
+    from ital_tpu_torch.models import gp as gp_mod
+    from ital_tpu_torch.parallel import bigcap, sharded
+
+    orig = {(bigcap, "make_bigcap_round"): bigcap.make_bigcap_round,
+            (sharded, "make_sharded_round"): sharded.make_sharded_round}
+
+    def wrap(make):
+        def made(*args, **kwargs):
+            round_fn = make(*args, **kwargs)
+
+            def watched(state, *a, **kw):
+                before = gp_mod.gp_session_copy(state, "cpu") if keep_states else None
+                out = round_fn(state, *a, **kw)
+                record.append({"picks": out[1].tolist(), "mu": out[0].mu.clone(),
+                               "before": before})
+                return out
+
+            return watched
+        return made
+
+    for (mod, name), make in orig.items():
+        setattr(mod, name, wrap(make))
+    try:
+        yield
+    finally:
+        for (mod, name), make in orig.items():
+            setattr(mod, name, make)
+
+
+@contextlib.contextmanager
+def _record_fits(record: list):
+    """Append ``(kernel launches, state)`` for each distributed refit."""
+    from ital_tpu_torch.ops import rbf_hopper
+    from ital_tpu_torch.parallel import bigcap
+
+    orig = bigcap.make_bigcap_fit
+
+    def made(mesh):
+        fit = orig(mesh)
+
+        def watched(state):
+            before = rbf_hopper.LAUNCHES
+            state = fit(state)
+            record.append((rbf_hopper.LAUNCHES - before, state))
+            return state
+
+        return watched
+
+    bigcap.make_bigcap_fit = made
+    try:
+        yield
+    finally:
+        bigcap.make_bigcap_fit = orig
+
+
+@contextlib.contextmanager
+def _keep_snapshot(round_: int, dest: Path):
+    """Copy the sharded path's snapshot of round ``round_`` (``next_round``
+    ``round_``) to ``dest``, which the runner's next write would replace."""
+    from ital_tpu_torch.parallel import sharded
+
+    orig = sharded.save_sharded_session
+
+    def save(mesh, path, state, extra=None):
+        orig(mesh, path, state, extra)
+        if int(extra["next_round"]) == round_:
+            dest.mkdir(parents=True, exist_ok=True)
+            shutil.copy(path, dest / Path(path).name)
+
+    sharded.save_sharded_session = save
+    try:
+        yield
+    finally:
+        sharded.save_sharded_session = orig
+
+
+def _refit_split(torch, state, smi: str) -> dict:
+    """The distributed refit of ``state`` (a NCCL mesh of one card), step by
+    step in CUDA-event times: the kernel's two blocks, the Cholesky, the
+    forward solve for beta, the whitening, the rest (mu, sig2), and the
+    whole fit.  Uncounted."""
+    from ital_tpu_torch.ops.kernels import rbf_kernel
+    from ital_tpu_torch.parallel import bigcap, chol2d, make_mesh, sharded
+
+    h = state.hyper
+    with _uncounted(), make_mesh(1, device=state.mu.device) as mesh:
+        xl = sharded.gather_rows(mesh, state.x, state.idx)
+        active = state.active
+        k_row = rbf_kernel(xl, xl, h.length_scale, h.var)
+        l = chol2d.chol2d_local(mesh, k_row, active, h.noise)
+        k_cols = rbf_kernel(xl, state.x, h.length_scale, h.var, b2=state.x2)
+        v = chol2d.whiten2d_local(mesh, l, k_cols)
+        y = torch.where(active, state.y, 0.0)[:, None]
+        beta = chol2d.solve2d_local(mesh, l, y)[:, 0]
+        fit = bigcap.make_bigcap_fit(mesh)
+        steps = {
+            "blocks": lambda: (rbf_kernel(xl, xl, h.length_scale, h.var),
+                               rbf_kernel(xl, state.x, h.length_scale, h.var, b2=state.x2)),
+            "cholesky": lambda: chol2d.chol2d_local(mesh, k_row, active, h.noise),
+            "beta": lambda: chol2d.solve2d_local(mesh, l, y),
+            # with the copy of K that whiten2d_local takes (the fit whitens in place)
+            "whitening": lambda: chol2d.whiten2d_local(mesh, l, k_cols),
+            "rest": lambda: (v.T @ beta, torch.clamp(h.var - (v * v).sum(0), min=1e-8)),
+            "fit": lambda: fit(dataclasses.replace(state)),
+        }
+        times = _time_turns_ms(torch, list(steps.values()), launches=5, runs=3, warmup=1)
+        out = {name: ms for name, (ms, _) in zip(steps, times)}
+        print("bigcap refit split, event ms per call: " + ", ".join(
+            f"{name} {ms:.3f} (spread {spread:.3f})" for name, (ms, spread) in zip(steps, times))
+            + f"; the steps sum to {sum(t for k, t in out.items() if k != 'fit'):.3f} [{smi}]")
+        if state.mu.device.type == "cuda":
+            out["kernels_ms"] = _fit_kernels(torch, steps["fit"], out["fit"], smi)
+    return out
+
+
+def _fit_kernels(torch, fit, fit_ms: float, smi: str) -> dict:
+    """Device time per fit by kernel (``torch.profiler``, three fits), the
+    eight largest, and the device's busy share of the fit's event time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fit()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fit()
+        torch.cuda.synchronize()
+    kernels = {}
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(evt, "self_device_time_total", 0.0) or evt.device_time_total
+            kernels[evt.key] = us / 3 / 1e3
+    busy = sum(kernels.values())
+    top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:8])
+    print(f"bigcap refit kernels, device ms per fit: {busy:.3f} in all, {busy / fit_ms * 100:.1f} "
+          f"% of the fit's {fit_ms:.3f} ms; " + "; ".join(
+              f"{name[:60]} {ms:.3f}" for name, ms in top.items()) + f" [{smi}]")
+    return top
+
+
+def bigcap_phase(torch, big, dev, smi: str) -> dict:
+    """Phase 11: the large-cap per-round mesh (the distributed refit);
+    returns its launches by route and the kernel's times at its shapes."""
+    from ital_tpu_torch import runner
+    from ital_tpu_torch.models import gp as gp_mod
+    from ital_tpu_torch.ops import rbf_hopper
+    from ital_tpu_torch.select.base import StrategyParams
+    from ital_tpu_torch.utils import checkpoint
+    from ital_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    scale = load_config(str(SCALE_CONFIG), BIGCAP_OVERRIDES)
+    cap, n, d = scale.cap, big.n, big.x.shape[1]
+    x = torch.from_numpy(big.x).to(dev)
+    rows = x[torch.from_numpy(np.random.default_rng(SEED + 23).choice(n, size=cap,
+                                                                       replace=False)).to(dev)]
+    ls = torch.tensor(scale.gp.length_scale, device=dev)
+    var = torch.tensor(scale.gp.var, device=dev)
+    shapes = _kernel_shapes(torch, "bigcap", [
+        (f"({cap}, {n}, {d}) b2", rows, x, {"b2": (x * x).sum(-1)}),
+        (f"({cap}, {cap}, {d})", rows, rows, {})], ls, var, smi)
+    del x, rows
+
+    ck, resume_dir = WORK_DIR / "bigcap_ck", WORK_DIR / "bigcap_resume"
+    for path in (ck, resume_dir):
+        shutil.rmtree(path, ignore_errors=True)
+    torch.cuda.synchronize()
+    res, rounds, fits = {}, {"bigcap": [], "replicated": []}, []
+    _reset_counts()  # the large-cap path's count starts here
+    for run in ("bigcap", "replicated"):
+        cfg = (dataclasses.replace(scale, checkpoint_dir=str(ck)) if run == "bigcap" else
+               dataclasses.replace(scale, gp=dataclasses.replace(scale.gp, chol2d_threshold=0)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        with (_uncounted() if run == "replicated" else contextlib.nullcontext()), \
+                _record_rounds(rounds[run], keep_states=run == "replicated"), \
+                (_record_fits(fits) if run == "bigcap" else contextlib.nullcontext()), \
+                _keep_snapshot(1, resume_dir):
+            res[run] = runner.run_experiment(cfg, big, device=dev)
+        torch.cuda.synchronize()
+        res[run]["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        res[run]["held_mib"] = held / 2**20
+    launches = dict(rbf_hopper.ROUTE_LAUNCHES)
+    big_res, rep = res["bigcap"], res["replicated"]
+    check(big_res.get("chol2d") is True and big_res["mesh_devices"] == 1,
+          "the bigcap run took the distributed refit on a mesh of one card")
+    check("chol2d" not in rep, "chol2d_threshold = 0 keeps the replicated factor")
+    check(len(fits) == scale.n_rounds and all(k > 0 for k, _ in fits),
+          f"the kernel launched in every refit of the update span: {[k for k, _ in fits]}")
+    last = fits[-1][1]
+    check(tuple(last.l.shape) == (cap // big_res["mesh_devices"], cap),
+          f"one rank's l is (cap / p, cap): {tuple(last.l.shape)}")
+
+    params = StrategyParams.create(dev, label_prob=scale.user.label_prob,
+                                   mistake_prob=scale.user.mistake_prob)
+    r = next((i for i, (a, b) in enumerate(zip(rounds["bigcap"], rounds["replicated"]))
+              if a["picks"] != b["picks"]), scale.n_rounds)
+    mu_gaps = [float((a["mu"] - b["mu"]).abs().max())
+               for a, b in zip(rounds["bigcap"][:r], rounds["replicated"][:r])]
+    print(f"bigcap vs replicated: picks {[x['picks'] for x in rounds['bigcap']]} and "
+          f"{[x['picks'] for x in rounds['replicated']]}; first round whose picks differ {r} of "
+          f"{scale.n_rounds}; max |mu bigcap - mu replicated| per round while they agree "
+          f"{mu_gaps} (atol {CPU_MU_ATOL})")
+    check(all(g <= CPU_MU_ATOL for g in mu_gaps), "bigcap mu within CPU_MU_ATOL of replicated")
+    if r < scale.n_rounds:
+        import types
+
+        with _uncounted():
+            sess = types.SimpleNamespace(
+                state=gp_mod.gp_session_copy(rounds["replicated"][r]["before"], dev),
+                params=params)
+            gaps = _tie_gaps(sess, rounds["bigcap"][r]["picks"], scale.method_kwargs)
+        print(f"bigcap round {r}: refined-MI gaps of its picks on the replicated state {gaps} "
+              f"(tie atol {MI_TIE_ATOL})")
+        check(all(abs(g) <= MI_TIE_ATOL for g in gaps), "bigcap picks differ only by MI ties")
+    check(np.abs(big_res["ap"][:, :r] - rep["ap"][:, :r]).max(initial=0.0) <= 1e-6,
+          "bigcap AP curve agrees with the replicated one while the picks do")
+
+    # The round-1 snapshot is single-device: it loads on the CPU.  A copy of
+    # the session resumed from it (uncounted) gives the uninterrupted curve.
+    snap = sorted(resume_dir.glob("*.npz"))[0]
+    template = gp_mod.gp_init(torch.from_numpy(big.x), scale.gp.length_scale, scale.gp.var,
+                              scale.gp.noise, cap)
+    state, extras = checkpoint.load_session(str(snap), template)
+    check(tuple(state.l.shape) == (cap, cap) and state.count == 1 + scale.batch_size
+          and int(extras["next_round"]) == 1 and bool(torch.isfinite(state.mu).all()),
+          "the round-1 snapshot loads on the CPU with a (cap, cap) l")
+    print(f"bigcap snapshot {snap.name}: loads into load_session on the CPU, l "
+          f"{tuple(state.l.shape)}, count {state.count}")
+    del template, state
+    with _uncounted():
+        resumed = runner.run_experiment(dataclasses.replace(
+            scale, checkpoint_dir=str(resume_dir), resume=True), big, device=dev)
+    gap = float(np.abs(resumed["ap"] - big_res["ap"]).max())
+    print(f"bigcap resume from the round-1 snapshot: MAP "
+          f"{[round(float(m), 6) for m in resumed['map']]}, uninterrupted "
+          f"{[round(float(m), 6) for m in big_res['map']]}; max |dAP| {gap:.3e}")
+    check(resumed.get("chol2d") is True and gap <= 1e-6, "the resumed run gives the curve")
+
+    for run in ("bigcap", "replicated"):
+        out = res[run]
+        print(f"bigcap {run} (cap {cap}, {n} x {d}): MAP "
+              f"{[round(float(m), 6) for m in out['map']]}; select {out['select_ms']:.3f} ms mean, "
+              f"{out['select_ms_steady']:.3f} ms steady; update {out['update_ms']:.3f} ms mean, "
+              f"{out['update_ms_steady']:.3f} ms steady; first round {out['first_round_ms']:.1f} ms; "
+              f"device memory peak {out['peak_mib']:.1f} MiB, {out['peak_mib'] - out['held_mib']:.1f}"
+              f" MiB above the {out['held_mib']:.1f} MiB held before the run [{smi}]")
+    split = _refit_split(torch, last, smi)
+    print(f"bigcap phase: {time.perf_counter() - t_phase:.1f} s; launches {sum(launches.values())}")
+    return {"launches": launches, "shapes": shapes, "split": split}
+
+
 def emoc_replay_phase(torch, ds, replay) -> None:
     """Restore the card's EMOC checkpoint on the CPU and pick from it on the plain path."""
     from ital_tpu_torch.models import gp as gp_mod
@@ -1793,11 +2062,13 @@ def main() -> int:
     cohort, rise25 = cohort_phase(torch, ds, cfg, torch.device("cuda"), smi)
     shard = sharded_phase(torch, ds, cfg, torch.device("cuda"), smi, rise25)
     mesh = mesh_phase(torch, shard["big"], cfg, torch.device("cuda"), smi)
+    large = bigcap_phase(torch, shard["big"], torch.device("cuda"), smi)
     # At 512 features every RBF call of the paths takes the tensor-core route
     # (the router's rule, PERF.md); the tile kernel serves narrower or
     # unaligned features and is held against the plain version in phase 3.
     paths = {"session": sess, "harness": harness, "serving": served, **cohort,
-             "sharded": {"launches": shard["launches"]}, "mesh": {"launches": mesh["launches"]}}
+             "sharded": {"launches": shard["launches"]}, "mesh": {"launches": mesh["launches"]},
+             "bigcap": {"launches": large["launches"]}}
     by_route = {r: sum(p["launches"][r] for p in paths.values()) for r in sess["launches"]}
     check(by_route["wgmma"] > 0, f"the tensor-core route launched on the main path: {by_route}")
     check(all(sum(p["launches"].values()) > 0 for p in paths.values()),
@@ -1823,6 +2094,7 @@ def main() -> int:
         "shape": "64x25000x512 f32",
         "shapes_100k": shard["shapes"],
         "shapes_mesh_cohort": mesh["shapes"],
+        "shapes_bigcap": large["shapes"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

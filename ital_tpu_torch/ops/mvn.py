@@ -1,11 +1,13 @@
 """Multivariate-normal orthant probabilities via Genz's sequentially-conditioned QMC.
 
-Port of the parts of ``ital_tpu.ops.mvn`` that ITAL's selection runs: the
-clamped normal CDF, Acklam's inverse normal, an unrolled small Cholesky, the
-Richtmyer lattice and shift tables, the sign-prefix tree that yields all
-2^m orthant probabilities of a candidate batch at once, and its multi-shift
-error estimate (:func:`orthant_probs_with_error`).  The reference
-vmaps one candidate; here every function takes leading batch dimensions.
+Port of ``ital_tpu.ops.mvn``: the clamped normal CDF, Acklam's inverse
+normal, an unrolled small Cholesky, the Richtmyer lattice and shift tables,
+the sign-prefix tree that yields all 2^m orthant probabilities of a candidate
+batch at once (what ITAL's selection runs), its multi-shift error estimate
+(:func:`orthant_probs_with_error`), and the one-configuration form
+(:func:`mvn_orthant_prob`, :func:`orthant_probs_all_configs`) the tree is
+held against.  The reference vmaps one candidate; here every function takes
+leading batch dimensions.
 
 Algorithm (rectangle P(a < z < b), z ~ N(0, Sigma), C = chol(Sigma)), per QMC
 point w in [0,1]^(m-1) and dimension i: y_{i-1} = Phi^-1(d + w (e - d)),
@@ -126,6 +128,75 @@ def shift_table(n_shifts: int, dim: int, seed: int = 0) -> np.ndarray:
     if n_shifts:
         t[0] = 0.0
     return t
+
+
+def mvn_orthant_prob(
+    mu: torch.Tensor,
+    chol_cov: torch.Tensor,
+    signs: torch.Tensor,
+    *,
+    n_points: int = 128,
+    shift: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """P(signs_i z_i > 0 for all i), z ~ N(mu, C C^T), with C = ``chol_cov``.
+
+    ``mu`` (..., m), ``chol_cov`` (..., m, m) and ``signs`` (..., m) in
+    {-1, +1} broadcast over their leading dims; ``shift`` an optional (m-1,)
+    Cranley-Patterson shift.  Returns (...) probabilities; m = 1 is the
+    closed-form Phi.  The orthant is the rectangle whose finite limit in
+    dimension i is -mu_i, above for s_i = +1 and below for s_i = -1, so each
+    conditional factor is one Phi.
+    """
+    m = mu.shape[-1]
+    c = chol_cov
+    lim = -mu
+    pos = signs > 0
+    # Guard near-singular factors (a candidate on a labeled point).
+    cdiag = torch.clamp(torch.diagonal(c, dim1=-2, dim2=-1), min=1e-6)
+
+    p0 = norm_cdf(lim[..., 0] / cdiag[..., 0])
+    d = torch.where(pos[..., 0], p0, 0.0)
+    e = torch.where(pos[..., 0], 1.0, p0)
+    if m == 1:
+        return e - d
+
+    w = torch.as_tensor(richtmyer_lattice(n_points, m - 1), dtype=mu.dtype, device=mu.device)
+    if shift is not None:
+        w = torch.remainder(w + shift[..., None, :], 1.0)  # (P, m-1)
+    d, e = d[..., None], e[..., None]
+    f = e - d  # (..., P) running product of conditional probabilities
+    ys = []
+    for i in range(1, m):
+        u = torch.clamp(d + w[..., i - 1] * (e - d), _EPS, 1.0 - _EPS)
+        ys.append(fast_ndtri(u))
+        acc = ys[0] * c[..., i, 0, None]
+        for j in range(1, i):
+            acc = acc + ys[j] * c[..., i, j, None]
+        p = norm_cdf((lim[..., i, None] - acc) / cdiag[..., i, None])
+        d = torch.where(pos[..., i, None], p, 0.0)
+        e = torch.where(pos[..., i, None], 1.0, p)
+        f = f * (e - d)
+    return f.mean(-1)
+
+
+def orthant_probs_all_configs(
+    mu: torch.Tensor,
+    chol_cov: torch.Tensor,
+    sign_table: torch.Tensor,
+    *,
+    n_points: int = 128,
+    shift: torch.Tensor | None = None,
+    normalize: bool = True,
+) -> torch.Tensor:
+    """(..., 2^m) probabilities of every configuration of ``sign_table``
+    (2^m, m), one :func:`mvn_orthant_prob` each on the shared factor;
+    normalized to sum to one unless ``normalize`` is False (the 2^m orthants
+    partition R^m, so normalizing absorbs QMC error)."""
+    probs = mvn_orthant_prob(mu[..., None, :], chol_cov[..., None, :, :], sign_table,
+                             n_points=n_points, shift=shift)
+    if normalize:
+        probs = probs / torch.clamp(probs.sum(-1, keepdim=True), min=1e-12)
+    return probs
 
 
 def orthant_probs_all_configs_tree(

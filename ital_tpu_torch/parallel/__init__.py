@@ -1,6 +1,18 @@
 """Corpus-sharded rounds over a mesh of ranks on ``torch.distributed`` (port of
 ``ital_tpu.parallel``: the mesh, the ring, the per-round sharded path, the
-fused sessions and cohorts, and the mesh-sharded serving session)."""
+fused sessions and cohorts, the mesh-sharded serving session, and the
+large-cap path's distributed Cholesky and refit)."""
+
+from ital_tpu_torch.parallel.bigcap import (  # noqa: F401
+    make_bigcap_fit,
+    make_bigcap_round,
+    shard_state_bigcap,
+)
+from ital_tpu_torch.parallel.chol2d import (  # noqa: F401
+    make_sharded_cho_solve,
+    make_sharded_cholesky,
+    make_sharded_whiten,
+)
 
 from ital_tpu_torch.parallel.launch import launch  # noqa: F401
 from ital_tpu_torch.parallel.mesh import CORPUS_AXIS, Mesh, make_mesh  # noqa: F401

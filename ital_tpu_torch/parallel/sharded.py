@@ -14,6 +14,9 @@ label buffers, ``l``,  (cap, ...), scalars        replicated
 hyperparameters
 =====================  =========================  ======================
 
+(The large-cap path, :mod:`ital_tpu_torch.parallel.bigcap`, holds ``l`` in
+block-rows instead.)
+
 Every rank runs the same shard-local code on its shard (SPMD) and must make
 the same calls in the same order with the same replicated arguments.  The
 reference's collectives become ``torch.distributed`` calls on the mesh's
@@ -1033,9 +1036,12 @@ def make_sharded_cohort(mesh: Mesh, *, strategy: str = "ital", batch_size: int =
 
 def gather_session(mesh: Mesh, state: GPState) -> GPState:
     """The session with ``v``, ``mu``, ``sig2`` and ``density`` gathered over
-    the padded corpus (the corpus stays the shard); every rank takes part."""
+    the padded corpus (the corpus stays the shard), and a factor ``l`` held
+    in block-rows (the large-cap layout, ``parallel.bigcap``) gathered whole;
+    every rank takes part."""
+    l = state.l if state.l.shape[0] == state.cap else all_gather_cat(mesh, state.l)
     return dataclasses.replace(
-        state, v=all_gather_cat(mesh, state.v.T).T, mu=all_gather_cat(mesh, state.mu),
+        state, l=l, v=all_gather_cat(mesh, state.v.T).T, mu=all_gather_cat(mesh, state.mu),
         sig2=all_gather_cat(mesh, state.sig2),
         density=None if state.density is None else all_gather_cat(mesh, state.density))
 
@@ -1051,7 +1057,9 @@ def save_sharded_session(mesh: Mesh, path: str, state: GPState, extra=None) -> N
 
 def load_sharded_session(mesh: Mesh, path: str, template: GPState):
     """A snapshot of :func:`save_sharded_session` re-sharded onto this rank,
-    over ``template``'s shard of the corpus; returns ``(state, extras)``."""
+    over ``template``'s shard of the corpus, with the factor ``l``
+    replicated (the large-cap path lays it out again with
+    ``bigcap.shard_state_bigcap``); returns ``(state, extras)``."""
     full, extras = load_session(path, template)
     lo, hi = _bounds(mesh, template.x.shape[0])
     density = full.density

@@ -30,8 +30,10 @@ round; every rank draws the serial path's draws, so the curves are its
 curves.  With ``query_batch > 1`` or ``fused_sessions`` the mesh runs each
 session or cohort fused (``parallel.sharded.make_sharded_session`` /
 ``make_sharded_cohort``).  The per-round mesh with ``cap >=
-GP.chol2d_threshold`` is refused with ``NotImplementedError``, naming its
-ROADMAP item.
+GP.chol2d_threshold`` absorbs labels by the distributed refit
+(``parallel.bigcap.make_bigcap_round``: ``l`` in block-rows over the ranks)
+when cap divides the mesh, and keeps the replicated factor with a warning
+when it does not; fused and cohort meshes keep it with a warning.
 """
 
 from __future__ import annotations
@@ -200,7 +202,10 @@ class _SessionOps:
     round timed in the "select" and "update" spans; ``gather`` fetches
     corpus rows by index (``None``: index the state's corpus);
     ``save``/``load`` write and read a round checkpoint; ``log`` holds extra
-    JSONL fields.
+    JSONL fields.  ``layout`` lays a session out for ``step`` after
+    ``gp_set_query`` and after a load, ``refit`` refits its posterior after
+    a re-learn and for ``GP.refit_every``, which ``drift_refit = False``
+    skips (a path that refits every round).
     """
 
     masks: Callable
@@ -209,6 +214,9 @@ class _SessionOps:
     save: Callable
     load: Callable
     log: Dict[str, Any]
+    refit: Callable
+    layout: Callable = lambda state: state
+    drift_refit: bool = True
 
 
 def _serial_ops(cfg, dataset, params, select_kwargs, dev) -> _SessionOps:
@@ -235,7 +243,7 @@ def _serial_ops(cfg, dataset, params, select_kwargs, dev) -> _SessionOps:
         return state, ap, recalls
 
     return _SessionOps(masks=masks, step=step, gather=None, save=ckpt.save_session,
-                       load=ckpt.load_session, log={})
+                       load=ckpt.load_session, log={}, refit=gp_mod.gp_fit)
 
 
 def _run_sessions(cfg, dataset, state0, ops, plan, dev, *, profile_dir, log_jsonl):
@@ -286,15 +294,17 @@ def _run_session(cfg, state0, ops, rep, c, q, timer, logger) -> list[float]:
             state, extras = ops.load(ckpt_path, state)
             curve = [float(v) for v in extras["curve"]]
             start_round = int(extras["next_round"])
+    state = ops.layout(state)
 
     for rnd in range(start_round, cfg.n_rounds):
         draws = round_draws(cfg.seed, rep, c, q, rnd, cfg.batch_size, dev)
         state, ap, recalls = ops.step(state, draws, masks, timer)
         if cfg.gp.learn_every and (rnd + 1) % cfg.gp.learn_every == 0:
-            state = _relearn_hyperparams(state, cfg, gather=ops.gather)
-        elif cfg.gp.refit_every and (rnd + 1) % cfg.gp.refit_every == 0:
+            state = _relearn_hyperparams(state, cfg, gather=ops.gather, refit=ops.refit)
+        elif (cfg.gp.refit_every and ops.drift_refit
+              and (rnd + 1) % cfg.gp.refit_every == 0):
             # Periodic from-scratch refit: bounds long-horizon f32 append drift.
-            state = gp_mod.gp_fit(state, gather=ops.gather)
+            state = ops.refit(state)
         curve.append(float(ap))
         logger.log(
             rep=rep, cls=c, query=q, round=rnd, ap=curve[-1],
@@ -310,9 +320,18 @@ def _run_session(cfg, state0, ops, rep, c, q, timer, logger) -> list[float]:
     return curve
 
 
-_MESH_BIGCAP_UNPORTED = (
-    "cap >= GP.chol2d_threshold on a mesh is not ported to ital_tpu_torch yet: see "
-    "ROADMAP.md, queue 1 item 3 (chol2d / bigcap)")
+def _runs_fused(cfg) -> bool:
+    return int(cfg.query_batch or 0) > 1 or bool(cfg.fused_sessions)
+
+
+def _crossed(cfg) -> bool:
+    """The capacity reached ``GP.chol2d_threshold`` (0 turns it off)."""
+    return bool(cfg.gp.chol2d_threshold and cfg.cap >= cfg.gp.chol2d_threshold)
+
+
+def _bigcap(cfg, n_dev: int) -> bool:
+    """The per-round mesh of ``n_dev`` ranks takes the distributed refit."""
+    return _crossed(cfg) and not _runs_fused(cfg) and cfg.cap % n_dev == 0
 
 
 def _run_sharded(cfg, dataset, dev) -> Dict[str, Any]:
@@ -323,24 +342,22 @@ def _run_sharded(cfg, dataset, dev) -> Dict[str, Any]:
     ``fused_sessions`` the sessions run fused (a mesh cohort always does, as
     the reference's), keeping the replicated factor past
     ``GP.chol2d_threshold`` with the reference's warning; the per-round path
-    past it raises."""
+    past it takes the distributed refit where cap divides the mesh, and the
+    replicated factor with a warning where it does not."""
     from ital_tpu_torch.parallel.launch import launch
     from ital_tpu_torch.parallel.mesh import device_count
 
     qb = int(cfg.query_batch or 0)
-    fused = qb > 1 or bool(cfg.fused_sessions)
-    crossed = bool(cfg.gp.chol2d_threshold and cfg.cap >= cfg.gp.chol2d_threshold)
-    if crossed and not fused:
-        raise NotImplementedError(_MESH_BIGCAP_UNPORTED)
-    if crossed:
+    fused = _runs_fused(cfg)
+    if _crossed(cfg) and fused:
         per_chip_mb = cfg.cap * cfg.cap * 4 / 1e6 * max(qb, 1)
         print(f"# WARNING: cap={cfg.cap} crossed chol2d_threshold={cfg.gp.chol2d_threshold} "
               f"but fused/cohort sessions cannot use the distributed chol2d refit (the "
               f"factor must stay replicated inside the fused program): ~{per_chip_mb:.0f} MB "
               f"of Cholesky factor per chip"
               + (f" ({qb} cohort sessions x cap^2)" if qb > 1 else "")
-              + ". Raise GP.chol2d_threshold to silence this (the distributed refit is "
-              "ROADMAP.md, queue 1 item 3).")
+              + ". Unset fused_sessions/query_batch to enable the distributed refit "
+              "(parallel/bigcap.py), or raise GP.chol2d_threshold to silence this.")
     if fused and cfg.gp.refit_every:
         print(_REFIT_IGNORED)
     if qb > 1 and not cfg.fused_sessions:
@@ -356,14 +373,27 @@ def _run_sharded(cfg, dataset, dev) -> Dict[str, Any]:
         n_dev = max(available, 1)
         print(f"# mesh_devices={cfg.mesh_devices} requested, {available} available "
               f"-> using {n_dev}")
+    if _crossed(cfg) and not fused:
+        if _bigcap(cfg, n_dev):
+            print(f"# cap={cfg.cap} >= chol2d_threshold={cfg.gp.chol2d_threshold}: "
+                  f"distributed chol2d refit path (l row-sharded over {n_dev} devices)")
+        else:
+            print(f"# WARNING: cap={cfg.cap} crossed chol2d_threshold="
+                  f"{cfg.gp.chol2d_threshold} but does not divide the {n_dev}-device mesh; "
+                  f"using the REPLICATED factor path (~{cfg.cap * cfg.cap * 4 / 1e6:.0f} MB "
+                  f"per chip). Round GP.cap up to a multiple of {n_dev} to enable the "
+                  f"distributed refit.")
     return launch(n_dev, _sharded_run, cfg, dataset, device=dev)
 
 
 def _sharded_run(mesh, cfg, dataset) -> Dict[str, Any]:
     """One rank of the sharded experiment: the corpus padded to the mesh,
     this rank's shard of ``gp_init`` (its density by a ring pass), then
-    every session of the plan through the sharded round, or fused
-    (:func:`_sharded_fused_run`).  The JSONL and the profile are rank 0's."""
+    every session of the plan through the sharded round (past
+    ``GP.chol2d_threshold`` the large-cap round, ``l`` in block-rows), or
+    fused (:func:`_sharded_fused_run`).  The JSONL and the profile are rank
+    0's."""
+    from ital_tpu_torch.parallel import bigcap
     from ital_tpu_torch.parallel import sharded as sh
 
     dev = mesh.device
@@ -390,13 +420,16 @@ def _sharded_run(mesh, cfg, dataset) -> Dict[str, Any]:
     relevance[:n_real] = dataset.relevance
     rank0 = mesh.rank == 0
     plan = _session_plan(cfg, dataset)
-    if (cfg.query_batch or 0) > 1 or cfg.fused_sessions:
+    if _runs_fused(cfg):
         run = dataclasses.replace(cfg, log_jsonl=cfg.log_jsonl if rank0 else None)
         res = _sharded_fused_run(mesh, run, dataset, plan, state0, params, options, relevance, pad)
         res["mesh_devices"] = mesh.size
         return res
-    round_fn = sh.make_sharded_round(mesh, strategy=cfg.method, batch_size=cfg.batch_size,
-                                     recall_ks=RECALL_KS, **options)
+    big = _bigcap(cfg, mesh.size)
+    make_round = bigcap.make_bigcap_round if big else sh.make_sharded_round
+    round_fn = make_round(mesh, strategy=cfg.method, batch_size=cfg.batch_size,
+                          recall_ks=RECALL_KS, **options)
+    gather = lambda gidx: sh.gather_rows(mesh, state0.x, gidx)  # noqa: E731
 
     def masks(c, q):
         relevant = torch.from_numpy(np.ascontiguousarray(relevance[:, c])).to(dev)
@@ -408,15 +441,24 @@ def _sharded_run(mesh, cfg, dataset) -> Dict[str, Any]:
 
     # Every session keeps state0's corpus shard: the labeled rows come from it.
     ops = _SessionOps(
-        masks=masks, step=step, gather=lambda gidx: sh.gather_rows(mesh, state0.x, gidx),
+        masks=masks, step=step, gather=gather,
         save=lambda path, state, extra: sh.save_sharded_session(mesh, path, state, extra),
         load=lambda path, state: sh.load_sharded_session(mesh, path, state),
         log={"sharded": mesh.size},
+        refit=lambda state: gp_mod.gp_fit(state, gather=gather),
     )
+    if big:
+        # set_query and a load leave l replicated: take this rank's block-row.
+        # The refit is the distributed one, and a round already refits.
+        ops = dataclasses.replace(
+            ops, layout=lambda state: bigcap.shard_state_bigcap(state, mesh, corpus_sharded=True),
+            refit=bigcap.make_bigcap_fit(mesh), drift_refit=False)
     res = _run_sessions(cfg, dataset, state0, ops, plan, dev,
                         profile_dir=cfg.profile_dir if rank0 else None,
                         log_jsonl=cfg.log_jsonl if rank0 else None)
     res["mesh_devices"] = mesh.size
+    if big:
+        res["chol2d"] = True
     return res
 
 
@@ -620,15 +662,18 @@ def _learn_kwargs(cfg: ExperimentConfig, state: gp_mod.GPState) -> Dict[str, Any
 
 
 def _relearn_hyperparams(state: gp_mod.GPState, cfg: ExperimentConfig, *,
-                         gather=None) -> gp_mod.GPState:
+                         gather=None, refit=None) -> gp_mod.GPState:
     """Re-learn the hyperparameters from the session's labels so far (type-II
     ML, or MAP type-II with the ``GP.learn_*`` knobs), then refit the posterior.
     On a mesh (``gather``: the collective row gather) every rank learns from
-    the gathered labeled rows alike, and the refit is the sharded one."""
+    the gathered labeled rows alike, and the refit is the sharded one.
+    ``refit`` replaces the refit (the large-cap path's distributed one)."""
     rows = state.x[state.idx] if gather is None else gather(state.idx)
     state.hyper = fit_hyperparams(rows, state.y, state.active, state.hyper,
                                   **_learn_kwargs(cfg, state))
-    return gp_mod.gp_fit(state, gather=gather)
+    if refit is None:
+        return gp_mod.gp_fit(state, gather=gather)
+    return refit(state)
 
 
 def _hyper_log_fields(state: gp_mod.GPState, cfg: ExperimentConfig) -> Dict[str, float]:

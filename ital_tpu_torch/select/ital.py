@@ -355,6 +355,17 @@ def candidate_pool_indices(
     return pool_idx, ~torch.isfinite(vals)
 
 
+def candidate_pool_mask(
+    state: GPState | StackedGPState, ranking: torch.Tensor, pool_size: int
+) -> torch.Tensor:
+    """(N,) bool, True OUTSIDE the top-``pool_size`` unlabeled candidates by
+    ``ranking`` (labeled items take no pool slot); (K, N) for a stack of K
+    sessions.  The mask form of :func:`candidate_pool_indices`."""
+    pool_idx, _ = candidate_pool_indices(state, ranking, pool_size)
+    return torch.ones(ranking.shape, dtype=torch.bool, device=ranking.device).scatter_(
+        -1, pool_idx, False)
+
+
 def draw_qmc_shifts(
     generator: Optional[torch.Generator], batch_size: int, dtype: torch.dtype, device
 ) -> list[torch.Tensor]:

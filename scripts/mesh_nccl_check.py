@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""The mesh's fused cohort and the mesh server on every card of one host (NCCL).
+"""The mesh's fused cohort, the mesh server and the large-cap refit on every
+card of one host (NCCL).
 
 A fault-finding check for multi-rank NCCL meshes, which ``chip_smoke.py``
 (one card) cannot reach::
 
-    python3 scripts/mesh_nccl_check.py [--device cuda|cpu] [--ranks N]
+    python3 scripts/mesh_nccl_check.py [--device cuda|cpu] [--ranks N] [--steps 1,2,3]
 
 1. ``configs/scale100k.ini`` (100 000 x 512, ITAL full scan), cut to 2
    classes x 2 queries x 2 rounds, through the runner with ``query_batch =
@@ -16,6 +17,13 @@ A fault-finding check for multi-rank NCCL meshes, which ``chip_smoke.py``
    beside 4 twins on a single-device service answered alike, then
    ``/learn`` and ``/snapshot`` -> ``/restore``: the picks that differ, the
    largest gap between the posterior means, the request times.
+3. ``chip_smoke.py``'s phase 11: ``configs/scale100k.ini`` with cap 1024 at
+   ``GP.chol2d_threshold = 1024`` and ITAL's production options, cut to 1
+   class x 3 rounds, through the runner's per-round mesh of N ranks (the
+   distributed refit, ``parallel/bigcap.py``) beside ``mesh_devices = 0``:
+   the picks that differ, the largest gap between the posterior means after
+   each round, the refit's time per round, and each rank's ``l`` shape,
+   which must be (1024 / N, 1024).
 
 Prints the card's name and power limit, and exits non-zero on any error.
 With ``--device cpu`` it runs on gloo processes at 3000 x 128 rows.
@@ -38,17 +46,121 @@ sys.path.insert(0, str(ROOT))
 
 CUT = ("EXPERIMENT.max_classes=2", "EXPERIMENT.queries_per_class=2", "EXPERIMENT.n_rounds=2")
 SMALL = ("DATA.n=3000", "DATA.dim=128", "GP.length_scale=12")
+BIGCAP = ("EXPERIMENT.max_classes=1", "EXPERIMENT.n_rounds=3", "GP.cap=1024",
+          "GP.chol2d_threshold=1024", "METHOD.pool_size=4096", "METHOD.n_qmc=32",
+          "METHOD.refine_top=64", "METHOD.refine_n_qmc=512")
+
+
+def _bigcap_rank(mesh, cfg, dataset):
+    """One rank of the runner's per-round mesh with its distributed refits
+    timed (device synchronized) and its rounds' picks and gathered means
+    kept; returns rank 0's result with every rank's records."""
+    import torch.distributed as dist
+
+    from ital_tpu_torch import runner
+    from ital_tpu_torch.parallel import bigcap, sharded
+
+    fits, rounds = [], []
+    make_fit, make_round = bigcap.make_bigcap_fit, bigcap.make_bigcap_round
+
+    def timed_fit(m):
+        fit = make_fit(m)
+
+        def run(state):
+            _sync(m.device)
+            t = time.perf_counter()
+            state = fit(state)
+            _sync(m.device)
+            fits.append({"ms": (time.perf_counter() - t) * 1e3, "l": tuple(state.l.shape)})
+            return state
+
+        return run
+
+    def kept_round(*args, **kwargs):
+        round_fn = make_round(*args, **kwargs)
+
+        def run(state, *a, **kw):
+            out = round_fn(state, *a, **kw)
+            rounds.append({"picks": out[1].tolist(),
+                           "mu": sharded.all_gather_cat(mesh, out[0].mu).cpu().numpy()})
+            return out
+
+        return run
+
+    bigcap.make_bigcap_fit, bigcap.make_bigcap_round = timed_fit, kept_round
+    try:
+        res = runner._sharded_run(mesh, cfg, dataset)
+    finally:
+        bigcap.make_bigcap_fit, bigcap.make_bigcap_round = make_fit, make_round
+    every = [None] * mesh.size
+    dist.all_gather_object(every, fits, group=mesh.group)
+    return {"res": res, "fits": every, "rounds": rounds}
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def bigcap_step(big_cfg, big, dev, ranks: int, tag: str) -> None:
+    """Step 3: the large-cap per-round mesh of ``ranks`` beside
+    ``mesh_devices = 0``."""
+    from ital_tpu_torch import runner
+    from ital_tpu_torch.models import gp as gp_mod
+    from ital_tpu_torch.parallel.launch import launch
+
+    single_mu, single_picks = [], []
+    orig_update = gp_mod.gp_update
+
+    def kept_update(state, idx, *a, **kw):
+        state = orig_update(state, idx, *a, **kw)
+        single_picks.append(idx.tolist())
+        single_mu.append(state.mu.cpu().numpy().copy())  # the update writes mu in place
+        return state
+
+    gp_mod.gp_update = kept_update
+    try:
+        t0 = time.perf_counter()
+        single = runner.run_experiment(dataclasses.replace(big_cfg, mesh_devices=0), big,
+                                       device=dev)
+        print(f"bigcap mesh_devices=0: MAP {[round(float(m), 6) for m in single['map']]}; "
+              f"update {single['update_ms']:.3f} ms mean; run {time.perf_counter() - t0:.1f} s "
+              f"{tag}")
+    finally:
+        gp_mod.gp_update = orig_update
+    t0 = time.perf_counter()
+    out = launch(ranks, _bigcap_rank, dataclasses.replace(big_cfg, mesh_devices=ranks), big,
+                 device=dev)
+    res = out["res"]
+    print(f"bigcap mesh_devices={ranks}: chol2d {res.get('chol2d')}; MAP "
+          f"{[round(float(m), 6) for m in res['map']]}; select {res['select_ms']:.3f} ms mean, "
+          f"update {res['update_ms']:.3f} ms mean; run {time.perf_counter() - t0:.1f} s {tag}")
+    if res.get("chol2d") is not True or res["mesh_devices"] != ranks:
+        raise SystemExit(f"the mesh of {ranks} did not take the distributed refit")
+    n = single_mu[0].shape[0]
+    differ = [r for r, (a, b) in enumerate(zip(out["rounds"], single_picks))
+              if a["picks"] != b]
+    gaps = [float(np.abs(a["mu"][:n] - b).max()) for a, b in zip(out["rounds"], single_mu)]
+    print(f"bigcap: rounds whose picks differ {differ} of {len(single_picks)}; max |mu mesh - "
+          f"mu single| per round {gaps}")
+    for rank, fits in enumerate(out["fits"]):
+        print(f"bigcap rank {rank}: l {sorted({f['l'] for f in fits})}; refit ms per round "
+              f"{[round(f['ms'], 3) for f in fits]} {tag}")
+    want = (big_cfg.cap // ranks, big_cfg.cap)
+    if any(f["l"] != want for fits in out["fits"] for f in fits):
+        raise SystemExit(f"a rank's l is not {want}")
 
 
 def main(argv=None) -> int:
-    from ital_tpu_torch import runner, serve
     from ital_tpu_torch.data.datasets import load_dataset
     from ital_tpu_torch.utils.config import load_config
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--ranks", type=int, default=0, help="mesh size (default: every card, or 4)")
+    ap.add_argument("--steps", default="1,2,3", help="the steps to run, e.g. 3")
     args = ap.parse_args(argv)
+    steps = {int(k) for k in args.steps.split(",")}
     dev = torch.device(args.device)
     cuda = dev.type == "cuda"
     small = () if cuda else SMALL
@@ -61,13 +173,23 @@ def main(argv=None) -> int:
     else:
         tag = "[cpu]"
     ranks = args.ranks or (torch.cuda.device_count() if cuda else 4)
-
-    def sync():
-        if cuda:
-            torch.cuda.synchronize()
-
     scale = load_config(str(ROOT / "configs" / "scale100k.ini"), CUT + small)
     big = load_dataset(scale.dataset, **scale.dataset_kwargs)
+    if 1 in steps:
+        cohort_step(scale, big, dev, ranks, tag)
+    if 2 in steps:
+        serve_step(big, small, dev, ranks, tag)
+    if 3 in steps:
+        big_cfg = load_config(str(ROOT / "configs" / "scale100k.ini"), BIGCAP + small
+                              + (() if cuda else ("METHOD.pool_size=256",)))
+        bigcap_step(big_cfg, big, dev, ranks, tag)
+    return 0
+
+
+def cohort_step(scale, big, dev, ranks: int, tag: str) -> None:
+    """Step 1: the fused cohort of 4 on the mesh beside ``mesh_devices = 0``."""
+    from ital_tpu_torch import runner
+
     res = {}
     for mesh in (0, ranks):
         cfg = dataclasses.replace(scale, mesh_devices=mesh, query_batch=4, fused_sessions=True)
@@ -81,6 +203,13 @@ def main(argv=None) -> int:
     gap = float(np.abs(res[ranks]["ap"] - res[0]["ap"]).max())
     print(f"runner: max |AP mesh - AP single| {gap:.3e}")
 
+
+def serve_step(big, small, dev, ranks: int, tag: str) -> None:
+    """Step 2: a mesh service beside single-device twins."""
+    from ital_tpu_torch import serve
+    from ital_tpu_torch.utils.config import load_config
+
+    cuda = dev.type == "cuda"
     prod = load_config(str(ROOT / "configs" / "mirflickr_production.ini"), small)
     kw = dict(length_scale=prod.gp.length_scale, var=prod.gp.var, noise=prod.gp.noise, cap=64,
               label_prob=prod.user.label_prob, mistake_prob=prod.user.mistake_prob,
@@ -97,10 +226,10 @@ def main(argv=None) -> int:
     times: dict = {}
 
     def timed(kind, fn):
-        sync()
+        _sync(dev)
         t = time.perf_counter()
         out = fn()
-        sync()
+        _sync(dev)
         times.setdefault(kind, []).append((time.perf_counter() - t) * 1e3)
         return out
 
@@ -140,7 +269,6 @@ def main(argv=None) -> int:
         print(f"serve {kind}: {len(ms)} requests, host ms median {np.median(ms):.3f} {tag}")
     if not same:
         raise SystemExit("the restored session ranks otherwise")
-    return 0
 
 
 if __name__ == "__main__":

@@ -124,6 +124,25 @@ def test_oversized_pool_flags_excluded_slots(warmed):
     assert int(tforbid.sum()) == 5 and np.array_equal(tforbid.numpy(), np.asarray(jforbid))
 
 
+@pytest.mark.parametrize("pool_size", [1, 25, 170])
+def test_pool_mask_matches_jax(warmed, pool_size):
+    """True outside the top unlabeled candidates, labeled rows never in the
+    pool; for a stack, each session's own."""
+    js, ts = warmed
+    ranking = np.random.default_rng(pool_size).random(ts.mu.shape[0]).astype(np.float32)
+    want = np.asarray(jital.candidate_pool_mask(js, jnp.asarray(ranking), pool_size))
+    got = tital.candidate_pool_mask(ts, torch.from_numpy(ranking), pool_size)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got[ts.idx[:ts.count]].all()
+    st = tgp.stack_states([ts, ts])
+    both = tital.candidate_pool_mask(st, torch.from_numpy(np.stack([ranking, ranking[::-1]])),
+                                     pool_size)
+    np.testing.assert_array_equal(both[0].numpy(), want)
+    want_rev = np.asarray(jital.candidate_pool_mask(js, jnp.asarray(ranking[::-1].copy()),
+                                                    pool_size))
+    np.testing.assert_array_equal(both[1].numpy(), want_rev)
+
+
 def test_block_size_does_not_change_scores(warmed):
     _, ts = warmed
     _, tp = _params()

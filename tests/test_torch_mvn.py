@@ -1,5 +1,7 @@
 """The port's Genz QMC pieces against ``ital_tpu.ops.mvn``."""
 
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -122,3 +124,45 @@ def test_batched_shifts_equal_one_shift_at_a_time(rng):
     for i in range(5):
         one = tmvn.orthant_probs_all_configs_tree(mu[i], chol[i], n_points=32, shift=shifts[i])
         np.testing.assert_allclose(got[i].numpy(), one.numpy(), atol=1e-7)
+
+
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("m", [1, 2, 3, 5])
+def test_one_configuration_orthant_matches_jax(rng, m, shifted):
+    """``mvn_orthant_prob`` per candidate and sign configuration, and
+    ``orthant_probs_all_configs`` over the sign table."""
+    mu, chol = _moments(rng, m, n_cand=3)
+    mu, chol = mu.astype(np.float32), chol.astype(np.float32)
+    shift = rng.random(m - 1).astype(np.float32) if shifted else None
+    table = np.array(list(itertools.product([-1.0, 1.0], repeat=m)), np.float32)
+    jshift = None if shift is None else jnp.asarray(shift)
+    tshift = None if shift is None else torch.from_numpy(shift)
+    got = tmvn.orthant_probs_all_configs(torch.from_numpy(mu), torch.from_numpy(chol),
+                                         torch.from_numpy(table), n_points=64, shift=tshift)
+    for i in range(mu.shape[0]):
+        for signs in table[:: max(1, len(table) // 4)]:
+            want = float(jmvn.mvn_orthant_prob(jnp.asarray(mu[i]), jnp.asarray(chol[i]),
+                                               jnp.asarray(signs), n_points=64, shift=jshift))
+            one = tmvn.mvn_orthant_prob(torch.from_numpy(mu[i]), torch.from_numpy(chol[i]),
+                                        torch.from_numpy(signs), n_points=64, shift=tshift)
+            assert float(one) == pytest.approx(want, abs=2e-6)
+        want = jmvn.orthant_probs_all_configs(jnp.asarray(mu[i]), jnp.asarray(chol[i]),
+                                              jnp.asarray(table), n_points=64, shift=jshift)
+        np.testing.assert_allclose(got[i].numpy(), np.asarray(want), atol=2e-6)
+
+
+@pytest.mark.parametrize("m", [2, 4, 6])
+def test_prefix_tree_equals_the_per_configuration_form(rng, m):
+    """The port's sign-prefix tree against its own per-configuration
+    evaluation on the same lattice (``tests/test_mvn.py``'s check)."""
+    a = rng.normal(size=(m, m))
+    cov = (a @ a.T + m * np.eye(m)).astype(np.float32)
+    mu = torch.from_numpy(rng.normal(size=(m,)).astype(np.float32))
+    chol = torch.from_numpy(np.linalg.cholesky(cov))
+    table = torch.tensor(list(itertools.product([-1.0, 1.0], repeat=m)), dtype=torch.float32)
+    naive = tmvn.orthant_probs_all_configs(mu, chol, table, n_points=128)
+    tree = tmvn.orthant_probs_all_configs_tree(mu, chol, n_points=128)
+    np.testing.assert_allclose(tree.numpy(), naive.numpy(), atol=2e-6)
+    raw = tmvn.orthant_probs_all_configs(mu, chol, table, n_points=128, normalize=False)
+    np.testing.assert_allclose(tmvn.orthant_probs_all_configs_tree(
+        mu, chol, n_points=128, normalize=False).numpy(), raw.numpy(), atol=2e-6)

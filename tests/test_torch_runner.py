@@ -165,14 +165,6 @@ def test_capacity_guard():
         trunner.run_regression_experiment(reg, device="cpu")
 
 
-@pytest.mark.parametrize("change,item", [
-    ({"mesh_devices": 2, "gp": {"chol2d_threshold": 16}}, "item 3"),  # cap 16 crosses it
-])
-def test_unported_modes_raise(change, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, queue 1 {item}"):
-        trunner.run_experiment(_cfg(tconfig, "random", **change), device="cpu")
-
-
 def test_sessions_do_not_share_buffers():
     """Every session starts from the template; none writes it."""
     st0 = tgp.gp_init(torch.rand(50, 3), 1.0, 1.0, 0.1, 8)

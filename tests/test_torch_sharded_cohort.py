@@ -430,6 +430,8 @@ def test_runner_mesh_messages_and_the_replicated_factor_past_the_threshold(capsy
     out = capsys.readouterr().out
     assert "# sharded cohorts run fused" in out
     assert "GP.refit_every is a serial/per-round-sharded feature" in out
-    assert "# WARNING: cap=16 crossed chol2d_threshold=16" in out and "queue 1 item 3" in out
+    assert "# WARNING: cap=16 crossed chol2d_threshold=16" in out
+    assert ("Unset fused_sessions/query_batch to enable the distributed refit "
+            "(parallel/bigcap.py), or raise GP.chol2d_threshold to silence this.") in out
     want = trunner.run_experiment(_cfg(0, query_batch=2), device="cpu")
     np.testing.assert_array_equal(got["ap"], want["ap"])
