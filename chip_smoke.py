@@ -140,6 +140,22 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the rest; CUDA events) and its kernels by device time
    (``torch.profiler``) are printed with the card's name and power limit.
 
+12. graphs: the round's compiled programs as captured CUDA graphs
+   (``ital_tpu_torch.graphs``) beside their eager runs
+   (``graphs.eager()``, uncounted).  The production session on a corpus
+   of its own in four turns, graphed, eager, eager, graphed: picks equal
+   round by round (else MI ties on the eager state) and the posterior mean
+   within ``GRAPH_MU_ATOL`` while they agree; the second graphed session
+   must replay the first one's programs with no new capture.  Fetch and
+   update host ms of every turn, the device's busy share of three graphed
+   and three eager fetches and updates (``torch.profiler``), each
+   program's warm-up, capture and instantiate ms, replays, launches per
+   replay and static buffers, and the graph pools' memory.  Then
+   ``round_step`` at ``__graft_entry__.entry``'s example size and the
+   serial harness at the production options (2 classes x 5 rounds),
+   graphed against eager: equal AP, picks and MAP up to MI ties.  The
+   launch count is reset before the graphed runs and counts the replays.
+
 The second-to-last line is a JSON object describing the kernel (launches on
 the main paths in all, per route and per path, its bound, its time and the
 plain version's, and its times at the 100 000-row shapes, at the mesh
@@ -161,6 +177,7 @@ import time
 import urllib.error
 import urllib.request
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -227,6 +244,17 @@ MESH_QB = 4
 BIGCAP_OVERRIDES = SCALE_OVERRIDES + (
     "GP.cap=1024", "GP.chol2d_threshold=1024", "METHOD.pool_size=4096", "METHOD.n_qmc=32",
     "METHOD.refine_top=64", "METHOD.refine_n_qmc=512")
+# Phase 12: the captured programs beside their eager runs.  The production
+# session's 10 rounds in turns graphed, eager, eager, graphed; entry's round
+# step at its example size (__graft_entry__._make_state: 2048 x 64, ls 6, cap
+# 64, query 7); the serial harness at the production options cut to 2
+# classes x 5 rounds.  Graphed and eager run the same kernels on the same
+# inputs, so the means are expected bit-equal.
+GRAPH_TURNS = ("graphed", "eager", "eager", "graphed")
+GRAPH_MU_ATOL = 1e-6
+ROUND_STEPS = 5
+ENTRY_SHAPE = {"n": 2048, "d": 64, "cap": 64, "ls": 6.0, "query": 7}
+GRAPH_HARNESS_OVERRIDES = ("EXPERIMENT.max_classes=2", "EXPERIMENT.n_rounds=5")
 # The card's published peaks (H100 SXM, dense), for the kernel's bound: HBM
 # bytes per second, and TF32 and bf16 tensor operations per second (the f32
 # route does its products as 3xTF32: three TF32 products per f32 one).
@@ -2040,6 +2068,296 @@ def emoc_replay_phase(torch, ds, replay) -> None:
           "the card's EMOC picks are the CPU's up to score ties")
 
 
+def _graphed_or_eager(mode: str):
+    """``graphs.eager()`` for an eager turn, uncounted: the eager runs are
+    the comparison, the graphed runs the path."""
+    from ital_tpu_torch import graphs
+
+    if mode == "graphed":
+        return contextlib.nullcontext()
+    stack = contextlib.ExitStack()
+    stack.enter_context(_uncounted())
+    stack.enter_context(graphs.eager())
+    return stack
+
+
+def _graph_session(torch, ds, x, cfg, q: int, cls: int, mode: str) -> dict:
+    """One production session on corpus ``x``: ``update_query`` and
+    ``cfg.n_rounds`` rounds of fetch and update, the user's answers drawn
+    from a generator seeded ``SEED``.  Returns the batches, the state before
+    each fetch, the mean after each update and the synchronized host ms."""
+    from ital_tpu_torch.models import gp as gp_mod
+    from ital_tpu_torch.models.session import ActiveRetrieval
+
+    answer = _user(np.random.default_rng(SEED), ds, cfg.user.label_prob, cfg.user.mistake_prob)
+    out = {"batches": [], "before": [], "mu": [], "fetch_ms": [], "update_ms": []}
+    with _graphed_or_eager(mode):
+        sess = ActiveRetrieval(
+            x, length_scale=cfg.gp.length_scale, var=cfg.gp.var, noise=cfg.gp.noise, cap=CAP,
+            strategy=cfg.method, label_prob=cfg.user.label_prob,
+            mistake_prob=cfg.user.mistake_prob, seed=SEED, method_kwargs=cfg.method_kwargs)
+        sess.update_query(q)
+        for _ in range(cfg.n_rounds):
+            out["before"].append(gp_mod.gp_session_copy(sess.state))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch = sess.fetch_unlabelled(cfg.batch_size)
+            t1 = time.perf_counter()
+            fb = {int(i): y for i, y in answer(batch.tolist(), cls).items()}
+            t2 = time.perf_counter()
+            sess.update(fb)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            out["batches"].append(batch.tolist())
+            out["mu"].append(sess.state.mu.clone())
+            out["fetch_ms"].append((t1 - t0) * 1e3)
+            out["update_ms"].append((t3 - t2) * 1e3)
+    out["session"] = sess
+    return out
+
+
+def _held_to(torch, graphed: dict, eager: dict, kw: dict, what: str) -> int:
+    """Hold a graphed session to its eager twin: equal picks round by round
+    (else MI ties on the eager state, and the histories part there) and the
+    mean within ``GRAPH_MU_ATOL`` while they agree.  Returns the rounds that
+    agree."""
+    import types
+
+    for r, (gb, eb) in enumerate(zip(graphed["batches"], eager["batches"])):
+        if gb != eb:
+            sess = types.SimpleNamespace(state=eager["before"][r],
+                                         params=eager["session"].params)
+            with _uncounted():
+                gaps = _tie_gaps(sess, gb, kw)
+            print(f"graphs {what}: round {r} graphed {gb} eager {eb}; refined-MI gaps on the "
+                  f"eager state {gaps} (tie atol {MI_TIE_ATOL})")
+            check(all(abs(g) <= MI_TIE_ATOL for g in gaps), f"{what}: picks differ only by ties")
+            return r
+        err = float((graphed["mu"][r] - eager["mu"][r]).abs().max())
+        check(err <= GRAPH_MU_ATOL, f"{what}: round {r} mu graphed vs eager {err} > "
+                                    f"{GRAPH_MU_ATOL}")
+    return len(graphed["batches"])
+
+
+def _busy_share(torch, fn, calls: int = 3) -> Optional[float]:
+    """The device's busy share while ``fn`` runs ``calls`` times back to back:
+    the kernels' and copies' device time (``torch.profiler``, CUDA activity)
+    over the host's synchronized wall time; None where the profiler saw no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy = sum(getattr(e, "self_device_time_total", 0.0) or e.device_time_total
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return busy / wall_us if busy > 0 else None
+
+
+def _busy_shares(torch, sess, fb: dict, mode: str) -> tuple:
+    """Busy shares of three fetches from one state and three updates of
+    three copies of it, graphed or eager."""
+    from ital_tpu_torch.models import gp as gp_mod
+
+    with _graphed_or_eager(mode):
+        fetch = _busy_share(torch, lambda: sess.fetch_unlabelled(4))
+        base = sess.state
+        copies = [gp_mod.gp_session_copy(base) for _ in range(4)]
+
+        def update():
+            sess.state = copies.pop()
+            sess.update(fb)
+
+        update()  # the program exists: warm, as the fetch is
+        upd = _busy_share(torch, update)
+        sess.state = base
+    return fetch, upd
+
+
+def _pool_mib(torch) -> Optional[float]:
+    """MiB the CUDA graphs' private memory pools reserve (the caching
+    allocator's segments outside the default pool); None where the snapshot
+    does not say."""
+    segs = torch.cuda.memory_snapshot()
+    if not segs or "segment_pool_id" not in segs[0]:
+        return None
+    return sum(s["total_size"] for s in segs
+               if tuple(s["segment_pool_id"]) != (0, 0)) / 2**20
+
+
+def _graph_round_steps(torch, dev, smi: str) -> None:
+    """``round_step`` (select, user, update, AP as one program) at entry's
+    example size, graphed and eager: equal picks and AP, each round."""
+    from ital_tpu_torch.models import gp as gp_mod
+    from ital_tpu_torch.round import round_step
+    from ital_tpu_torch.select.base import StrategyParams
+
+    e = ENTRY_SHAPE
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(e["n"], e["d"]))
+                         .astype(np.float32)).to(dev)
+    relevant = torch.from_numpy(np.random.default_rng(1).random(e["n"]) < 0.2).to(dev)
+    exclude = torch.zeros(e["n"], dtype=torch.bool, device=dev)
+    exclude[e["query"]] = True
+    params = StrategyParams.create(dev, label_prob=0.9, mistake_prob=0.1)
+    runs = {}
+    for mode in ("graphed", "eager"):
+        runs[mode] = {"batch": [], "ap": [], "ms": [], "before": []}
+        with _graphed_or_eager(mode):
+            st = gp_mod.gp_set_query(gp_mod.gp_init(x, e["ls"], 1.0, 0.1, e["cap"]), e["query"])
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            for _ in range(ROUND_STEPS):
+                runs[mode]["before"].append(gp_mod.gp_session_copy(st))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, batch, ap = round_step(st, gen, relevant, exclude, params)
+                runs[mode]["batch"].append(batch.tolist())
+                runs[mode]["ap"].append(float(ap))
+                runs[mode]["ms"].append((time.perf_counter() - t0) * 1e3)
+    g, ev = runs["graphed"], runs["eager"]
+    for r in range(ROUND_STEPS):
+        if g["batch"][r] != ev["batch"][r]:
+            with _uncounted():
+                gaps = _mi_gaps(torch, ev["before"][r], params, {"n_qmc": 64}, g["batch"][r])
+            print(f"graphs round_step: round {r} graphed {g['batch'][r]} eager "
+                  f"{ev['batch'][r]}; MI gaps on the eager state {gaps}")
+            check(all(gap <= MI_TIE_ATOL for gap in gaps), "round_step picks differ only by ties")
+            break
+        check(g["ap"][r] == ev["ap"][r], f"round_step round {r}: AP graphed {g['ap'][r]} == "
+                                         f"eager {ev['ap'][r]}")
+    print(f"graphs round_step ({e['n']} x {e['d']}, full scan n_qmc 64): AP graphed "
+          f"{[round(a, 6) for a in g['ap']]}, eager {[round(a, 6) for a in ev['ap']]}; ms per "
+          f"round graphed {[round(t, 3) for t in g['ms']]}, eager "
+          f"{[round(t, 3) for t in ev['ms']]} [{smi}]")
+
+
+def _graph_harness(torch, ds, dev, smi: str) -> None:
+    """The serial harness at the production options, 2 classes x 5 rounds,
+    graphed and eager: picks round by round (else MI ties on the eager
+    state) and the AP curves while they agree."""
+    import types
+
+    from ital_tpu_torch import runner
+    from ital_tpu_torch.select.base import StrategyParams
+    from ital_tpu_torch.utils.config import load_config
+
+    cfg = load_config(str(CONFIG), GRAPH_HARNESS_OVERRIDES)
+    res, rec = {}, {"graphed": [], "eager": []}
+    for mode in ("graphed", "eager"):
+        with _graphed_or_eager(mode), _record_serial(cfg.method, rec[mode]):
+            res[mode] = runner.run_experiment(cfg, ds, device=dev)
+    params = StrategyParams.create(dev, label_prob=cfg.user.label_prob,
+                                   mistake_prob=cfg.user.mistake_prob)
+    rounds, n_sessions = cfg.n_rounds, len(res["graphed"]["sessions"])
+    check(len(rec["graphed"]) == len(rec["eager"]) == n_sessions * rounds, "harness selections")
+    for k in range(n_sessions):
+        rows = range(k * rounds, (k + 1) * rounds)
+        r = next((r for r in range(rounds)
+                  if rec["graphed"][rows[r]][1] != rec["eager"][rows[r]][1]), rounds)
+        if r < rounds:
+            state, picks = rec["eager"][rows[r]]
+            with _uncounted():
+                gaps = _tie_gaps(types.SimpleNamespace(state=state, params=params),
+                                 rec["graphed"][rows[r]][1], cfg.method_kwargs)
+            print(f"graphs harness session {k}: round {r} graphed {rec['graphed'][rows[r]][1]} "
+                  f"eager {picks}; refined-MI gaps {gaps} (tie atol {MI_TIE_ATOL})")
+            check(all(abs(g) <= MI_TIE_ATOL for g in gaps), "harness picks differ only by ties")
+        check(np.abs(res["graphed"]["ap"][k, :r] - res["eager"]["ap"][k, :r]).max(initial=0.0)
+              == 0.0, "harness AP graphed == eager while the picks agree")
+    for mode in ("graphed", "eager"):
+        m = res[mode]
+        print(f"graphs harness {mode}: MAP {[round(float(v), 6) for v in m['map']]}; select "
+              f"{m['select_ms']:.3f} ms mean, {m['select_ms_steady']:.3f} steady; update "
+              f"{m['update_ms']:.3f} mean, {m['update_ms_steady']:.3f} steady; first round "
+              f"{m['first_round_ms']:.1f} ms [{smi}]")
+
+
+def graphs_phase(torch, ds, cfg, dev, smi: str) -> dict:
+    """Phase 12: the captured programs (``ital_tpu_torch.graphs``) beside
+    their eager runs; returns the graphed runs' launches by route."""
+    from ital_tpu_torch import graphs
+    from ital_tpu_torch.ops import rbf_hopper
+
+    t_phase = time.perf_counter()
+    x = torch.from_numpy(ds.x).to(dev)  # a corpus of its own: the phase's programs
+    rng = np.random.default_rng(SEED)
+    cls = int(rng.choice(ds.classes))
+    q = int(ds.queries_for_class(cls, rng, 1)[0])
+    torch.cuda.synchronize()
+    # Programs replayed in the phase.  A corpus at the address of one freed
+    # earlier replays that one's programs, which then count as the phase's.
+    known = {id(p): p.replays for p in graphs.programs()}
+    captured = []
+
+    def collect():
+        captured.extend(p for p in graphs.programs()
+                        if p.replays > known.get(id(p), 0) and all(p is not c for c in captured))
+
+    alloc0, pool0 = torch.cuda.memory_allocated(), _pool_mib(torch)
+    _reset_counts()  # the graphs path's count starts here
+    runs = []
+    for i, mode in enumerate(GRAPH_TURNS):
+        before = len(graphs.programs())
+        runs.append(_graph_session(torch, ds, x, cfg, q, cls, mode))
+        if mode == "graphed" and i > 0:
+            check(len(graphs.programs()) == before,
+                  "a second session at the same counts replays the first one's programs")
+    collect()
+    check(sorted(p.name for p in captured) == ["gp_update", "select_ital"],
+          f"the session's fetch and update replayed programs: {[p.name for p in captured]}")
+    agree = [_held_to(torch, runs[0], runs[1], cfg.method_kwargs, "session turns 1-2"),
+             _held_to(torch, runs[3], runs[2], cfg.method_kwargs, "session turns 4-3")]
+    launches = dict(rbf_hopper.ROUTE_LAUNCHES)
+    check(sum(launches.values()) > 0, "the graphed session launched the kernel")
+    for i, (mode, r) in enumerate(zip(GRAPH_TURNS, runs)):
+        print(f"graphs session turn {i + 1} {mode}: fetch ms "
+              f"{[round(t, 3) for t in r['fetch_ms']]}; update ms "
+              f"{[round(t, 3) for t in r['update_ms']]} [{smi}]")
+    steady = {mode: {k: float(np.median([t for m, r in zip(GRAPH_TURNS, runs) if m == mode
+                                         for t in r[k][1:]]))
+                     for k in ("fetch_ms", "update_ms")} for mode in ("graphed", "eager")}
+    print(f"graphs session: rounds that agree {agree} of {cfg.n_rounds}; steady median fetch "
+          f"graphed {steady['graphed']['fetch_ms']:.3f} ms, eager "
+          f"{steady['eager']['fetch_ms']:.3f}; update graphed "
+          f"{steady['graphed']['update_ms']:.3f} ms, eager {steady['eager']['update_ms']:.3f} "
+          f"(the single update's A/B, rounds 2-{cfg.n_rounds} of two turns each) [{smi}]")
+    sess = runs[3]["session"]
+    fb = {int(i): 1 for i in runs[3]["batches"][-1]}
+    with _uncounted():
+        shares = {mode: _busy_shares(torch, sess, fb, mode) for mode in ("graphed", "eager")}
+    fmt = lambda v: "not measured" if v is None else f"{v * 100:.1f} %"
+    print("graphs device busy (profiler, 3 calls each): " + "; ".join(
+        f"{mode} fetch {fmt(f)}, update {fmt(u)}" for mode, (f, u) in shares.items())
+        + f" [{smi}]")
+    _graph_round_steps(torch, dev, smi)
+    collect()
+    _graph_harness(torch, ds, dev, smi)
+    collect()
+    launches = dict(rbf_hopper.ROUTE_LAUNCHES)
+    for p in captured:
+        print(f"graphs program {p.name}{'' if id(p) not in known else ' (captured earlier)'}: "
+              f"warm-up {p.warmup_ms:.1f} ms, capture "
+              f"{p.capture_ms:.1f} ms, instantiate {p.instantiate_ms:.1f} ms, replays "
+              f"{p.replays}, launches per replay {sum(p.launches.values())}, static buffers "
+              f"{p.static_bytes / 2**20:.2f} MiB")
+    torch.cuda.synchronize()
+    pool1 = _pool_mib(torch)
+    pool = ("not measured" if pool1 is None or pool0 is None
+            else f"{pool1:.1f} MiB (phase start {pool0:.1f})")
+    print(f"graphs: {len(captured)} programs replayed in the phase, "
+          f"{sum(p.replays for p in captured)} replays, {len(graphs.programs())} live in the "
+          f"process; static buffers {sum(p.static_bytes for p in captured) / 2**20:.1f} MiB, "
+          f"graph pools {pool}; "
+          f"memory allocated {torch.cuda.memory_allocated() / 2**20:.1f} MiB (phase start "
+          f"{alloc0 / 2**20:.1f}); launches {launches}; phase {time.perf_counter() - t_phase:.1f} "
+          f"s [{smi}]")
+    return {"launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -2063,12 +2381,13 @@ def main() -> int:
     shard = sharded_phase(torch, ds, cfg, torch.device("cuda"), smi, rise25)
     mesh = mesh_phase(torch, shard["big"], cfg, torch.device("cuda"), smi)
     large = bigcap_phase(torch, shard["big"], torch.device("cuda"), smi)
+    graphed = graphs_phase(torch, ds, cfg, torch.device("cuda"), smi)
     # At 512 features every RBF call of the paths takes the tensor-core route
     # (the router's rule, PERF.md); the tile kernel serves narrower or
     # unaligned features and is held against the plain version in phase 3.
     paths = {"session": sess, "harness": harness, "serving": served, **cohort,
              "sharded": {"launches": shard["launches"]}, "mesh": {"launches": mesh["launches"]},
-             "bigcap": {"launches": large["launches"]}}
+             "bigcap": {"launches": large["launches"]}, "graphs": graphed}
     by_route = {r: sum(p["launches"][r] for p in paths.values()) for r in sess["launches"]}
     check(by_route["wgmma"] > 0, f"the tensor-core route launched on the main path: {by_route}")
     check(all(sum(p["launches"].values()) > 0 for p in paths.values()),

@@ -22,6 +22,8 @@ Package layout
 ``utils``     Configs, metrics (AP, recall@k), checkpoints, JSONL logging
               and timers.
 ``round``     One full feedback round.
+``graphs``    The captured CUDA graphs of the round's programs (the
+              reference's ``jax.jit``).
 ``parallel``  The corpus-sharded mesh on ``torch.distributed``: sharded
               rounds, fused sessions and cohorts, the mesh-sharded session.
 ``runner``    The experiment harness (MAP-vs-rounds); ``cli`` its command line.

@@ -62,11 +62,13 @@ class GPState:
       l (cap, cap) | beta (cap,) | v (cap, N) | mu (N,) | sig2 (N,) |
       density (N,) or None | x2 (N,)
 
-    ``count`` is a host integer.  Slots < ``count`` with ``valid == False``
-    are occupied-but-inert (the user skipped that item).  ``density`` is the
-    optional corpus information density of the density-weighted baselines
-    (:func:`corpus_density`).  ``x2`` caches the corpus' squared row norms in
-    f32 (or wider), computed from the stored values.
+    ``count`` is a host integer; inside a captured program it is a 0-d int64
+    tensor on the device (:func:`program_state`).  Slots < ``count`` with
+    ``valid == False`` are occupied-but-inert (the user skipped that item).
+    ``density`` is the optional corpus information density of the
+    density-weighted baselines (:func:`corpus_density`).  ``x2`` caches the
+    corpus' squared row norms in f32 (or wider), computed from the stored
+    values.
     """
 
     x: torch.Tensor
@@ -140,8 +142,26 @@ class StackedGPState:
         return self.idx.shape[0]
 
 
-_SESSION_FIELDS = ("idx", "y", "valid", "l", "beta", "v", "mu", "sig2")
+SESSION_FIELDS = ("idx", "y", "valid", "l", "beta", "v", "mu", "sig2")
 _HYPER = ("length_scale", "var", "noise")
+
+
+def program_inputs(state: GPState) -> dict:
+    """``state`` as a program's inputs (:func:`ital_tpu_torch.graphs.run`):
+    its host count, which a graph takes as a 0-d device tensor, the session
+    buffers, the hyperparameters and the corpus norms.  The corpus is shared
+    by the sessions and goes in by address; the density, which no program
+    reads, stays out."""
+    return {"count": state.count, **{f: getattr(state, f) for f in SESSION_FIELDS},
+            **{f: getattr(state.hyper, f) for f in _HYPER}, "x2": state.x2}
+
+
+def program_state(x: torch.Tensor, inputs: dict) -> GPState:
+    """The state a program's body works on: corpus ``x`` and the fields of
+    :func:`program_inputs` from ``inputs``, its count a 0-d device tensor."""
+    return GPState(x=x, count=inputs["count"], x2=inputs["x2"],
+                   hyper=GPHyper(**{f: inputs[f] for f in _HYPER}),
+                   **{f: inputs[f] for f in SESSION_FIELDS})
 
 
 def hyper_groups(hyper: GPHyper) -> list:
@@ -168,7 +188,7 @@ def stack_states(states) -> StackedGPState:
     return StackedGPState(
         x=sts[0].x, counts=[s.count for s in sts], hyper=hyper,
         hyper_groups=hyper_groups(hyper), density=sts[0].density, x2=sts[0].x2,
-        **{f: torch.stack([getattr(s, f) for s in sts]) for f in _SESSION_FIELDS},
+        **{f: torch.stack([getattr(s, f) for s in sts]) for f in SESSION_FIELDS},
     )
 
 
@@ -179,7 +199,7 @@ def stacked_view(state: GPState) -> StackedGPState:
         x=state.x, counts=[state.count], hyper_groups=[[0]], density=state.density,
         x2=state.x2,
         hyper=GPHyper(**{f: getattr(state.hyper, f).reshape(1) for f in _HYPER}),
-        **{f: getattr(state, f)[None] for f in _SESSION_FIELDS},
+        **{f: getattr(state, f)[None] for f in SESSION_FIELDS},
     )
 
 
@@ -188,7 +208,7 @@ def session_state(st: StackedGPState, k: int) -> GPState:
     return GPState(
         x=st.x, count=st.counts[k], density=st.density, x2=st.x2,
         hyper=GPHyper(**{f: getattr(st.hyper, f)[k] for f in _HYPER}),
-        **{f: getattr(st, f)[k] for f in _SESSION_FIELDS},
+        **{f: getattr(st, f)[k] for f in SESSION_FIELDS},
     )
 
 
@@ -196,7 +216,7 @@ def unstack_into(st: StackedGPState, states) -> None:
     """Write each session of ``st`` back into the buffers of ``states``, in
     place (the hyperparameters and the corpus are not written)."""
     for k, s in enumerate(states):
-        for f in _SESSION_FIELDS:
+        for f in SESSION_FIELDS:
             getattr(s, f).copy_(getattr(st, f)[k])
         s.count = st.counts[k]
 
@@ -275,7 +295,7 @@ def gp_session_copy(state: GPState, device=None) -> GPState:
     """
     return dataclasses.replace(
         state, **{f: getattr(state, f).to(device or getattr(state, f).device, copy=True)
-                  for f in _SESSION_FIELDS}
+                  for f in SESSION_FIELDS}
     )
 
 
@@ -327,7 +347,9 @@ def gp_set_query(state: GPState, query_idx: int, *,
     return gp_fit(state, gather=gather)
 
 
-def _check_capacity(counts, b: int, cap: int) -> None:
+def check_capacity(counts, b: int, cap: int) -> None:
+    """Raise ``ValueError`` where a block of ``b`` slots overflows one of the
+    host ``counts`` at capacity ``cap``."""
     for c in counts:
         if c + b > cap:
             raise ValueError(f"labeled-slot capacity exceeded: {c} used + {b} new > cap={cap}")
@@ -347,6 +369,10 @@ def gp_update(
     calling :func:`gp_fit` (tested to tolerance).  Writes the session-owned
     buffers of ``state`` in place and returns it.  The same steps as
     :func:`gp_update_stacked` on one session, without a stack around it.
+    Where ``state.count`` is a 0-d device tensor (a captured program's
+    state) the slots are written by index and nothing is read to the host:
+    the caller checks the capacity, and a block that is not positive
+    definite raises once the program has run.
 
     Args:
       new_idx: (b,) corpus indices shown to the user this round.
@@ -359,7 +385,8 @@ def gp_update(
     h = state.hyper
     b = new_idx.shape[0]
     c = state.count
-    _check_capacity([c], b, state.cap)
+    if isinstance(c, int):
+        check_capacity([c], b, state.cap)
     active_old = state.active
     new_idx = new_idx.to(torch.int64)
     new_valid = new_valid.to(torch.bool)
@@ -379,7 +406,7 @@ def gp_update(
 
     for buf, vals in ((state.v, v_b), (state.beta, beta_b), (state.idx, new_idx),
                       (state.y, new_y), (state.valid, new_valid)):
-        buf[c:c + b] = vals
+        chol_ops.write_rows(buf, c, vals)
     state.mu += (v_b.T @ beta_b[:, None])[:, 0]
     state.sig2.sub_((v_b * v_b).sum(0)).clamp_(min=1e-8)
     state.count = c + b
@@ -409,7 +436,7 @@ def gp_update_stacked(
     h = st.hyper
     dt = st.mu.dtype
     b = new_idx.shape[-1]
-    _check_capacity(st.counts, b, st.cap)
+    check_capacity(st.counts, b, st.cap)
     active_old = st.active
     new_idx = new_idx.to(torch.int64)
     new_valid = new_valid.to(torch.bool)

@@ -4,6 +4,11 @@ Holds the corpus, the GP state and the labeled sets, applies feedback rounds,
 ranks the corpus, and picks the next batch through the configured selection
 strategy.  Everything runs on the corpus' device; only the returned batches
 and rankings come to the host.
+
+On the card the ITAL fetch and every update each replay one captured program
+(:mod:`ital_tpu_torch.graphs`), the counterparts of the reference's
+``_jit_select`` and ``_update_donated``: process-wide, shared by every session
+with the same signature.  The other strategies select eagerly.
 """
 
 from __future__ import annotations
@@ -14,7 +19,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ital_tpu_torch import graphs
 from ital_tpu_torch.models import gp as gp_mod
+from ital_tpu_torch.ops.chol import host_copy
 from ital_tpu_torch.select.base import (
     StrategyParams,
     filter_method_kwargs,
@@ -63,6 +70,29 @@ def feedback_block(state: gp_mod.GPState,
     y = np.zeros(b, dtype=np.float32)
     y[: len(feedback)] = [0 if v is None else int(v) for v in feedback.values()]
     return idx, y
+
+
+def _update_body(x, *, new_idx, new_y, new_valid, **inputs) -> tuple:
+    gp_mod.gp_update(gp_mod.program_state(x, inputs), new_idx, new_y, new_valid)
+    return ()
+
+
+def update_program(state: gp_mod.GPState, new_idx: torch.Tensor, new_y: torch.Tensor,
+                   new_valid: torch.Tensor) -> gp_mod.GPState:
+    """:func:`ital_tpu_torch.models.gp.gp_update` of ``state`` as one
+    program (the reference's ``_update_donated``): on the card a graph
+    captured once per block width, capacity and corpus, into whose buffers
+    the session's are copied, and from which what the update writes is
+    copied back.  A block that is not positive definite raises once the
+    program has run, and leaves ``state`` as it was.  ``new_*`` (b,) lie on
+    the state's device."""
+    gp_mod.check_capacity([state.count], new_idx.shape[0], state.cap)
+    inputs = {**gp_mod.program_inputs(state), "new_idx": new_idx, "new_y": new_y,
+              "new_valid": new_valid}
+    graphs.run("gp_update", _update_body, inputs, shared={"x": state.x},
+               writes=gp_mod.SESSION_FIELDS)
+    state.count += new_idx.shape[0]
+    return state
 
 
 def check_method_kwargs(strategy: str, method_kwargs: dict) -> None:
@@ -160,12 +190,8 @@ class ActiveRetrieval:
             return
         idx, y = self.feedback_block(feedback)
         dev = self.device
-        self.state = gp_mod.gp_update(
-            self.state,
-            torch.as_tensor(idx, device=dev),
-            torch.as_tensor(y, device=dev),
-            torch.as_tensor(y != 0, device=dev),
-        )
+        self.state = update_program(self.state, host_copy(idx, dev), host_copy(y, dev),
+                                    host_copy(y != 0, dev))
 
     def feedback_block(self, feedback: Dict[int, int]) -> tuple[np.ndarray, np.ndarray]:
         """The block :meth:`update` absorbs for ``feedback``

@@ -12,8 +12,10 @@ Appending a block B to a factored system (Schur complement)::
 
 Every function takes leading batch dimensions: a stack of K sessions'
 factors is factored, solved and appended in one call each, the append of
-session k at its own offset ``count[k]``.  ``count`` is known on the host,
-so the append is a write into the factor, in place.
+session k at its own offset ``count[k]``.  The append is a write into the
+factor, in place, at a count known on the host or, inside a captured
+program, held on the device as a 0-d tensor; the Schur block's
+factorization error is then checked once the program has run.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+
+from ital_tpu_torch import graphs
 
 
 def _per_matrix(s):
@@ -51,19 +55,64 @@ def tri_solve(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_triangular(l, b, upper=False)
 
 
+def host_copy(values, device, dtype=None) -> torch.Tensor:
+    """Host values (an array or a list) as a tensor on ``device``, copied
+    without waiting for the device: a copy from pageable memory would wait
+    for its stream, so a CUDA copy goes through pinned memory."""
+    t = torch.as_tensor(values, dtype=dtype)
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
 def host_index(values, device) -> torch.Tensor:
     """Host integers as an int64 index tensor on ``device``, copied without
-    waiting for the device (a pageable copy would wait for its stream)."""
-    idx = torch.as_tensor(values, dtype=torch.int64)
-    if torch.device(device).type == "cuda":
-        return idx.pin_memory().to(device, non_blocking=True)
-    return idx
+    waiting for the device (:func:`host_copy`)."""
+    return host_copy(values, device, torch.int64)
 
 
 def slot_rows(counts: Sequence[int], b: int, device) -> torch.Tensor:
     """(K, b) int64 slots ``[counts[k], counts[k] + b)`` of each session, on
     ``device``, copied from the host without waiting for the device."""
     return host_index(torch.tensor(counts, dtype=torch.int64)[:, None] + torch.arange(b), device)
+
+
+def write_rows(buf: torch.Tensor, count: int | torch.Tensor, vals: torch.Tensor) -> None:
+    """Write ``vals`` (b, ...) into rows ``[count, count + b)`` of ``buf``
+    (cap, ...), in place: a slice write at a host count, an indexed write at
+    a 0-d device count."""
+    b = vals.shape[0]
+    if isinstance(count, torch.Tensor):
+        buf.index_copy_(0, count + torch.arange(b, device=buf.device), vals)
+    else:
+        buf[count:count + b] = vals
+
+
+def check_cholesky_info(info: torch.Tensor) -> None:
+    """Raise what ``torch.linalg.cholesky`` raises where ``info`` (from
+    ``torch.linalg.cholesky_ex``, one per matrix of a batch) says a matrix is
+    not positive definite.  Reads ``info`` to the host."""
+    if not bool((info != 0).any()):
+        return
+    flat = info.reshape(-1).tolist()
+    k = next(i for i, v in enumerate(flat) if v != 0)
+    batch = f"(Batch element {k}): " if info.dim() else ""
+    raise torch.linalg.LinAlgError(
+        f"linalg.cholesky: {batch}The factorization could not be completed because the "
+        f"input is not positive-definite (the leading minor of order {flat[k]} is not "
+        f"positive-definite).")
+
+
+def _write_new_rows(l: torch.Tensor, s: torch.Tensor, l_b: torch.Tensor,
+                    rows: torch.Tensor) -> None:
+    """Write the new rows ``[S^T | L_B | 0]`` of each of K factors ``l``
+    (K, cap, cap) at its slots ``rows`` (K, b), in place: one indexed write
+    of whole rows."""
+    k, b = rows.shape
+    cols = torch.arange(l.shape[-1], device=l.device)
+    new_rows = torch.where(cols < rows[:, :1, None], s.mT, 0.0)  # (K, b, cap)
+    new_rows.scatter_(2, rows[:, None, :].expand(-1, b, -1), l_b)
+    l[torch.arange(k, device=l.device)[:, None], rows] = new_rows
 
 
 def write_slots(buf: torch.Tensor, counts: Sequence[int], vals: torch.Tensor) -> None:
@@ -82,7 +131,7 @@ def chol_append_block(
     l: torch.Tensor,
     k_lb: torch.Tensor,
     k_bb: torch.Tensor,
-    count: int | Sequence[int],
+    count: int | Sequence[int] | torch.Tensor,
     active_new: torch.Tensor,
     noise: torch.Tensor | float,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -96,7 +145,9 @@ def chol_append_block(
         already zeroed on rows ``>= count`` and on rows of inert slots.
       k_bb: (..., b, b) kernel among the new block's points.
       count: first free slot, or (K stacked factors) one per session;
-        ``count + b <= cap`` or this raises.
+        ``count + b <= cap`` or this raises.  A 0-d int64 tensor on the
+        device of one factor is the same slot held on the device: nothing
+        is read to the host, and the caller has checked the capacity.
       active_new: (..., b) bool — False entries become identity (inert) slots.
       noise: observation noise added to the active diagonal of the new block,
         one value or (K,) one per session.
@@ -104,12 +155,18 @@ def chol_append_block(
     Returns ``(l, s, l_b)``: the updated factor (the same tensor), equal to
     refactorizing with :func:`padded_cholesky` to tolerance, plus
     ``s = L^-1 K_lB`` (..., cap, b) and ``l_b = chol(Schur)`` (..., b, b).
+    A Schur block that is not positive definite raises
+    ``torch.linalg.LinAlgError`` before ``l`` is written or, inside a
+    program's capture, once the program has run
+    (:func:`ital_tpu_torch.graphs.check_after`).
     """
     cap = l.shape[-1]
     b = k_bb.shape[-1]
-    counts = [count] if isinstance(count, int) else [int(c) for c in count]
-    if max(counts) + b > cap:
-        raise ValueError(f"block of {b} slots at {max(counts)} overflows cap={cap}")
+    on_device = isinstance(count, torch.Tensor)
+    if not on_device:
+        counts = [count] if isinstance(count, int) else [int(c) for c in count]
+        if max(counts) + b > cap:
+            raise ValueError(f"block of {b} slots at {max(counts)} overflows cap={cap}")
     k_lb = torch.where(active_new[..., None, :], k_lb, 0.0)
     eye_b = torch.eye(b, dtype=l.dtype, device=l.device)
     k_bb = _identity_pad(k_bb + _per_matrix(noise) * eye_b, active_new)
@@ -117,20 +174,21 @@ def chol_append_block(
     # Rows >= count of K_lB are zero and L is identity there, so S is too.
     s = tri_solve(l, k_lb)  # (..., cap, b)
     c_b = _identity_pad(k_bb - s.mT @ s, active_new)
-    l_b = torch.linalg.cholesky(c_b)
+    l_b, info = torch.linalg.cholesky_ex(c_b)
+    graphs.check_after(info, check_cholesky_info)
 
     # New rows: [S^T | L_B | 0] in the cap-wide coordinates (L_B from column
     # count on); columns past count+b are zero in the identity padding they
-    # replace.  One count for all: two slice writes; else one indexed write
-    # of the whole rows.
+    # replace.  One host count for all: two slice writes; else one indexed
+    # write of the whole rows.
+    if on_device:
+        _write_new_rows(l[None], s[None], l_b[None],
+                        (count + torch.arange(b, device=l.device))[None])
+        return l, s, l_b
     if len(set(counts)) == 1:
         c = counts[0]
         l[..., c:c + b, :c] = s[..., :c, :].mT
         l[..., c:c + b, c:c + b] = l_b
         return l, s, l_b
-    rows = slot_rows(counts, b, l.device)  # (K, b)
-    cols = torch.arange(cap, device=l.device)
-    new_rows = torch.where(cols < rows[:, :1, None], s.mT, 0.0)  # (K, b, cap)
-    new_rows.scatter_(2, rows[:, None, :].expand(-1, b, -1), l_b)
-    l[torch.arange(l.shape[0], device=l.device)[:, None], rows] = new_rows
+    _write_new_rows(l, s, l_b, slot_rows(counts, b, l.device))
     return l, s, l_b

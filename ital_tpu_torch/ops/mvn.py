@@ -116,6 +116,15 @@ def richtmyer_lattice(n_points: int, dim: int) -> np.ndarray:
     return np.modf(k * alphas)[0].astype(np.float32)
 
 
+@functools.cache
+def device_lattice(n_points: int, dim: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """:func:`richtmyer_lattice` as a ``dtype`` tensor on ``device``, copied
+    from the host once and cached: a copy from pageable memory waits for the
+    stream, and inside a CUDA graph's capture it is refused, so the warm-up
+    before a capture fills the cache.  Callers never write it."""
+    return torch.as_tensor(richtmyer_lattice(n_points, dim), dtype=dtype, device=device)
+
+
 @functools.lru_cache(maxsize=None)
 def shift_table(n_shifts: int, dim: int, seed: int = 0) -> np.ndarray:
     """(n_shifts, dim) deterministic Cranley-Patterson shifts (host-side).
@@ -128,6 +137,14 @@ def shift_table(n_shifts: int, dim: int, seed: int = 0) -> np.ndarray:
     if n_shifts:
         t[0] = 0.0
     return t
+
+
+@functools.cache
+def device_shift_table(n_shifts: int, dim: int, seed: int, dtype: torch.dtype,
+                       device) -> torch.Tensor:
+    """:func:`shift_table` as a ``dtype`` tensor on ``device``, cached as
+    :func:`device_lattice` is."""
+    return torch.as_tensor(shift_table(n_shifts, dim, seed), dtype=dtype, device=device)
 
 
 def mvn_orthant_prob(
@@ -160,7 +177,7 @@ def mvn_orthant_prob(
     if m == 1:
         return e - d
 
-    w = torch.as_tensor(richtmyer_lattice(n_points, m - 1), dtype=mu.dtype, device=mu.device)
+    w = device_lattice(n_points, m - 1, mu.dtype, mu.device)
     if shift is not None:
         w = torch.remainder(w + shift[..., None, :], 1.0)  # (P, m-1)
     d, e = d[..., None], e[..., None]
@@ -236,8 +253,7 @@ def orthant_probs_all_configs_tree(
     if m == 1:
         return finish(f)
 
-    w = torch.as_tensor(richtmyer_lattice(n_points, m - 1), dtype=mu.dtype,
-                        device=mu.device)  # (P, m-1)
+    w = device_lattice(n_points, m - 1, mu.dtype, mu.device)  # (P, m-1)
     if shift is not None:
         w = torch.remainder(w + shift[..., None, :], 1.0)  # (..., P, m-1)
 
@@ -288,8 +304,7 @@ def shifted_replicates(
             "exists; use n_shifts=1 (unshifted, err=0) or n_shifts >= 3"
         )
     m = mu.shape[-1]
-    shifts = torch.as_tensor(shift_table(n_shifts, m - 1, seed), dtype=mu.dtype,
-                             device=mu.device)
+    shifts = device_shift_table(n_shifts, m - 1, seed, mu.dtype, mu.device)
     if n_shifts > 1:
         shifts = shifts[1:]
     r = shifts.shape[0]

@@ -19,7 +19,10 @@ callers use, and sends CPU tensors to the plain version.
 ``LAUNCHES`` counts the launches of both routes and ``ROUTE_LAUNCHES`` each
 route's, so a run can show that its main path went through the kernels.  The
 counts are taken under a lock, so launches from a server's handler threads
-are never lost; :func:`reset_launch_counts` sets them to 0.
+are never lost; :func:`reset_launch_counts` sets them to 0.  A launch made
+while a CUDA graph is captured runs only when the graph is replayed: the
+capture records it (:func:`recording_launches`) and every replay adds it
+(:func:`add_launches`).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from ital_tpu_torch.ops import _build
 LAUNCHES = 0
 ROUTE_LAUNCHES = {"wgmma": 0, "tile": 0}
 _COUNT_LOCK = threading.Lock()
+_RECORDING = threading.local()  # .tally: the launches of a graph being captured
 
 # Where the tensor-core route's device time beats the tile kernel's, from a
 # sweep on an H100 (PERF.md): the tile kernel walks D in a serial loop of
@@ -75,9 +79,36 @@ def reset_launch_counts() -> None:
 
 def _count_launch(route: str) -> None:
     global LAUNCHES
+    tally = getattr(_RECORDING, "tally", None)
+    if tally is not None:
+        tally[route] += 1
+        return
     with _COUNT_LOCK:
         LAUNCHES += 1
         ROUTE_LAUNCHES[route] += 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Count this thread's launches into the dict this yields, by route, and
+    not into ``LAUNCHES``: what a graph's capture launches runs at each of its
+    replays, which :func:`add_launches` counts."""
+    outer = getattr(_RECORDING, "tally", None)
+    _RECORDING.tally = {route: 0 for route in ROUTE_LAUNCHES}
+    try:
+        yield _RECORDING.tally
+    finally:
+        _RECORDING.tally = outer
+
+
+def add_launches(by_route: dict) -> None:
+    """Count the launches ``by_route`` (a replayed graph's) in ``LAUNCHES``
+    and ``ROUTE_LAUNCHES``."""
+    global LAUNCHES
+    with _COUNT_LOCK:
+        for route, n in by_route.items():
+            LAUNCHES += n
+            ROUTE_LAUNCHES[route] += n
 
 
 def wgmma_takes(m: int, n: int, d: int, dtype: torch.dtype, a_ptr: int, b_ptr: int) -> bool:

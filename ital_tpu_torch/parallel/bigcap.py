@@ -121,7 +121,7 @@ def make_bigcap_round(mesh: Mesh, *, strategy: str = "ital", batch_size: int = 4
             y, valid = feedback_from_uniforms(u_label, u_flip, batch, relevant,
                                               params.label_prob, params.mistake_prob)
             c, b = state.count, batch.shape[0]
-            gp_mod._check_capacity([c], b, state.cap)
+            gp_mod.check_capacity([c], b, state.cap)
             state.idx[c:c + b] = batch
             state.y[c:c + b] = torch.where(valid, y.to(state.y.dtype), 0.0)
             state.valid[c:c + b] = valid

@@ -46,10 +46,12 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from ital_tpu_torch import graphs
 from ital_tpu_torch.data import datasets as ds_mod
 from ital_tpu_torch.data.user import feedback_from_uniforms
 from ital_tpu_torch.models import gp as gp_mod
 from ital_tpu_torch.models.hyperopt import LearnConfig, fit_hyperparams
+from ital_tpu_torch.ops.chol import host_copy
 from ital_tpu_torch.select.base import (
     StrategyParams,
     get_stacked_strategy,
@@ -100,7 +102,7 @@ def round_draws(seed: int, rep: int, cls: int, query: int, rnd: int, batch_size:
     run on the card and one on the CPU see the same user.
     """
     user = torch.Generator().manual_seed(_seed(seed, rep, cls, query, rnd, 1))
-    u = torch.rand(2, batch_size, generator=user).to(device)
+    u = host_copy(torch.rand(2, batch_size, generator=user), device)
     sel = torch.Generator(device=device).manual_seed(_seed(seed, rep, cls, query, rnd, 0))
     return sel, u[0], u[1]
 
@@ -219,6 +221,31 @@ class _SessionOps:
     drift_refit: bool = True
 
 
+def _absorb_body(x, *, batch, u_label, u_flip, relevant, exclude, **inputs) -> tuple:
+    params = StrategyParams.from_inputs(inputs)
+    y, valid = feedback_from_uniforms(u_label, u_flip, batch, relevant, params.label_prob,
+                                      params.mistake_prob)
+    state = gp_mod.gp_update(gp_mod.program_state(x, inputs), batch, y, valid)
+    n = state.x.shape[0]
+    return (average_precision(state.mu, relevant, exclude),
+            *(recall_at_k(state.mu, relevant, min(k, n), exclude) for k in RECALL_KS))
+
+
+def absorb_step(state, batch, u_label, u_flip, relevant, exclude, params):
+    """The simulated user's answers to ``batch`` from the uniforms, the GP
+    update of ``state`` (in place), then AP and recall@k of the new ranking,
+    as one program (the reference's ``make_step_fns`` ``absorb_step``; on the
+    card a captured graph, :func:`ital_tpu_torch.graphs.run`).  Returns
+    ``(state, ap, recalls)``."""
+    gp_mod.check_capacity([state.count], batch.shape[0], state.cap)
+    inputs = {**gp_mod.program_inputs(state), **params.program_inputs(), "batch": batch,
+              "u_label": u_label, "u_flip": u_flip, "relevant": relevant, "exclude": exclude}
+    ap, *recalls = graphs.run("absorb_step", _absorb_body, inputs, shared={"x": state.x},
+                              writes=gp_mod.SESSION_FIELDS)
+    state.count += batch.shape[0]
+    return state, ap, recalls
+
+
 def _serial_ops(cfg, dataset, params, select_kwargs, dev) -> _SessionOps:
     select = get_strategy(cfg.method)
     n = dataset.n
@@ -235,11 +262,8 @@ def _serial_ops(cfg, dataset, params, select_kwargs, dev) -> _SessionOps:
         with timer.span("select"):
             batch = select(state, cfg.batch_size, generator, params, **select_kwargs)
         with timer.span("update"):
-            y, valid = feedback_from_uniforms(u_label, u_flip, batch, relevant,
-                                              params.label_prob, params.mistake_prob)
-            state = gp_mod.gp_update(state, batch, y, valid)
-            ap = average_precision(state.mu, relevant, exclude)
-            recalls = [recall_at_k(state.mu, relevant, min(k, n), exclude) for k in RECALL_KS]
+            state, ap, recalls = absorb_step(state, batch, u_label, u_flip, relevant, exclude,
+                                             params)
         return state, ap, recalls
 
     return _SessionOps(masks=masks, step=step, gather=None, save=ckpt.save_session,

@@ -54,6 +54,16 @@ class StrategyParams:
         return cls(label_prob=t(label_prob), mistake_prob=t(mistake_prob), jitter=t(jitter),
                    tradeoff=t(tradeoff))
 
+    def program_inputs(self) -> dict:
+        """The values by name, as a program's inputs
+        (:func:`ital_tpu_torch.graphs.run`)."""
+        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+
+    @classmethod
+    def from_inputs(cls, inputs: dict) -> "StrategyParams":
+        """The params a program's body works on, from its ``inputs``."""
+        return cls(**{f.name: inputs[f.name] for f in dataclasses.fields(cls)})
+
 
 SelectFn = Callable[..., torch.Tensor]
 

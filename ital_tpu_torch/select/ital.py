@@ -32,7 +32,14 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ital_tpu_torch.models.gp import GPState, StackedGPState, stacked_view
+from ital_tpu_torch import graphs
+from ital_tpu_torch.models.gp import (
+    GPState,
+    StackedGPState,
+    program_inputs,
+    program_state,
+    stacked_view,
+)
 from ital_tpu_torch.ops.blocking import blocked_map
 from ital_tpu_torch.ops.kernels import rbf_sessions
 from ital_tpu_torch.ops.mvn import (
@@ -72,6 +79,17 @@ def feedback_table(m: int) -> np.ndarray:
     return np.asarray(list(itertools.product([-1.0, 0.0, 1.0], repeat=m)), np.float32)
 
 
+@functools.cache
+def device_tables(m: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(:func:`sign_table`, :func:`feedback_table`) of ``m`` as f32 tensors on
+    ``device``, copied from the host once and cached: a copy from pageable
+    memory waits for the stream, and inside a CUDA graph's capture it is
+    refused, so the warm-up before a capture fills the cache.  Callers never
+    write them."""
+    return (torch.as_tensor(sign_table(m), device=device),
+            torch.as_tensor(feedback_table(m), device=device))
+
+
 def feedback_given_relevance(
     m: int, label_prob: torch.Tensor, mistake_prob: torch.Tensor
 ) -> torch.Tensor:
@@ -81,8 +99,9 @@ def feedback_given_relevance(
     P(f=-r) = label_prob * mistake_prob — factorized across the batch.
     """
     dev, dt = label_prob.device, label_prob.dtype
-    r = torch.as_tensor(sign_table(m), device=dev)[:, None, :]  # (2^m, 1, m)
-    f = torch.as_tensor(feedback_table(m), device=dev)[None, :, :]  # (1, 3^m, m)
+    signs, feedback = device_tables(m, dev)
+    r = signs[:, None, :]  # (2^m, 1, m)
+    f = feedback[None, :, :]  # (1, 3^m, m)
     one = torch.ones((), dtype=dt, device=dev)
     p_item = torch.where(
         f == 0.0,
@@ -366,12 +385,49 @@ def candidate_pool_mask(
         -1, pool_idx, False)
 
 
+def _check_options(batch_size: int, pool_size: int, subsample_size: int,
+                   qmc_shifts: Optional[Sequence]) -> None:
+    """Refuse options no ITAL selection takes, before anything is drawn."""
+    if batch_size > MAX_MI_BATCH:
+        raise ValueError(
+            f"ITAL batch_size={batch_size} exceeds the supported maximum "
+            f"{MAX_MI_BATCH}: the feedback-configuration table grows 3^m "
+            f"(={3 ** batch_size}) and the fixed-lattice QMC accuracy is "
+            f"measured only through m={MAX_MI_BATCH}; use a smaller batch or "
+            f"multiple rounds"
+        )
+    if pool_size and subsample_size:
+        raise ValueError(
+            "pool_size and subsample_size are mutually exclusive candidate "
+            "restrictions (reference ITAL applies one or the other)"
+        )
+    if qmc_shifts is not None and len(qmc_shifts) < batch_size:
+        raise ValueError(
+            f"qmc_shifts needs one shift per greedy step ({batch_size}), "
+            f"got {len(qmc_shifts)}"
+        )
+
+
 def draw_qmc_shifts(
     generator: Optional[torch.Generator], batch_size: int, dtype: torch.dtype, device
 ) -> list[torch.Tensor]:
     """One uniform (t,) Cranley-Patterson shift per greedy step t, from ``generator``."""
     return [torch.rand(t, generator=generator, dtype=dtype, device=device)
             for t in range(batch_size)]
+
+
+def draw_selection_inputs(
+    generator: Optional[torch.Generator], n: int, batch_size: int, dtype: torch.dtype, device,
+    *, subsample: bool, randomize: bool,
+) -> tuple[Optional[torch.Tensor], Optional[list[torch.Tensor]]]:
+    """One session's random inputs to an ITAL selection, from ``generator`` in
+    the order the selection draws them: the (n,) subsample uniforms first
+    where ``subsample``, then one (t,) shift per greedy step t where
+    ``randomize`` (:func:`draw_qmc_shifts`).  Returns (uniforms or None,
+    shifts or None)."""
+    u = torch.rand(n, generator=generator, dtype=dtype, device=device) if subsample else None
+    shifts = draw_qmc_shifts(generator, batch_size, dtype, device) if randomize else None
+    return u, shifts
 
 
 def _greedy_picks(
@@ -447,40 +503,18 @@ def select_ital_stacked(
     one shift per greedy step.  Fed draws: ``subsample_uniforms`` (K, N) and
     ``qmc_shifts``, one (K, t) shift per step t.
     """
-    if batch_size > MAX_MI_BATCH:
-        raise ValueError(
-            f"ITAL batch_size={batch_size} exceeds the supported maximum "
-            f"{MAX_MI_BATCH}: the feedback-configuration table grows 3^m "
-            f"(={3 ** batch_size}) and the fixed-lattice QMC accuracy is "
-            f"measured only through m={MAX_MI_BATCH}; use a smaller batch or "
-            f"multiple rounds"
-        )
-    if pool_size and subsample_size:
-        raise ValueError(
-            "pool_size and subsample_size are mutually exclusive candidate "
-            "restrictions (reference ITAL applies one or the other)"
-        )
-    if qmc_shifts is not None and len(qmc_shifts) < batch_size:
-        raise ValueError(
-            f"qmc_shifts needs one shift per greedy step ({batch_size}), "
-            f"got {len(qmc_shifts)}"
-        )
-
+    _check_options(batch_size, pool_size, subsample_size, qmc_shifts)
     n = st.x.shape[0]
     dt, dev = st.mu.dtype, st.mu.device
-    draw_u = subsample_size and subsample_uniforms is None
+    draw_u = bool(subsample_size) and subsample_uniforms is None
     draw_shifts = randomize_qmc and qmc_shifts is None
     if draw_u or draw_shifts:
-        us, shifts = [], []
-        for g in generators:
-            if draw_u:
-                us.append(torch.rand(n, generator=g, dtype=dt, device=dev))
-            if draw_shifts:
-                shifts.append(draw_qmc_shifts(g, batch_size, dt, dev))
+        drawn = [draw_selection_inputs(g, n, batch_size, dt, dev, subsample=draw_u,
+                                       randomize=draw_shifts) for g in generators]
         if draw_u:
-            subsample_uniforms = torch.stack(us)
+            subsample_uniforms = torch.stack([u for u, _ in drawn])
         if draw_shifts:
-            qmc_shifts = [torch.stack([s[t] for s in shifts]) for t in range(batch_size)]
+            qmc_shifts = [torch.stack([s[t] for _, s in drawn]) for t in range(batch_size)]
     if pool_size or subsample_size:
         ranking = st.mu if pool_size else subsample_uniforms
         pool_idx, forbid = candidate_pool_indices(st, ranking, min(pool_size or subsample_size, n))
@@ -525,11 +559,52 @@ def select_ital(
     ``qmc_shifts`` win.  The subset is the top ``subsample_size`` unlabeled
     items of an (N,) uniform draw, ``subsample_uniforms`` where given, else
     drawn from ``generator`` before the shifts.
+
+    The selection is one program (:func:`ital_tpu_torch.graphs.run`), the
+    counterpart of the reference's ``_jit_select``: on a CUDA state a graph
+    captured once per batch size, options, corpus and shapes and shared by
+    every session; the draws are made first and fed in.  On the CPU, or in
+    ``graphs.eager()``, the same body runs eagerly.
     """
-    return select_ital_stacked(
-        stacked_view(state), batch_size, [generator], params, n_qmc=n_qmc, block=block,
-        pool_size=pool_size, subsample_size=subsample_size, refine_top=refine_top,
-        refine_n_qmc=refine_n_qmc, randomize_qmc=randomize_qmc,
-        qmc_shifts=None if qmc_shifts is None else [s[None] for s in qmc_shifts],
+    _check_options(batch_size, pool_size, subsample_size, qmc_shifts)
+    u, shifts = draw_selection_inputs(
+        generator, state.x.shape[0], batch_size, state.mu.dtype, state.mu.device,
+        subsample=bool(subsample_size) and subsample_uniforms is None,
+        randomize=randomize_qmc and qmc_shifts is None)
+    if u is not None:
+        subsample_uniforms = u
+    if shifts is not None:
+        qmc_shifts = shifts
+    options = {"n_qmc": n_qmc, "block": block, "pool_size": pool_size,
+               "subsample_size": subsample_size, "refine_top": refine_top,
+               "refine_n_qmc": refine_n_qmc}
+    inputs = {
+        **program_inputs(state), **params.program_inputs(),
+        "subsample_uniforms": subsample_uniforms if subsample_size else None,
+        "qmc_shifts": None if qmc_shifts is None else _pack_shifts(qmc_shifts, batch_size),
+    }
+    (batch,) = graphs.run(
+        "select_ital", functools.partial(_select_body, batch_size=batch_size, options=options),
+        inputs, shared={"x": state.x}, static=(batch_size, tuple(options.items())))
+    return batch
+
+
+def _pack_shifts(qmc_shifts: Sequence[torch.Tensor], batch_size: int) -> torch.Tensor:
+    """(batch_size, batch_size) rows of the greedy steps' shifts, step t's (t,)
+    shift in row t's first t columns: one input for a program."""
+    return torch.stack([torch.nn.functional.pad(s, (0, batch_size - s.shape[0]))
+                        for s in qmc_shifts[:batch_size]])
+
+
+def _select_body(x: torch.Tensor, *, batch_size: int, options: dict,
+                 subsample_uniforms: Optional[torch.Tensor],
+                 qmc_shifts: Optional[torch.Tensor], **inputs) -> tuple[torch.Tensor]:
+    """The selection program's body: :func:`select_ital_stacked` of one
+    session with its draws fed in."""
+    return (select_ital_stacked(
+        stacked_view(program_state(x, inputs)), batch_size, [None],
+        StrategyParams.from_inputs(inputs), **options,
+        qmc_shifts=None if qmc_shifts is None else [qmc_shifts[None, t, :t]
+                                                    for t in range(batch_size)],
         subsample_uniforms=None if subsample_uniforms is None else subsample_uniforms[None],
-    )[0]
+    )[0],)

@@ -1,4 +1,6 @@
-"""The CUDA RBF kernels (both routes) against their plain version, on a card.
+"""The CUDA RBF kernels (both routes) against their plain version, and the
+captured programs (``ital_tpu_torch.graphs``) against their eager runs, on a
+card.
 
 No JAX here, so this file also runs where only the port is installed:
 
@@ -11,7 +13,10 @@ import numpy as np
 import pytest
 import torch
 
+from ital_tpu_torch import graphs
+from ital_tpu_torch.data import datasets as tds
 from ital_tpu_torch.data.datasets import _synthetic_surrogate
+from ital_tpu_torch.models.session import ActiveRetrieval
 from ital_tpu_torch.ops import rbf_hopper
 from ital_tpu_torch.ops.kernels import rbf_kernel, rbf_kernel_plain
 
@@ -307,3 +312,61 @@ def test_cuda_stacked_select_and_update_match_the_cpu():
     assert (selected, updated) == (2 * 2 * 3, 2 * 3)  # groups x blocks (x greedy steps 1-3)
     assert torch.equal(picks_card, picks_cpu)
     assert float((mu_card - mu_cpu).abs().max()) <= 1e-4
+
+
+# The production selection (configs/mirflickr_production.ini) on a 3000-row
+# surrogate: a pool of 256, n_qmc 32, the top 64 re-scored at 512.
+GRAPH_KW = {"pool_size": 256, "n_qmc": 32, "refine_top": 64, "refine_n_qmc": 512}
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (a CUDA graph has no CPU mode)")
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_session_equals_eager():
+    """On the card: the captured fetch and update give the eager session's
+    picks and a posterior within 1e-6; a second session replays them."""
+    _needs_card()
+    ds = tds._synthetic_surrogate("mirflickr", 3000, 128, 14, seed=0)
+    x = torch.from_numpy(ds.x).cuda()
+    kw = dict(length_scale=12.0, cap=32, label_prob=0.8, mistake_prob=0.05,
+              method_kwargs=GRAPH_KW)
+    graphed, plain = ActiveRetrieval(x, **kw), ActiveRetrieval(x, **kw)
+    graphed.update_query(17)
+    plain.update_query(17)
+    before = len(graphs.programs())
+    for _ in range(3):
+        got = graphed.fetch_unlabelled(4)
+        with graphs.eager():
+            want = plain.fetch_unlabelled(4)
+        np.testing.assert_array_equal(got, want)
+        fb = {int(i): 1 for i in got}
+        graphed.update(fb)
+        with graphs.eager():
+            plain.update(fb)
+        assert float((graphed.state.mu - plain.state.mu).abs().max()) <= 1e-6
+    assert len(graphs.programs()) == before + 2
+    second = ActiveRetrieval(x, **kw)
+    second.update_query(40)
+    second.update({int(i): -1 for i in second.fetch_unlabelled(4)})
+    assert len(graphs.programs()) == before + 2
+
+
+@pytest.mark.cuda
+def test_cuda_replays_count_kernel_launches():
+    """On the card every replay counts the kernel launches its capture
+    recorded."""
+    _needs_card()
+    ds = tds._synthetic_surrogate("mirflickr", 3000, 128, 14, seed=1)
+    sess = ActiveRetrieval(torch.from_numpy(ds.x).cuda(), length_scale=12.0, cap=32,
+                           method_kwargs=GRAPH_KW)
+    sess.update_query(3)
+    sess.fetch_unlabelled(4)
+    replays = {id(p): p.replays for p in graphs.programs()}
+    before = rbf_hopper.LAUNCHES
+    sess.fetch_unlabelled(4)
+    (prog,) = [p for p in graphs.programs() if p.replays > replays.get(id(p), 0)]
+    assert prog.name == "select_ital"
+    assert rbf_hopper.LAUNCHES - before == sum(prog.launches.values()) > 0
