@@ -61,21 +61,40 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    selection's pool cross-kernel and batch block, the update's three
    blocks, one of them in two hyperparameter groups), each held against the
    plain version within ``F32_ATOL`` x var and timed against one launch per
-   session.  Then the runner (2 classes x 2 queries, depth cut to 5 rounds,
-   cap 64) serially (uncounted: the baseline), with ``fused_sessions`` (the
-   fused path's count), with ``query_batch = 4`` (one stacked selection and
-   one stacked GP update a round; the cohort path's count starts here) and
-   with both: each stacked pick is replayed on its session alone and must
-   agree up to MI ties, the fused runs must give the unfused runs' curves,
-   and each mode's time per round is printed beside the serial run's.  Then
-   over HTTP, eight ITAL sessions of four classes through ``/batch_select``
-   and ``/batch_feedback`` for three rounds beside eight twins served one
-   request at a time (uncounted), which absorb the same answers: picks agree up to MI
-   ties and each posterior mean with its twin's within ``CPU_MU_ATOL``.
-   Every stacked request must launch the kernel; each request kind's host
-   latency, its launches and the device memory a stacked request adds (in
-   copies of one session's (cap, N) f32 buffer, held to the server's budget
-   model) are printed with the card's name and power limit.
+   session, beside the bound of the function it computes (each input read
+   once, a shared corpus once for all groups, only the K blocks it returns
+   written) and the bound of its launches' own work.  Then the runner (3 classes x
+   2 queries, depth cut to 5 rounds, cap 64) serially (uncounted: the
+   baseline), then with ``fused_sessions`` (one captured program of all of
+   a session's rounds; the fused path's count), with ``query_batch = 4``
+   (one captured program a cohort round, the second cohort of 2 padded to
+   4 and replaying it; the cohort path's count starts here) and with both
+   (one program of all of a cohort's rounds), each mode in four turns, graphed, eager, eager, graphed (``graphs.eager()``,
+   uncounted): graphed picks and curves equal to eager, the posterior means
+   after every program bit-equal (or within ``COHORT_MU_ATOL``); each
+   stacked pick is replayed on its session alone and must agree up to MI
+   ties, the fused runs must give the unfused runs' curves, and each turn's
+   time is printed beside the serial run's.  Then over HTTP, in the same
+   four turns on one server, eight ITAL sessions of four classes through
+   ``/batch_select`` and ``/batch_feedback`` (one captured program each on
+   the graphed turns, the second graphed turn with no new capture) for
+   three rounds beside eight twins served one request at a time
+   (uncounted), which absorb the same answers: graphed picks and means
+   equal to eager, picks up to MI ties and each posterior mean within
+   ``CPU_MU_ATOL`` of its twin's.  Every stacked request must launch the
+   kernel; each request kind's host latency, its launches and the device
+   memory a stacked request adds (in copies of one session's (cap, N) f32
+   buffer, held to the server's budget model), and each program's warm-up,
+   capture and instantiate ms, replays, launches, static buffers and pool
+   growth, are printed with the card's name and power limit.  Last, mixed
+   cohort traffic over HTTP in the same four turns: eight sessions, three
+   of them after ``/learn``, through ``MIX_REQUESTS`` (cohorts of 2, 3, 4
+   and 8 in varying orders and mixes of learned and default sessions, a
+   ``/batch_select`` and a ``/batch_feedback`` each), twice: graphed picks
+   equal eager picks, and the second graphed turn captures nothing (every
+   program held within ``graphs.STACK_BYTES``); per turn and pass the
+   request latencies, the captures and their ms, the programs held with
+   their static MiB and the graph pools' MiB.
 9. sharded: the corpus-sharded path (``ital_tpu_torch.parallel``).  A mesh of
    one card must run on NCCL.  The kernel at the two whole-corpus shapes the
    100 000-row path adds, (64, 100000, 512) and (4, 100000, 512) f32, against
@@ -102,9 +121,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    Then ``configs/scale100k.ini`` (100 000 x 512, depth cut to 2 classes x
    2 queries x 3 rounds) through the runner with ``query_batch = 4`` and
    ``fused_sessions``, and with ``fused_sessions`` alone, each on the mesh
-   (clamped to the card) beside its ``mesh_devices = 0`` run (uncounted):
-   picks agree round by round up to MI ties on the single-device state, the
-   AP curves while they agree.  With two cards or more the cohort also runs
+   (clamped to the card) beside the plan on one device round by round
+   (``query_batch = 4`` unfused, or the serial run; uncounted): picks agree
+   round by round up to MI ties on the single-device state, the AP curves
+   while they agree.  With two cards or more the cohort also runs
    on a world of 2 on NCCL; with one, a line says it did not.  Then the mesh
    service (``mesh_devices = 1``, NCCL) over ``corpus100k`` at the
    production selection options, cap 64: eight ITAL sessions through
@@ -221,12 +241,19 @@ LEARN_RTOL = 1e-3
 # Request kinds whose every request forms RBF blocks on the card.
 KERNEL_REQUESTS = ("create with density", "query", "batch_select", "batch",
                    "batch_feedback", "feedback", "learn")
-# Phase 8: the runner's cohort of 4 (2 classes x 2 queries, 5 rounds) and the
-# HTTP cohort of 8 sessions (4 classes x 2 queries) beside 8 twins.
+# Phase 8: the runner's cohorts of 4 (3 classes x 2 queries, 5 rounds: a full
+# cohort and a padded one of 2) and the HTTP cohort of 8 sessions (4 classes x
+# 2 queries) beside 8 twins.
+COHORT_CLASSES = 3
 COHORT_QB = 4
 COHORT_ROUNDS = 5
 COHORT_K = 8
 COHORT_KINDS = ("batch_select", "batch", "batch_feedback", "feedback")
+COHORT_MODES = {"fused": {"fused_sessions": True}, "query_batch": {"query_batch": COHORT_QB},
+                "query_batch+fused": {"query_batch": COHORT_QB, "fused_sessions": True}}
+# Graphed against eager stacked means where they are not bit-equal (a layout
+# or a kernel route that differs between the program's buffers and eager's).
+COHORT_MU_ATOL = 1e-7
 # Phase 9: configs/scale100k.ini (100 000 x 512, mesh_devices = 8, clamped to
 # the cards), depth cut to 1 class x 3 rounds; then the ring strategies on the
 # harness configuration's 25 000 rows, 1 class x 2 rounds.
@@ -872,15 +899,17 @@ def _uncounted():
 
 
 def _check_stacked_picks(torch, st, picks, params, kw, what: str) -> int:
-    """Replay each session of stack ``st`` alone and hold the stacked picks to
-    its own up to MI ties; returns the number of sessions whose picks differ."""
+    """Replay each session of stack ``st`` alone (eagerly, uncounted) and
+    hold the stacked picks to its own up to MI ties; returns the number of
+    sessions whose picks differ."""
     import types
 
+    from ital_tpu_torch import graphs
     from ital_tpu_torch.models import gp as gp_mod
     from ital_tpu_torch.select.ital import select_ital
 
     differ = 0
-    with _uncounted():
+    with _uncounted(), graphs.eager():
         for k in range(st.k):
             sess = types.SimpleNamespace(state=gp_mod.session_state(st, k), params=params)
             own = select_ital(sess.state, picks.shape[1], None, params, **kw)
@@ -894,130 +923,257 @@ def _check_stacked_picks(torch, st, picks, params, kw, what: str) -> int:
     return differ
 
 
-def _cohort_runner(torch, ds, cfg, dev, smi: str) -> dict:
-    """The runner's serial, fused, cohort and cohort-fused modes on one plan;
-    returns the fused run's launches by route.  The cohort path's count
-    starts at the cohort run and goes on counting after the return.
-
-    Each stacked pick of the cohort is replayed on its session alone.
-    Against the serial run, a session's picks in the cohort and in the fused
-    run agree round by round up to the first round whose picks differ by an
-    MI tie: on the card the stacked state and the session's own buffers
-    differ in layout (the library's factor is column-major, a stack's
-    row-major), so their updates differ by rounding (~1e-7) and a later
-    tie may fall the other way; from there the session's history is another
-    one.  The cohort-fused run repeats the cohort's operations and must give
-    its curves.
-    """
-    import types
+@contextlib.contextmanager
+def _record_cohort_programs(record: list, keep_stacks: bool):
+    """Append ``(the stack before or None, mu after)`` to ``record`` for each
+    call of the runner's cohort programs (``runner._cohort_rounds``)."""
+    import torch
 
     from ital_tpu_torch import runner
     from ital_tpu_torch.models import gp as gp_mod
+
+    rounds = runner._cohort_rounds
+
+    def watched(cfg, states, *args, **kwargs):
+        before = gp_mod.stack_states(states) if keep_stacks else None
+        out = rounds(cfg, states, *args, **kwargs)
+        record.append((before, torch.stack([s.mu for s in states])))
+        return out
+
+    runner._cohort_rounds = watched
+    try:
+        yield
+    finally:
+        runner._cohort_rounds = rounds
+
+
+def _mu_gap(torch, graphed: list, eager: list, what: str) -> float:
+    """Hold graphed means to eager ones, pair by pair: bit-equal, or within
+    ``COHORT_MU_ATOL`` where a layout differs.  Returns the largest gap."""
+    check(len(graphed) == len(eager), f"{what}: {len(graphed)} graphed, {len(eager)} eager means")
+    gap = max((float((a - b).abs().max()) for a, b in zip(graphed, eager)), default=0.0)
+    if gap:
+        print(f"{what}: graphed mu differs from eager by {gap:.3e}: the program's buffers and "
+              f"the eager stack differ in layout or in the route a block took")
+    check(gap <= COHORT_MU_ATOL, f"{what}: graphed mu within {COHORT_MU_ATOL} of eager ({gap})")
+    return gap
+
+
+def _known_programs() -> dict:
+    """The live programs and their replays, ``{id: (program, replays)}``: the
+    program is held so that no later one, once it is released, takes its id."""
+    from ital_tpu_torch import graphs
+
+    return {id(p): (p, p.replays) for p in graphs.programs()}
+
+
+def _replayed_since(known: dict, p) -> bool:
+    return p.replays > known.get(id(p), (None, 0))[1]
+
+
+def _phase_programs(known: dict) -> list:
+    """The programs captured or replayed since ``known`` (``_known_programs``)."""
+    from ital_tpu_torch import graphs
+
+    return [p for p in graphs.programs() if _replayed_since(known, p)]
+
+
+def _print_programs(progs: list, known: dict, what: str, smi: str) -> None:
+    for p in progs:
+        mu = p.inputs.get("mu")
+        k = ("released since" if p.graph is None
+             else f"K = {mu.shape[0] if mu is not None and mu.dim() == 2 else 1}")
+        print(f"{what} program {p.name} ({k}){'' if id(p) not in known else ' (captured earlier)'}"
+              f": warm-up {p.warmup_ms:.1f} ms, capture {p.capture_ms:.1f} ms, instantiate "
+              f"{p.instantiate_ms:.1f} ms, replays {p.replays}, launches per replay "
+              f"{sum(p.launches.values())}, static buffers {p.static_bytes / 2**20:.2f} MiB, pool "
+              f"growth at capture {p.pool_bytes / 2**20:.2f} MiB [{smi}]")
+
+
+def _cohort_runner(torch, ds, cfg, dev, smi: str) -> dict:
+    """The runner's serial run and its fused, cohort and cohort-fused modes
+    on one plan, each mode graphed and eager in ``GRAPH_TURNS``; returns the
+    graphed fused runs' launches by route.  The cohort path's count starts
+    at the cohort's first turn and goes on counting after the return.
+
+    Each mode: graphed picks and curves equal to eager, ``mu`` after every
+    program call bit-equal (or within ``COHORT_MU_ATOL``).  Each stacked
+    pick of the cohort's first turn is replayed on its session alone, up to
+    MI ties.  Against the serial run, a session's picks in the cohort and in
+    the fused run agree round by round up to the first round whose picks
+    differ by an MI tie: on the card a stack and the session's own buffers
+    round differently (~1e-7), so a later tie may fall the other way.  The
+    cohort-fused run repeats the cohort's operations and must give its
+    picks and curves.
+    """
+    import types
+
+    from ital_tpu_torch import graphs, runner
+    from ital_tpu_torch.models import gp as gp_mod
     from ital_tpu_torch.ops import rbf_hopper
     from ital_tpu_torch.select import base
+    from ital_tpu_torch.select.base import StrategyParams
 
-    plan = dataclasses.replace(cfg, max_classes=2, queries_per_class=2, n_rounds=COHORT_ROUNDS,
-                               gp=dataclasses.replace(cfg.gp, cap=CAP))
+    plan = dataclasses.replace(cfg, max_classes=COHORT_CLASSES, queries_per_class=2,
+                               n_rounds=COHORT_ROUNDS, gp=dataclasses.replace(cfg.gp, cap=CAP))
+    n_sess = 2 * COHORT_CLASSES
     kw, rounds = plan.method_kwargs, plan.n_rounds
-    # The serial run is the baseline, counted in no path; the fused run is
-    # the fused path; the cohort path's count starts at the query_batch run.
-    modes = {"serial": {}, "fused": {"fused_sessions": True},
-             "query_batch": {"query_batch": COHORT_QB},
-             "query_batch+fused": {"query_batch": COHORT_QB, "fused_sessions": True}}
-    single, stacked = base.STRATEGIES["ital"], base.STACKED["ital"]
-    serial_states, cohort_stacks, picks = [], [], {}
+    params = StrategyParams.create(dev, label_prob=plan.user.label_prob,
+                                   mistake_prob=plan.user.mistake_prob)
+    single = base.STRATEGIES["ital"]
+    serial_states, serial_picks = [], []
 
     def watched_single(state, batch_size, generator, params, **kwargs):
         out = single(state, batch_size, generator, params, **kwargs)
         serial_states.append((gp_mod.gp_session_copy(state), params))
-        picks[mode].append([out.tolist()])
+        serial_picks.append(out.tolist())
         return out
 
-    def watched_stacked(st, batch_size, generators, params, **kwargs):
-        before = rbf_hopper.LAUNCHES
-        out = stacked(st, batch_size, generators, params, **kwargs)
-        check(rbf_hopper.LAUNCHES > before, "every stacked selection launched the kernel")
-        if mode == "query_batch":
-            cohort_stacks.append((gp_mod.stack_states(
-                [gp_mod.session_state(st, k) for k in range(st.k)]), out.clone(), params))
-        picks[mode].append(out.tolist())
-        return out
+    # The serial run is the baseline, counted in no path.
+    base.STRATEGIES["ital"] = watched_single
+    try:
+        with _uncounted():
+            serial = runner.run_experiment(plan, ds, device=dev)
+    finally:
+        base.STRATEGIES["ital"] = single
+    serial_picks = [serial_picks[k * rounds:(k + 1) * rounds] for k in range(n_sess)]
 
-    res = {}
-    for mode, change in modes.items():
-        picks[mode] = []
+    known = _known_programs()
+    runs, fused_launches, progs = {}, None, []
+    for mode, change in COHORT_MODES.items():
         if mode in ("fused", "query_batch"):
             _reset_counts()
-        base.STRATEGIES["ital"], base.STACKED["ital"] = watched_single, watched_stacked
-        try:
-            with _uncounted() if mode == "serial" else contextlib.nullcontext():
+        runs[mode] = []
+        for i, turn in enumerate(GRAPH_TURNS):
+            record = []
+            keep = mode == "query_batch" and i == 0
+            with _graphed_or_eager(turn), _record_cohort_programs(record, keep):
                 before = rbf_hopper.LAUNCHES
-                res[mode] = runner.run_experiment(dataclasses.replace(plan, **change), ds,
-                                                  device=dev)
-                res[mode]["launches"] = rbf_hopper.LAUNCHES - before
-        finally:
-            base.STRATEGIES["ital"], base.STACKED["ital"] = single, stacked
+                res = runner.run_experiment(dataclasses.replace(plan, **change), ds, device=dev)
+                res["launches"] = rbf_hopper.LAUNCHES - before
+            check(res["ap"].shape == (n_sess, rounds) and bool(np.isfinite(res["ap"]).all()),
+                  f"cohort runner {mode} {turn}: AP shape and values")
+            check(res["picks"].shape == (n_sess, rounds, plan.batch_size),
+                  f"cohort runner {mode} {turn}: the programs' picks")
+            runs[mode].append((turn, res, record))
         if mode == "fused":
             fused_launches = dict(rbf_hopper.ROUTE_LAUNCHES)
-        ap = res[mode]["ap"]
-        check(ap.shape == (4, rounds) and bool(np.isfinite(ap).all()),
-              f"cohort runner {mode}: AP shape and values")
-    # picks[mode][session][round]: the serial and fused runs select session by
-    # session, the cohorts all four sessions at once.
-    for mode in modes:
-        flat = [row for call in picks[mode] for row in call]
-        if len(picks[mode]) == rounds:  # a cohort: call r holds round r of each session
-            flat = [picks[mode][r][k] for k in range(4) for r in range(rounds)]
-        picks[mode] = [flat[k * rounds:(k + 1) * rounds] for k in range(4)]
-    differ = sum(_check_stacked_picks(torch, st, out, params, kw, f"cohort runner round {r}")
-                 for r, (st, out, params) in enumerate(cohort_stacks))
+        # Collected per mode: the next mode's first capture releases the
+        # programs of this one's corpora, which are gone.
+        progs += [p for p in _phase_programs(known) if all(p is not q for q in progs)]
+    gaps = {}
+    for mode, turns in runs.items():
+        for (tg, g, rg), (te, e, re_) in ((turns[0], turns[1]), (turns[3], turns[2])):
+            check(np.array_equal(g["picks"], e["picks"]),
+                  f"cohort runner {mode}: graphed picks equal eager picks")
+            check(np.array_equal(g["ap"], e["ap"]),
+                  f"cohort runner {mode}: graphed curves equal eager curves")
+            gaps[mode] = max(gaps.get(mode, 0.0),
+                             _mu_gap(torch, [m for _, m in rg], [m for _, m in re_],
+                                     f"cohort runner {mode}"))
+        check(np.array_equal(turns[0][1]["picks"], turns[3][1]["picks"]),
+              f"cohort runner {mode}: both graphed turns pick alike")
+    res = {mode: turns[0][1] for mode, turns in runs.items()}
+    # Cohorts of COHORT_QB, the last padded: call i is round i % rounds of
+    # cohort i // rounds, whose padded rows are not the plan's.
+    qb_record = runs["query_batch"][0][2]
+    n_cohorts = -(-n_sess // COHORT_QB)
+    check(len(qb_record) == n_cohorts * rounds, "one cohort program a round")
+    differ = 0
+    for i, (st, _) in enumerate(qb_record):
+        c, r = divmod(i, rounds)
+        rows = res["query_batch"]["picks"][c * COHORT_QB:(c + 1) * COHORT_QB, r]
+        real = gp_mod.stack_states([gp_mod.session_state(st, k) for k in range(len(rows))])
+        differ += _check_stacked_picks(torch, real, torch.as_tensor(rows, device=dev), params,
+                                       kw, f"cohort runner cohort {c} round {r}")
     apart = {}
     with _uncounted():
         for mode in ("query_batch", "fused"):
             apart[mode] = []
-            for k in range(4):
-                r = next((r for r in range(rounds)
-                          if picks[mode][k][r] != picks["serial"][k][r]), rounds)
+            for k in range(n_sess):
+                picks = res[mode]["picks"][k].tolist()
+                r = next((r for r in range(rounds) if picks[r] != serial_picks[k][r]), rounds)
                 if r < rounds:
-                    state, params = serial_states[k * rounds + r]
-                    gaps = _tie_gaps(types.SimpleNamespace(state=state, params=params),
-                                     picks[mode][k][r], kw)
+                    state, sp = serial_states[k * rounds + r]
+                    tie = _tie_gaps(types.SimpleNamespace(state=state, params=sp), picks[r], kw)
                     print(f"cohort runner {mode} session {k}: round {r} serial "
-                          f"{picks['serial'][k][r]}, {mode} {picks[mode][k][r]}; refined-MI "
-                          f"gaps on the serial state {gaps} (tie atol {MI_TIE_ATOL})")
-                    check(all(abs(g) <= MI_TIE_ATOL for g in gaps),
+                          f"{serial_picks[k][r]}, {mode} {picks[r]}; refined-MI gaps on the "
+                          f"serial state {tie} (tie atol {MI_TIE_ATOL})")
+                    check(all(abs(g) <= MI_TIE_ATOL for g in tie),
                           f"{mode} and serial picks differ only by ties")
-                check(np.abs(res[mode]["ap"][k, :r] - res["serial"]["ap"][k, :r]).max(
-                    initial=0.0) <= 1e-4, f"{mode} and serial AP agree while their picks do")
+                check(np.abs(res[mode]["ap"][k, :r] - serial["ap"][k, :r]).max(initial=0.0)
+                      <= 1e-4, f"{mode} and serial AP agree while their picks do")
                 apart[mode].append(r)
-    gaps = {mode: float(np.abs(res[mode]["ap"] - res[ref]["ap"]).max())
-            for mode, ref in (("query_batch", "serial"), ("query_batch+fused", "query_batch"),
-                              ("fused", "serial"))}
-    print(f"cohort runner: max |AP - AP_ref| {gaps}; stacked picks that differed from the "
-          f"session's own on its state: {differ} of {4 * rounds}; first round whose picks "
-          f"differ from the serial run's, per session: {apart} of {rounds}")
-    check(gaps["query_batch+fused"] <= 1e-6 and picks["query_batch+fused"] == picks["query_batch"],
+    ap_gaps = {mode: float(np.abs(res[mode]["ap"] - res[ref]["ap"]).max()) if ref != "serial"
+               else float(np.abs(res[mode]["ap"] - serial["ap"]).max())
+               for mode, ref in (("query_batch", "serial"), ("query_batch+fused", "query_batch"),
+                                 ("fused", "serial"))}
+    print(f"cohort runner: max |AP - AP_ref| {ap_gaps}; graphed vs eager max |mu| gap {gaps}; "
+          f"stacked picks that differed from the session's own on its state: {differ} of "
+          f"{n_sess * rounds}; first round whose picks differ from the serial run's, per session: "
+          f"{apart} of {rounds}")
+    check(ap_gaps["query_batch+fused"] <= 1e-6
+          and np.array_equal(res["query_batch+fused"]["picks"], res["query_batch"]["picks"]),
           "the cohort-fused run gives the cohort's picks and curves")
-    s = res["serial"]
-    serial_round = s["select_ms_steady"] + s["update_ms_steady"]
-    q, qf, f = res["query_batch"], res["query_batch+fused"], res["fused"]
-    print(f"cohort runner: query_batch {COHORT_QB} round steady {q['select_ms_steady']:.3f} ms "
-          f"(first {q['first_round_ms']:.1f}) against {COHORT_QB} serial select + update "
-          f"{COHORT_QB} x {serial_round:.3f} = {COHORT_QB * serial_round:.3f} ms; query_batch + "
-          f"fused {qf['select_ms']:.3f} ms a cohort of {rounds} rounds (first "
-          f"{qf['first_round_ms']:.1f}); fused session {f['select_ms'] * rounds:.3f} ms "
-          f"mean, {f['select_ms_steady'] * rounds:.3f} ms steady, against a serial "
-          f"session {rounds} x {serial_round:.3f} = {rounds * serial_round:.3f} ms; "
-          f"launches serial {s['launches']}, query_batch {q['launches']}, query_batch+fused "
-          f"{qf['launches']}, fused {f['launches']} [{smi}]")
+    serial_round = serial["select_ms_steady"] + serial["update_ms_steady"]
+    print(f"cohort runner serial (graphed programs): select + update steady {serial_round:.3f} "
+          f"ms a round; {COHORT_QB} x = {COHORT_QB * serial_round:.3f} ms, a session of "
+          f"{rounds} rounds {rounds * serial_round:.3f} ms [{smi}]")
+    for mode, turns in runs.items():
+        cells = []
+        for turn, r, _ in turns:
+            if mode == "query_batch":
+                cells.append(f"{turn} {r['select_ms_steady']:.3f} ms a round steady (first "
+                             f"{r['first_round_ms']:.1f})")
+            elif mode == "fused":
+                cells.append(f"{turn} {r['select_ms'] * rounds:.3f} ms a session mean, "
+                             f"{r['select_ms_steady'] * rounds:.3f} steady (first "
+                             f"{r['first_round_ms']:.1f})")
+            else:
+                cells.append(f"{turn} {r['select_ms_steady']:.3f} ms a cohort of {rounds} "
+                             f"rounds steady (first {r['first_round_ms']:.1f})")
+            cells[-1] += f", launches {r['launches']}"
+        print(f"cohort runner {mode} turns: " + "; ".join(cells) + f" [{smi}]")
+    _print_programs(progs, known, "cohort runner", smi)
     return fused_launches
 
 
+@contextlib.contextmanager
+def _eager_service(svc, eager: bool):
+    """Run the service's request methods in ``graphs.eager()`` on whatever
+    thread serves them (the mode is the thread's own) when ``eager``."""
+    from ital_tpu_torch import graphs
+
+    if not eager:
+        yield
+        return
+    names = ("next_batch_many", "feedback_many", "next_batch", "feedback", "set_query")
+    orig = {n: getattr(svc, n) for n in names}
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def eager_fn(*args, **kwargs):
+            with graphs.eager():
+                return fn(*args, **kwargs)
+        return eager_fn
+
+    for n in names:
+        setattr(svc, n, wrap(orig[n]))
+    try:
+        yield
+    finally:
+        for n in names:
+            delattr(svc, n)
+
+
 def _cohort_http(torch, ds, cfg, dev, smi: str):
-    """Eight sessions through the cohort endpoints beside eight twins.
-    Returns the device memory the largest stacked selection and update
-    added per session (None on the CPU)."""
-    from ital_tpu_torch import serve
+    """Eight sessions through the cohort endpoints beside eight twins, in
+    ``GRAPH_TURNS`` on one server: the graphed turns replay the stacked
+    select and update programs (the second one with no new capture), and
+    their picks and means are held to the eager turns'.  Returns the device
+    memory the largest stacked selection and update added per session over
+    all turns (None on the CPU)."""
+    from ital_tpu_torch import graphs, serve
     from ital_tpu_torch.ops import rbf_hopper
 
     svc = serve.service_from_config(cfg, device=dev)
@@ -1027,6 +1183,7 @@ def _cohort_http(torch, ds, cfg, dev, smi: str):
     base = f"http://127.0.0.1:{srv.server_address[1]}"
     times, launches, rise = {}, {}, {}
     cuda = dev.type == "cuda"
+    known = _known_programs()
 
     def call(kind, method, path, body=None):
         data = json.dumps(body).encode() if body is not None else None
@@ -1045,80 +1202,222 @@ def _cohort_http(torch, ds, cfg, dev, smi: str):
             raise RuntimeError(f"{method} {path}: HTTP {e.code} {e.read()!r}") from e
         if cuda:
             torch.cuda.synchronize()
-        times.setdefault(kind, []).append((time.perf_counter() - t0) * 1e3)
-        launches.setdefault(kind, []).append(rbf_hopper.LAUNCHES - before)
+        times.setdefault((turn, kind), []).append((time.perf_counter() - t0) * 1e3)
+        launches.setdefault((turn, kind), []).append(rbf_hopper.LAUNCHES - before)
         if cuda:
-            rise.setdefault(kind, []).append(torch.cuda.max_memory_allocated() - allocated)
+            rise.setdefault((turn, kind), []).append(
+                torch.cuda.max_memory_allocated() - allocated)
         return payload
 
+    turns = []
     try:
-        rng = np.random.default_rng(SEED + 11)
-        classes = [int(c) for c in rng.choice(ds.classes, COHORT_K // 2, replace=False)]
-        queries = [(int(q), c) for c in classes for q in ds.queries_for_class(c, rng, 2)]
-        user = _user(rng, ds, cfg.user.label_prob, cfg.user.mistake_prob)
-        # The twins are the baseline: their requests count in no path.
-        cohort, twins = [], []
-        for q, _ in queries:
-            for out in (cohort, twins):
-                with _uncounted() if out is twins else contextlib.nullcontext():
-                    sid = call("create", "POST", "/sessions", {})["session_id"]
-                    call("query", "POST", f"/sessions/{sid}/query", {"index": q})
-                out.append(sid)
-        for r in range(SERVE_ROUNDS):
-            picks = call("batch_select", "POST", "/batch_select",
-                         {"session_ids": cohort, "k": SERVE_K})["batches"]
-            for j, (a, b) in enumerate(zip(cohort, twins)):
-                with _uncounted():
-                    single = call("batch", "GET", f"/sessions/{b}/batch?k={SERVE_K}")["batch"]
-                check(len(set(picks[a])) == SERVE_K, f"round {r}: {SERVE_K} distinct picks")
-                if picks[a] != single:
-                    twin, _ = svc._entry(b)
-                    with _uncounted():
-                        gaps = _tie_gaps(twin, picks[a], twin.method_kwargs)
-                    print(f"cohort serve round {r} session {j}: cohort {picks[a]} single "
-                          f"{single}; refined-MI gaps {gaps} (tie atol {MI_TIE_ATOL})")
-                    check(all(abs(g) <= MI_TIE_ATOL for g in gaps),
-                          "cohort and single twin batches differ only by ties")
-            answers = {a: user(picks[a], c) for a, (_, c) in zip(cohort, queries)}
-            got = call("batch_feedback", "POST", "/batch_feedback",
-                       {"feedback": answers})["sessions"]
-            want = 1 + (r + 1) * SERVE_K
-            for a, b in zip(cohort, twins):
-                with _uncounted():
-                    single = call("feedback", "POST", f"/sessions/{b}/feedback",
-                                  {"labels": answers[a]})
-                check(got[a] == single == {"labeled": want},
-                      f"round {r}: labeled {got[a]} {single}")
-                err = float((svc._entry(a)[0].state.mu - svc._entry(b)[0].state.mu).abs().max())
-                check(err <= CPU_MU_ATOL,
-                      f"round {r}: cohort mu within {CPU_MU_ATOL} of the twin's")
-            print(f"cohort serve round {r}: " + "; ".join(
-                f"{picks[a]} {list(answers[a].values())}" for a in cohort))
+        for i, turn in enumerate(GRAPH_TURNS):
+            rng = np.random.default_rng(SEED + 11)
+            classes = [int(c) for c in rng.choice(ds.classes, COHORT_K // 2, replace=False)]
+            queries = [(int(q), c) for c in classes for q in ds.queries_for_class(c, rng, 2)]
+            user = _user(rng, ds, cfg.user.label_prob, cfg.user.mistake_prob)
+            picks_by_round, mu_by_round = [], []
+            captured = len(graphs.programs())
+            with _graphed_or_eager(turn), _eager_service(svc, turn == "eager"):
+                # The twins are the baseline: their requests count in no path.
+                cohort, twins = [], []
+                for q, _ in queries:
+                    for out in (cohort, twins):
+                        with _uncounted() if out is twins else contextlib.nullcontext():
+                            sid = call("create", "POST", "/sessions", {})["session_id"]
+                            call("query", "POST", f"/sessions/{sid}/query", {"index": q})
+                        out.append(sid)
+                for r in range(SERVE_ROUNDS):
+                    picks = call("batch_select", "POST", "/batch_select",
+                                 {"session_ids": cohort, "k": SERVE_K})["batches"]
+                    for j, (a, b) in enumerate(zip(cohort, twins)):
+                        with _uncounted():
+                            single = call("batch", "GET",
+                                          f"/sessions/{b}/batch?k={SERVE_K}")["batch"]
+                        check(len(set(picks[a])) == SERVE_K, f"round {r}: {SERVE_K} distinct picks")
+                        if picks[a] != single:
+                            twin, _ = svc._entry(b)
+                            with _uncounted(), graphs.eager():
+                                gaps = _tie_gaps(twin, picks[a], twin.method_kwargs)
+                            print(f"cohort serve {turn} round {r} session {j}: cohort {picks[a]} "
+                                  f"single {single}; refined-MI gaps {gaps} (tie atol "
+                                  f"{MI_TIE_ATOL})")
+                            check(all(abs(g) <= MI_TIE_ATOL for g in gaps),
+                                  "cohort and single twin batches differ only by ties")
+                    answers = {a: user(picks[a], c) for a, (_, c) in zip(cohort, queries)}
+                    got = call("batch_feedback", "POST", "/batch_feedback",
+                               {"feedback": answers})["sessions"]
+                    want = 1 + (r + 1) * SERVE_K
+                    for a, b in zip(cohort, twins):
+                        with _uncounted():
+                            single = call("feedback", "POST", f"/sessions/{b}/feedback",
+                                          {"labels": answers[a]})
+                        check(got[a] == single == {"labeled": want},
+                              f"round {r}: labeled {got[a]} {single}")
+                        err = float((svc._entry(a)[0].state.mu
+                                     - svc._entry(b)[0].state.mu).abs().max())
+                        check(err <= CPU_MU_ATOL,
+                              f"round {r}: cohort mu within {CPU_MU_ATOL} of the twin's")
+                    picks_by_round.append([picks[a] for a in cohort])
+                    mu_by_round.append([svc._entry(a)[0].state.mu.clone() for a in cohort])
+                    print(f"cohort serve {turn} round {r}: " + "; ".join(
+                        f"{picks[a]} {list(answers[a].values())}" for a in cohort))
+            if turn == "graphed" and i > 0:
+                check(len(graphs.programs()) == captured,
+                      "the second graphed cohort replays the first one's programs")
+            turns.append((turn, picks_by_round, mu_by_round))
+            for sid in cohort + twins:
+                svc.delete(sid)
     finally:
         srv.shutdown()
         srv.server_close()
         thread.join(timeout=60)
-    for kind in COHORT_KINDS:
-        check(all(n > 0 for n in launches[kind]),
-              f"cohort serve {kind}: the kernel launched in every request {launches[kind]}")
-    per = COHORT_K * svc._entry(cohort[0])[0].state.cap * ds.n * 4
-    for kind in COHORT_KINDS:
-        ms = times[kind]
-        mem = ""
-        if rise:
-            mem = (f"; device memory added per request max {max(rise[kind]) / 2**20:.1f} MiB"
-                   + (f" = {max(rise[kind]) / per:.3f} (cap, N) copies a session"
-                      if kind in ("batch_select", "batch_feedback") else ""))
-        print(f"cohort serve {kind} ({COHORT_K if kind.startswith('batch_') else 1} "
-              f"session(s)): {len(ms)} requests, host ms median {np.median(ms):.3f} min "
-              f"{min(ms):.3f} max {max(ms):.3f}; kernel launches per request "
-              f"{min(launches[kind])}-{max(launches[kind])}{mem} [{smi}]")
+    gap = 0.0
+    for (_, gp_, gm), (_, ep, em) in ((turns[0], turns[1]), (turns[3], turns[2])):
+        check(gp_ == ep, "cohort serve: graphed picks equal eager picks")
+        gap = max(gap, _mu_gap(torch, [m for row in gm for m in row],
+                               [m for row in em for m in row], "cohort serve"))
+    for turn in ("graphed", "eager"):
+        for kind in COHORT_KINDS:
+            check(all(n > 0 for n in launches[(turn, kind)]),
+                  f"cohort serve {turn} {kind}: the kernel launched in every request "
+                  f"{launches[(turn, kind)]}")
+    cap = svc.defaults["cap"]
+    per = COHORT_K * cap * ds.n * 4
+    for turn in ("graphed", "eager"):
+        for kind in COHORT_KINDS:
+            ms = times[(turn, kind)]
+            mem = ""
+            if rise:
+                peak = max(rise[(turn, kind)])
+                mem = (f"; device memory added per request max {peak / 2**20:.1f} MiB"
+                       + (f" = {peak / per:.3f} (cap, N) copies a session, first request "
+                          f"{rise[(turn, kind)][0] / 2**20:.1f} MiB, later max "
+                          f"{max(rise[(turn, kind)][1:], default=0) / 2**20:.1f} MiB"
+                          if kind in ("batch_select", "batch_feedback") else ""))
+            print(f"cohort serve {turn} {kind} "
+                  f"({COHORT_K if kind.startswith('batch_') else 1} session(s)): {len(ms)} "
+                  f"requests, host ms median {np.median(ms):.3f} min {min(ms):.3f} max "
+                  f"{max(ms):.3f}; kernel launches per request {min(launches[(turn, kind)])}-"
+                  f"{max(launches[(turn, kind)])}{mem} [{smi}]")
+    print(f"cohort serve: graphed picks equal eager in every round; max |mu| gap {gap:.3e}")
+    _print_programs(_phase_programs(known), known, "cohort serve", smi)
     if not rise:
         return None
-    n, cap = ds.n, svc._entry(cohort[0])[0].state.cap
-    per_session = {kind: max(rise[kind]) / COHORT_K for kind in ("batch_select", "batch_feedback")}
-    _check_budget(per_session, cap, n)
+    per_session = {kind: max(max(rise[(turn, kind)]) for turn in ("graphed", "eager")) / COHORT_K
+                   for kind in ("batch_select", "batch_feedback")}
+    _check_budget(per_session, cap, ds.n)
     return per_session
+
+
+# The mixed cohort traffic (phase 8): eight sessions, those of MIX_LEARNED
+# with learned hyperparameters, then MIX_REQUESTS passes over cohorts of
+# several sizes and mixes, each a /batch_select and a /batch_feedback.
+MIX_LEARNED = (1, 4, 6)
+MIX_REQUESTS = ([0, 1, 2, 3, 4, 5, 6, 7], [1, 0], [3, 4, 2, 6], [5, 7, 1], [0, 2, 3, 5],
+                [7, 6], [4, 0, 2], [6, 7, 1, 3], [2, 5], [6, 4, 1])
+MIX_PASSES = 2
+
+
+def _cohort_mix(torch, ds, cfg, dev, smi: str) -> None:
+    """Cohort requests of several sizes and hyperparameter mixes over HTTP,
+    in ``GRAPH_TURNS``: eight production sessions answer one cohort round,
+    three of them ``/learn``, then ``MIX_PASSES`` passes over
+    ``MIX_REQUESTS`` (K = 2, 3, 4 and 8, learned and default sessions in
+    varying orders).  A graphed turn captures one program per signature (K,
+    block width and group sizes: a cohort is laid out by hyperparameter
+    group first) and replays it after; the second graphed turn captures
+    nothing if every program of the traffic stayed within
+    ``graphs.STACK_BYTES``.  Graphed picks equal eager picks request by
+    request.  Prints per turn and pass the host ms of each request kind,
+    the captures, the programs held with their static MiB and the graph
+    pools' MiB."""
+    from ital_tpu_torch import graphs, serve
+
+    svc = serve.service_from_config(cfg, device=dev)
+    srv = serve.make_server(svc, port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def call(method, path, body=None):
+        req = urllib.request.Request(base + path, method=method,
+                                     data=None if body is None else json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                return json.loads(resp.read())
+        except urllib.error.HTTPError as e:
+            raise RuntimeError(f"{method} {path}: HTTP {e.code} {e.read()!r}") from e
+
+    def timed(method, path, body):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = call(method, path, body)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    picks_by_turn = []
+    try:
+        for turn in GRAPH_TURNS:
+            rng = np.random.default_rng(SEED + 13)
+            classes = [int(c) for c in rng.choice(ds.classes, 4, replace=False)]
+            queries = [(int(q), c) for c in classes for q in ds.queries_for_class(c, rng, 2)]
+            user = _user(rng, ds, cfg.user.label_prob, cfg.user.mistake_prob)
+            picks, ms = [], {}
+            known = _known_programs()
+            with _graphed_or_eager(turn), _eager_service(svc, turn == "eager"):
+                sids = []
+                for q, _ in queries:
+                    sids.append(call("POST", "/sessions", {})["session_id"])
+                    call("POST", f"/sessions/{sids[-1]}/query", {"index": q})
+                got = call("POST", "/batch_select", {"session_ids": sids, "k": SERVE_K})["batches"]
+                call("POST", "/batch_feedback", {"feedback": {
+                    s: user(got[s], c) for s, (_, c) in zip(sids, queries)}})
+                for j in MIX_LEARNED:
+                    call("POST", f"/sessions/{sids[j]}/learn", {"steps": LEARN_STEPS})
+                for pas in range(MIX_PASSES):
+                    for req in MIX_REQUESTS:
+                        ids = [sids[j] for j in req]
+                        got, t_sel = timed("POST", "/batch_select",
+                                           {"session_ids": ids, "k": SERVE_K})
+                        answers = {sids[j]: user(got["batches"][sids[j]], queries[j][1])
+                                   for j in req}
+                        fed, t_fb = timed("POST", "/batch_feedback", {"feedback": answers})
+                        check(all("error" not in v for v in fed["sessions"].values()),
+                              f"cohort mix {turn}: every session absorbed its answers")
+                        picks.append([got["batches"][s] for s in ids])
+                        ms.setdefault((pas, "batch_select"), []).append(t_sel)
+                        ms.setdefault((pas, "batch_feedback"), []).append(t_fb)
+            for s in sids:
+                svc.delete(s)
+            picks_by_turn.append(picks)
+            new = [p for p in graphs.programs() if id(p) not in known]
+            held = [p for p in graphs.programs() if p.stacks and p.graph is not None]
+            pool = _pool_mib(torch)
+            cells = "; ".join(
+                f"pass {pas} {kind} median {np.median(v):.3f} min {min(v):.3f} max {max(v):.3f}"
+                for (pas, kind), v in sorted(ms.items()))
+            print(f"cohort mix {turn}: {len(MIX_REQUESTS)} requests a pass, K "
+                  f"{sorted({len(r) for r in MIX_REQUESTS})}, sessions {list(MIX_LEARNED)} "
+                  f"learned; host ms {cells}; programs captured in the turn {len(new)} ("
+                  + ", ".join(f"{p.name} K = {p.inputs['mu'].shape[0]} capture "
+                              f"{p.warmup_ms + p.capture_ms + p.instantiate_ms:.1f} ms"
+                              for p in new if p.stacks and p.graph is not None)
+                  + f"); stacking programs held {len(held)}, static "
+                  f"{sum(p.static_bytes for p in held) / 2**20:.2f} MiB of "
+                  f"{graphs.STACK_BYTES / 2**20:.0f}; graph pools "
+                  f"{'not measured' if pool is None else f'{pool:.1f} MiB'} [{smi}]")
+            if turn == "graphed" and picks_by_turn[:-1]:
+                check(not new, "cohort mix: the second graphed turn replays the first one's "
+                               "programs (all held within graphs.STACK_BYTES)")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    for g, e in ((0, 1), (3, 2)):
+        check(picks_by_turn[g] == picks_by_turn[e], "cohort mix: graphed picks equal eager picks")
+    print("cohort mix: graphed picks equal eager picks in every request")
 
 
 def _check_budget(per_session: dict, cap: int, n: int) -> None:
@@ -1168,6 +1467,30 @@ def _cohort_kernel_forms(torch, ds, cfg, dev, smi: str) -> None:
                                                                        {"b2": x2}),
     }
 
+    def bound(a, bb, norms):
+        """The least time of the function a form computes, whatever its
+        launches, and what sets it: each input read once (a shared side once
+        for every group), the norms read once, only the K (m, n) blocks it
+        returns written once (not the off-diagonal blocks of a (G m, G n)
+        launch), and the 3xTF32 operations of those K blocks."""
+        k_, m = a.shape[0], a.shape[-2]
+        n = bb.shape[0] if bb.dim() == 2 else bb.shape[-2]
+        nbytes = 4 * (a.numel() + bb.numel() + (n if norms else 0) + k_ * m * n)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2.0 * k_ * m * n * d * 3 / TF32_OPS_PER_S * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+    def launch_work(a, bb, groups, norms):
+        """The bound of the launches themselves: one (G m, G n) block per
+        group of G sessions (G m against a shared side's rows, which each
+        group's launch reads again)."""
+        total = 0.0
+        for g in groups:
+            m = len(g) * a.shape[-2]
+            n = bb.shape[0] if bb.dim() == 2 else len(g) * bb.shape[-2]
+            total += rbf_bound_ms(m, n, d, False, n if norms else 0)[0]
+        return total
+
     def per_session(fn, a, bb, lsk, norms):
         return lambda: torch.stack([fn(a[j], bb if bb.dim() == 2 else bb[j], lsk[j], var[j],
                                        **norms) for j in range(k)])
@@ -1181,8 +1504,12 @@ def _cohort_kernel_forms(torch, ds, cfg, dev, smi: str) -> None:
             diff = float((got - each()).abs().max())
             check(err <= F32_ATOL * cfg.gp.var, f"{name}: stacked form agrees with plain")
             (ms_s, sp_s), (ms_e, sp_e) = _time_turns_ms(torch, [stacked, each], launches=20)
+            need, by = bound(a, bb, norms)
             print(f"cohort kernel {name}: {len(groups)} launch(es) {ms_s:.4f} ms (spread "
-                  f"{sp_s:.4f}) against {k} launches {ms_e:.4f} ms (spread {sp_e:.4f}); max "
+                  f"{sp_s:.4f}) against the function's bound {need * 1e3:.2f} us ({by}; "
+                  f"{100 * need / ms_s:.1f} %), the launches' own work "
+                  f"{launch_work(a, bb, groups, norms) * 1e3:.2f} us; {k} launches {ms_e:.4f} "
+                  f"ms (spread {sp_e:.4f}); max "
                   f"|stacked - plain| {err:.2e} (atol {F32_ATOL * cfg.gp.var:.0e}), max "
                   f"|stacked - per-session launches| {diff:.2e} [{smi}]")
 
@@ -1199,6 +1526,8 @@ def cohort_phase(torch, ds, cfg, dev, smi: str) -> tuple[dict, dict]:
         torch.cuda.synchronize()
     fused = _cohort_runner(torch, ds, cfg, dev, smi)
     rise = _cohort_http(torch, ds, cfg, dev, smi)
+    if dev.type == "cuda":
+        _cohort_mix(torch, ds, cfg, dev, smi)
     return ({"fused": {"launches": fused}, "cohort": {"launches": dict(rbf_hopper.ROUTE_LAUNCHES)}},
             rise)
 
@@ -1390,7 +1719,9 @@ def sharded_phase(torch, ds, cfg, dev, smi: str, rise25: dict) -> dict:
               f"launches {rbf_hopper.LAUNCHES - before} [{smi}]")
     launches = dict(rbf_hopper.ROUTE_LAUNCHES)
     with _uncounted():
+        known = _known_programs()
         rise100 = _cohort_rise_at(torch, big, cfg, dev)
+        _print_programs(_phase_programs(known), known, f"cohort at {big.n} rows", smi)
     if rise25 is not None:
         fit = _fit_budget(rise25, ds.n, rise100, big.n, CAP)
         print(f"cohort budget fit from {ds.n} and {big.n} rows: select {fit['copies']:.3f} "
@@ -1460,28 +1791,6 @@ def _big_kernel_times(torch, big, scale, dev, smi: str) -> list:
 
 
 @contextlib.contextmanager
-def _record_stacked_ital(record: list):
-    """Append ``(each session's state before, picks (K, b))`` to ``record``
-    for each stacked single-device ITAL selection."""
-    from ital_tpu_torch.models import gp as gp_mod
-    from ital_tpu_torch.select import base
-
-    orig = base.STACKED["ital"]
-
-    def watched(st, *args, **kwargs):
-        before = [gp_mod.gp_session_copy(gp_mod.session_state(st, k)) for k in range(st.k)]
-        out = orig(st, *args, **kwargs)
-        record.append((before, out.tolist()))
-        return out
-
-    base.STACKED["ital"] = watched
-    try:
-        yield
-    finally:
-        base.STACKED["ital"] = orig
-
-
-@contextlib.contextmanager
 def _record_mesh_picks(record: list):
     """Append the (K, b) picks of each selection of the mesh's fused and
     cohort programs (one session's picks as K = 1) to ``record``."""
@@ -1521,23 +1830,31 @@ def _per_session(calls: list, n_sessions: int, rounds: int, cohort: bool) -> lis
 
 
 def _mesh_vs_single(torch, big, scale, dev, mode: str, change: dict, smi: str) -> dict:
-    """The runner's ``change`` mode on the mesh (counted) beside its
-    ``mesh_devices = 0`` run (uncounted): picks agree round by round up to
-    the first round whose picks differ by MI ties (on the single-device
-    state), the AP curves while they agree.  Returns both results."""
+    """The runner's ``change`` mode on the mesh (counted) beside the same
+    plan on one device (``mesh_devices = 0``, uncounted) run round by round,
+    whose state before each round the check reads: the cohort's per-round
+    programs (``query_batch``; its fused program gives the same picks and
+    curves, phase 8) or the serial run (for ``fused_sessions`` alone).
+    Picks agree round by round up to the first round whose picks differ by
+    MI ties (on the single-device state), the AP curves while they agree.
+    Returns both results."""
     from ital_tpu_torch import runner
+    from ital_tpu_torch.models import gp as gp_mod
     from ital_tpu_torch.ops import rbf_hopper
     from ital_tpu_torch.select.base import StrategyParams
 
     cohort = change.get("query_batch", 0) > 1
-    serial_calls, mesh_calls, res = [], [], {}
+    per_round = {k: v for k, v in change.items() if k != "fused_sessions"}
+    record, mesh_calls, res = [], [], {}
     for run, mesh in (("single", 0), ("mesh", 8)):
-        cfg = dataclasses.replace(scale, mesh_devices=mesh, **change)
+        cfg = dataclasses.replace(scale, mesh_devices=mesh, **(per_round if run == "single"
+                                                                else change))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         before = rbf_hopper.LAUNCHES
         with (_uncounted() if run == "single" else contextlib.nullcontext()), \
-                (_record_stacked_ital(serial_calls) if run == "single"
+                ((_record_cohort_programs(record, keep_stacks=True) if cohort
+                  else _record_serial("ital", record)) if run == "single"
                  else _record_mesh_picks(mesh_calls)):
             res[run] = runner.run_experiment(cfg, big, device=dev)
         torch.cuda.synchronize()
@@ -1546,6 +1863,12 @@ def _mesh_vs_single(torch, big, scale, dev, mode: str, change: dict, smi: str) -
     check(res["mesh"]["mesh_devices"] == 1 and res["mesh"]["fused"] is True,
           f"mesh {mode}: a fused run on the one card")
     rounds, n_sess = scale.n_rounds, len(res["single"]["sessions"])
+    if cohort:  # one cohort: call r holds round r of every session
+        serial_calls = [([gp_mod.gp_session_copy(gp_mod.session_state(st, k))
+                          for k in range(st.k)], res["single"]["picks"][:, r].tolist())
+                        for r, (st, _) in enumerate(record)]
+    else:
+        serial_calls = [([state], [batch]) for state, batch in record]
     single = _per_session([c[1] for c in serial_calls], n_sess, rounds, cohort)
     states = _per_session([c[0] for c in serial_calls], n_sess, rounds, cohort)
     on_mesh = _per_session(mesh_calls, n_sess, rounds, cohort)
@@ -1566,8 +1889,10 @@ def _mesh_vs_single(torch, big, scale, dev, mode: str, change: dict, smi: str) -
             apart.append(r)
     for run in ("single", "mesh"):
         r = res[run]
-        # A cohort's select_ms is the whole cohort's time; a session's is per round.
-        total = r["select_ms"] if cohort else r["select_ms"] * rounds
+        # A fused cohort's select_ms is the whole cohort's time, a fused
+        # session's per round; the per-round runs' per round.
+        total = (r["select_ms"] if cohort else r["select_ms"] * rounds) if run == "mesh" else \
+            (r["select_ms"] if cohort else r["select_ms"] + r["update_ms"]) * rounds
         what = (f"{'cohort of ' + str(change['query_batch']) if cohort else 'session'} "
                 f"{total:.3f} ms mean for {rounds} rounds ({total / rounds:.3f} ms a round), "
                 f"first {r['first_round_ms']:.1f} ms")
@@ -2290,12 +2615,12 @@ def graphs_phase(torch, ds, cfg, dev, smi: str) -> dict:
     torch.cuda.synchronize()
     # Programs replayed in the phase.  A corpus at the address of one freed
     # earlier replays that one's programs, which then count as the phase's.
-    known = {id(p): p.replays for p in graphs.programs()}
+    known = _known_programs()
     captured = []
 
     def collect():
         captured.extend(p for p in graphs.programs()
-                        if p.replays > known.get(id(p), 0) and all(p is not c for c in captured))
+                        if _replayed_since(known, p) and all(p is not c for c in captured))
 
     alloc0, pool0 = torch.cuda.memory_allocated(), _pool_mib(torch)
     _reset_counts()  # the graphs path's count starts here

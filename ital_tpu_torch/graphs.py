@@ -17,7 +17,8 @@ copied back into the caller's tensors, so a graphed call has the eager
 call's effects.
 
 Programs are process-wide: every session with the same signature replays the
-same program, as every session shares the reference's ``_jit_select``.  One
+same program, as every session shares the reference's ``_jit_select``.  A
+program whose corpus is gone is released at the next capture.  One
 lock orders copy-in, replay and copy-out, since a server's handler threads
 reach the programs for different sessions at once; captures run under it
 too, in ``thread_local`` error mode, so that another thread's work cannot
@@ -37,7 +38,16 @@ What a body may do, so that it can be captured:
   draws in as inputs;
 - fixed shapes and pointers: the RBF kernel's TMA descriptors are encoded at
   capture from the static buffers' addresses, so a replay must find the same
-  buffers there.  A host count becomes a 0-d device tensor.
+  buffers there.  A host count becomes a 0-d device tensor, K sessions'
+  counts a (K,) one.
+
+A cohort's program takes each session's buffers as they are: an input that
+is a list of K same-shaped tensors is stacked inside the program (the
+reference's ``_stack_gpstates`` inside its jit) into one (K, ...) buffer by
+K copies, and where the body writes it, copied back slice by slice into the
+K tensors after the checks.  Such programs hold their stacks for as long as
+they live, so together they keep at most :data:`STACK_BYTES` of static
+buffers: capturing one more first releases the least recently used.
 
 On the CPU, and on the card inside :func:`eager` (the counterpart of
 ``jax.disable_jit``), a call runs its body eagerly on the caller's tensors.
@@ -49,8 +59,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import threading
 import time
+import weakref
 from typing import Any, Callable, Optional
 
 import torch
@@ -62,8 +74,18 @@ _PROGRAMS: dict = {}
 _LOCK = threading.RLock()  # every program's capture, copy-in, replay and copy-out
 _POOL: list = []  # the one memory pool of every program, made at the first capture
 _LOCAL = threading.local()  # .eager: eager() depth; .pending: checks of a body being captured
+_USES = itertools.count(1)  # the order of the programs' calls, for STACK_BYTES
 # Devices whose tensors a call runs through a captured graph.
 _GRAPH_DEVICES = ("cuda",)
+# Static bytes the programs that stack sessions (a list input) keep
+# captured together, the least recently used released first: each holds a
+# copy of its K sessions' buffers for as long as it lives.  On an H100 at
+# cap 64 a session's copy is 6.3 MiB at 25 000 x 512 and 25.2 MiB at
+# 100 000 (chip_smoke.py phases 8-9); the 16 programs of phase 8's mixed
+# serving traffic hold 68 copies, 430 MiB at 25 000 rows, so the default
+# of 4 GiB keeps all of them up to 100 000 rows (1.7 GiB) and 16 session
+# copies at 1M rows.
+STACK_BYTES = 4 << 30
 
 
 class CaptureError(RuntimeError):
@@ -84,15 +106,20 @@ class Program:
     warmup_ms: float
     capture_ms: float
     instantiate_ms: float
+    key: tuple = ()
+    shared: tuple = ()  # weak references to the tensors the program reads in place
+    static_bytes: int = 0  # of the static input and output buffers (not the pool's temporaries)
+    pool_bytes: int = 0  # growth of the graph pools' segments at the capture
     replays: int = 0
+    last_used: int = 0
+    stacks: bool = False  # holds a stack of sessions' buffers (a list input)
     done: Any = None  # CUDA event after the last call's copy-out
 
-    @property
-    def static_bytes(self) -> int:
-        """Bytes of the static input and output buffers (the memory pool's
-        temporaries not counted)."""
-        held = [t for t in self.inputs.values() if t is not None] + list(self.outputs)
-        return sum(t.numel() * t.element_size() for t in held)
+    def release(self) -> None:
+        """Drop the graph and the static buffers, once the last call is done."""
+        if self.done is not None:
+            self.done.synchronize()
+        self.graph, self.inputs, self.outputs, self.checks = None, {}, (), []
 
 
 @contextlib.contextmanager
@@ -140,10 +167,46 @@ def _graphed(device: torch.device) -> bool:
             and not in_program())
 
 
+def _is_list(v) -> bool:
+    return isinstance(v, (list, tuple))
+
+
+def _list_spec(v) -> tuple:
+    """(K, shape, stride, dtype, device) of a list input; raises where its
+    tensors differ in any of them."""
+    specs = {(tuple(t.shape), t.stride(), t.dtype, t.device) for t in v}
+    if len(specs) != 1:
+        raise ValueError(f"a list input needs tensors of one shape, layout, dtype and device; "
+                         f"got {sorted(map(str, specs))}")
+    return (len(v), *specs.pop())
+
+
+def _stack_buffer(v) -> torch.Tensor:
+    """An empty (K, ...) buffer for list input ``v``, each slice in the
+    layout of ``v``'s tensors where they are row- or column-major (the
+    library's Cholesky factor is column-major), else row-major."""
+    k, shape, stride, dtype, device = _list_spec(v)
+    t = v[0]
+    if t.dim() == 2 and not t.is_contiguous() and t.mT.is_contiguous():
+        numel = t.numel()
+        return torch.empty_strided((k, *shape), (numel, 1, shape[0]), dtype=dtype, device=device)
+    return torch.empty((k, *shape), dtype=dtype, device=device)
+
+
+def _stacked(v) -> torch.Tensor:
+    """List input ``v`` stacked into a new buffer, as a program holds it."""
+    buf = _stack_buffer(v)
+    for j, t in enumerate(v):
+        buf[j].copy_(t)
+    return buf
+
+
 def _signature(name, static, inputs, shared, device) -> tuple:
     def spec(v):
         if v is None or isinstance(v, int):
             return type(v).__name__
+        if _is_list(v):
+            return ("list", *_list_spec(v)[:4])
         return tuple(v.shape), v.stride(), v.dtype
 
     return (name, static, device, tuple((k, spec(v)) for k, v in inputs.items()),
@@ -161,9 +224,12 @@ def _device_of(inputs: dict) -> torch.device:
 
 def _as_tensor(v, device):
     """An input as the body sees it: a host int becomes a 0-d int64 tensor on
-    ``device``, written by a fill (no copy from the host)."""
+    ``device``, written by a fill (no copy from the host); a list of K
+    tensors their (K, ...) stack."""
     if isinstance(v, int):
         return torch.full((), v, dtype=torch.int64, device=device)
+    if _is_list(v):
+        return _stacked(v)
     return v
 
 
@@ -171,43 +237,102 @@ def _load(buffers: dict, inputs: dict) -> None:
     for k, v in inputs.items():
         if isinstance(v, int):
             buffers[k].fill_(v)
+        elif _is_list(v):
+            for j, t in enumerate(v):
+                buffers[k][j].copy_(t)
         elif v is not None:
             buffers[k].copy_(v)
+
+
+def _write_back(inputs: dict, buffers: dict, writes: tuple) -> None:
+    """Copy the written ``buffers`` into the caller's inputs: a list input's
+    K tensors slice by slice, a tensor where it is not the buffer itself."""
+    for k in writes:
+        v = inputs[k]
+        if _is_list(v):
+            for j, t in enumerate(v):
+                t.copy_(buffers[k][j])
+        elif v is not buffers[k]:
+            v.copy_(buffers[k])
+
+
+def _release_dead() -> None:
+    """Release the programs whose shared tensors (their corpus) are gone: no
+    live tensor can match their key but one that lands at the same address,
+    and until then they only hold memory."""
+    for key, prog in list(_PROGRAMS.items()):
+        if any(ref() is None for ref in prog.shared):
+            del _PROGRAMS[key]
+            prog.release()
+
+
+def _input_bytes(inputs: dict) -> int:
+    """Bytes of the static input buffers a program of ``inputs`` holds."""
+    tensors = [t for v in inputs.values() for t in (v if _is_list(v) else [v])
+               if isinstance(t, torch.Tensor)]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _release_stacks(need: int) -> None:
+    """Release the least recently used programs that stack sessions until
+    their static buffers and ``need`` bytes more fit in :data:`STACK_BYTES`."""
+    held = sorted((p for p in _PROGRAMS.values() if p.stacks), key=lambda p: p.last_used)
+    total = need + sum(p.static_bytes for p in held)
+    for prog in held:
+        if total <= STACK_BYTES:
+            break
+        del _PROGRAMS[prog.key]
+        prog.release()
+        total -= prog.static_bytes
 
 
 def run(name: str, body: Callable[..., tuple], inputs: dict, *, shared: Optional[dict] = None,
         static: tuple = (), writes: tuple = ()) -> tuple:
     """``body(**shared, **inputs)``, a tuple of tensors, through its program.
 
-    ``inputs``: tensors on one device (CUDA or CPU), ``None`` or host ints
-    (the body gets a 0-d int64 tensor); ``shared``: tensors the program reads
-    where they are, keyed by their address (the corpus); ``static``: the
-    hashable options ``body`` closes over; ``writes``: the inputs the body
-    writes in place, copied back after a replay.  Returns the outputs, as
-    tensors of the caller's own.  The body's :func:`check_after` checks run
-    after each replay, before any write is copied back: one that raises
-    leaves the caller's tensors as they were.
+    ``inputs``: tensors on one device (CUDA or CPU), ``None``, host ints
+    (the body gets a 0-d int64 tensor) or lists of K same-shaped tensors (the
+    body gets their (K, ...) stack, and the program counts against
+    :data:`STACK_BYTES`); ``shared``: tensors the program reads where they
+    are, keyed by their address (the corpus); ``static``: the hashable
+    options ``body`` closes over; ``writes``: the inputs the body writes in
+    place, copied back after a replay (a list input slice by slice, also
+    when the body runs eagerly).  Returns the outputs, as tensors of the
+    caller's own.  The body's :func:`check_after` checks run after each
+    replay, before any write is copied back: one that raises leaves the
+    caller's tensors as they were.
     """
     shared = shared or {}
     device = _device_of(inputs)
     if not _graphed(device):
-        return body(**shared, **{k: _as_tensor(v, device) for k, v in inputs.items()})
+        args = {k: _as_tensor(v, device) for k, v in inputs.items()}
+        out = body(**shared, **args)
+        _write_back(inputs, args, writes)
+        return out
     key = _signature(name, static, inputs, shared, device)
     with _LOCK:
         prog = _PROGRAMS.get(key)
         if prog is None:
+            _release_dead()
+            stacks = any(_is_list(v) for v in inputs.values())
+            if stacks:
+                _release_stacks(_input_bytes(inputs))
             prog = _capture(name, body, inputs, shared, device)
+            prog.key, prog.stacks = key, stacks
             _PROGRAMS[key] = prog
+        if not prog.shared or any(ref() is None for ref in prog.shared):
+            # A new tensor at a dead one's address and layout: the program is its.
+            prog.shared = tuple(weakref.ref(t) for t in shared.values())
         if prog.done is not None:  # the last call's copy-out, on whatever stream it ran
             torch.cuda.current_stream(device).wait_event(prog.done)
         _load(prog.inputs, inputs)
         prog.graph.replay()
         prog.replays += 1
+        prog.last_used = next(_USES)
         rbf_hopper.add_launches(prog.launches)
         for value, check in prog.checks:
             check(value)
-        for k in writes:
-            inputs[k].copy_(prog.inputs[k])
+        _write_back(inputs, prog.inputs, writes)
         out = tuple(o.clone() for o in prog.outputs)
         if device.type == "cuda":
             prog.done = torch.cuda.Event()
@@ -220,13 +345,30 @@ def _capture(name, body, inputs, shared, device) -> Program:
     # column-major, and a row-major copy would round its solves differently.
     buffers = {k: None if v is None else
                torch.empty((), dtype=torch.int64, device=device) if isinstance(v, int) else
+               _stack_buffer(v) if _is_list(v) else
                torch.empty_like(v) for k, v in inputs.items()}
     _load(buffers, inputs)
+    pools = _pool_bytes(device)
     graph, outputs, checks, launches, warmup_ms, capture_ms, instantiate_ms = (
         _capture_graph(name, body, buffers, shared, device))
+    grown = _pool_bytes(device) - pools
+    held = [t for t in buffers.values() if t is not None] + list(outputs)
     return Program(name=name, graph=graph, inputs=buffers, outputs=outputs,
                    checks=checks, launches=launches, warmup_ms=warmup_ms,
-                   capture_ms=capture_ms, instantiate_ms=instantiate_ms)
+                   capture_ms=capture_ms, instantiate_ms=instantiate_ms,
+                   static_bytes=sum(t.numel() * t.element_size() for t in held),
+                   pool_bytes=grown)
+
+
+def _pool_bytes(device: torch.device) -> int:
+    """Bytes of the device's segments in graph pools (any pool but the
+    default one); 0 off the card."""
+    if device.type != "cuda":
+        return 0
+    torch.cuda.empty_cache()  # as a capture does first: count only what is held
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if seg.get("device", device.index) == device.index
+               and tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
 
 
 def _capture_graph(name, body, buffers, shared, device):

@@ -35,11 +35,13 @@ rest of the code, shard-local, is the single-device path's.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+import functools
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ital_tpu_torch import graphs
 from ital_tpu_torch.ops import chol as chol_ops
 from ital_tpu_torch.ops.kernels import rbf_kernel, rbf_sessions
 
@@ -104,10 +106,12 @@ class StackedGPState:
     corpus's | idx, y, valid (K, cap) | l (K, cap, cap) | beta (K, cap) |
     v (K, cap, N) | mu, sig2 (K, N) | hyper: :class:`GPHyper` of (K,) tensors.
 
-    ``counts`` holds the K sessions' host counts.  ``hyper_groups`` lists the
-    sessions in groups of equal length scale and variance, decided once from
-    host values (:func:`hyper_groups`): each group's RBF blocks take one
-    kernel launch, which reads one length scale and one variance.
+    ``counts`` holds the K sessions' host counts; inside a captured program
+    it is a (K,) int64 tensor on the device (:func:`program_stack`).
+    ``hyper_groups`` lists the sessions in groups of equal length scale and
+    variance, decided once from host values (:func:`hyper_groups`): each
+    group's RBF blocks take one kernel launch, which reads one length scale
+    and one variance.
     """
 
     x: torch.Tensor
@@ -129,6 +133,8 @@ class StackedGPState:
     def active(self) -> torch.Tensor:
         """(K, cap) bool — slots that really participate in each posterior."""
         slots = torch.arange(self.cap, device=self.idx.device)
+        if isinstance(self.counts, torch.Tensor):
+            return (slots < self.counts[:, None]) & self.valid
         if len(set(self.counts)) == 1:
             return (slots < self.counts[0]) & self.valid
         return (slots < chol_ops.slot_rows(self.counts, 1, self.idx.device)) & self.valid
@@ -164,6 +170,43 @@ def program_state(x: torch.Tensor, inputs: dict) -> GPState:
                    **{f: inputs[f] for f in SESSION_FIELDS})
 
 
+def cohort_program_inputs(states: Sequence[GPState], groups: Optional[list] = None
+                          ) -> tuple[dict, tuple]:
+    """K sessions' own states as a program's inputs, and their group plan (a
+    tuple of tuples, part of the program's static signature).
+
+    Each session's buffers go in as they are, and the program stacks them
+    inside (:func:`ital_tpu_torch.graphs.run`'s list inputs, the reference's
+    ``_stack_gpstates`` inside its jit), so no stack is made outside it.
+    The counts go in as a (K,) int64 device tensor, the hyperparameters as
+    (K,) tensors.  ``groups``: the plan where the caller knows it, else read
+    from the hyperparameters on the host here (:func:`hyper_groups`), before
+    the program runs."""
+    states = list(states)
+    hyper = _stacked_hyper(states)
+    if groups is None:
+        groups = hyper_groups(hyper)
+    counts = chol_ops.host_index([s.count for s in states], hyper.length_scale.device)
+    return ({"counts": counts, **{f: [getattr(s, f) for s in states] for f in SESSION_FIELDS},
+             **{f: getattr(hyper, f) for f in _HYPER}, "x2": states[0].x2},
+            tuple(tuple(g) for g in groups))
+
+
+def program_stack(x: torch.Tensor, inputs: dict, groups: tuple) -> StackedGPState:
+    """The stack a cohort program's body works on: corpus ``x`` and the
+    fields of :func:`cohort_program_inputs` from ``inputs``, its counts a
+    (K,) device tensor and ``groups`` its group plan."""
+    return StackedGPState(x=x, counts=inputs["counts"], x2=inputs["x2"],
+                          hyper=GPHyper(**{f: inputs[f] for f in _HYPER}),
+                          hyper_groups=[list(g) for g in groups],
+                          **{f: inputs[f] for f in SESSION_FIELDS})
+
+
+def _stacked_hyper(states: Sequence[GPState]) -> GPHyper:
+    """The K sessions' hyperparameters as (K,) tensors."""
+    return GPHyper(**{f: torch.stack([getattr(s.hyper, f) for s in states]) for f in _HYPER})
+
+
 def hyper_groups(hyper: GPHyper) -> list:
     """Session indices grouped by equal (length scale, variance), in order of
     first appearance, from (K,) hyperparameters: one read to the host."""
@@ -175,6 +218,16 @@ def hyper_groups(hyper: GPHyper) -> list:
     return list(groups.values())
 
 
+def hyper_group_order(states: Sequence[GPState]) -> list:
+    """An order of K sessions that puts those of equal length scale and
+    variance together, the larger groups first (ties in order of first
+    appearance): stacked in it, a cohort's group plan depends only on its
+    group sizes, so cohorts of any order replay one program per partition of
+    K.  One read to the host."""
+    groups = hyper_groups(_stacked_hyper(states))
+    return [k for g in sorted(groups, key=len, reverse=True) for k in g]
+
+
 def stack_states(states) -> StackedGPState:
     """A copy of K same-corpus session states on a leading session axis
     (the reference's ``stack_session_states``).
@@ -184,7 +237,7 @@ def stack_states(states) -> StackedGPState:
     the stack reaches the sessions until :func:`unstack_into`.
     """
     sts = list(states)
-    hyper = GPHyper(**{f: torch.stack([getattr(s.hyper, f) for s in sts]) for f in _HYPER})
+    hyper = _stacked_hyper(sts)
     return StackedGPState(
         x=sts[0].x, counts=[s.count for s in sts], hyper=hyper,
         hyper_groups=hyper_groups(hyper), density=sts[0].density, x2=sts[0].x2,
@@ -431,12 +484,17 @@ def gp_update_stacked(
     and the new rows of every session in one call, (K, cap + b) indices to
     (K, cap + b, D) rows (the sharded path's collective gather).  Raises
     ``ValueError``, before anything is written, when a session's
-    ``count + b > cap``.
+    ``count + b > cap``.  Where ``st.counts`` is a (K,) device tensor (a
+    captured program's stack) nothing is read to the host: the caller
+    checks the capacity, and a block that is not positive definite raises
+    once the program has run.
     """
     h = st.hyper
     dt = st.mu.dtype
     b = new_idx.shape[-1]
-    check_capacity(st.counts, b, st.cap)
+    on_device = isinstance(st.counts, torch.Tensor)
+    if not on_device:
+        check_capacity(st.counts, b, st.cap)
     active_old = st.active
     new_idx = new_idx.to(torch.int64)
     new_valid = new_valid.to(torch.bool)
@@ -461,8 +519,34 @@ def gp_update_stacked(
         chol_ops.write_slots(buf, st.counts, vals)
     st.mu += (v_b.mT @ beta_b[..., None])[..., 0]
     st.sig2.sub_((v_b * v_b).sum(-2)).clamp_(min=1e-8)
-    st.counts = [c + b for c in st.counts]
+    st.counts = st.counts + b if on_device else [c + b for c in st.counts]
     return st
+
+
+def _update_stacked_body(x, *, groups, new_idx, new_y, new_valid, **inputs) -> tuple:
+    gp_update_stacked(program_stack(x, inputs, groups), new_idx, new_y, new_valid)
+    return ()
+
+
+def update_stacked(states: Sequence[GPState], new_idx: torch.Tensor, new_y: torch.Tensor,
+                   new_valid: torch.Tensor) -> None:
+    """:func:`gp_update_stacked` of K sessions as one program (the
+    reference's jitted cohort update, ``ital_tpu/serve.py::_cohort_update``):
+    on the card a graph captured once per K, block width, capacity, group
+    plan and corpus.  The program stacks the sessions' own buffers inside;
+    what it writes is copied back into them once the program and its checks
+    have run, so a block that is not positive definite raises and leaves
+    every session as it was.  Raises ``ValueError`` before anything runs
+    when a session's ``count + b > cap``.  ``new_*`` (K, b) lie on the
+    sessions' device."""
+    b = new_idx.shape[-1]
+    check_capacity([s.count for s in states], b, states[0].cap)
+    inputs, groups = cohort_program_inputs(states)
+    graphs.run("gp_update_stacked", functools.partial(_update_stacked_body, groups=groups),
+               {**inputs, "new_idx": new_idx, "new_y": new_y, "new_valid": new_valid},
+               shared={"x": states[0].x}, static=(groups,), writes=SESSION_FIELDS)
+    for s in states:
+        s.count += b
 
 
 def gp_predict_full(state: GPState, ind: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -14,8 +14,9 @@ Every function takes leading batch dimensions: a stack of K sessions'
 factors is factored, solved and appended in one call each, the append of
 session k at its own offset ``count[k]``.  The append is a write into the
 factor, in place, at a count known on the host or, inside a captured
-program, held on the device as a 0-d tensor; the Schur block's
-factorization error is then checked once the program has run.
+program, held on the device: a 0-d tensor for one factor, a (K,) tensor for
+K stacked factors.  The Schur block's factorization error is then checked
+once the program has run.
 """
 
 from __future__ import annotations
@@ -71,9 +72,12 @@ def host_index(values, device) -> torch.Tensor:
     return host_copy(values, device, torch.int64)
 
 
-def slot_rows(counts: Sequence[int], b: int, device) -> torch.Tensor:
+def slot_rows(counts: Sequence[int] | torch.Tensor, b: int, device) -> torch.Tensor:
     """(K, b) int64 slots ``[counts[k], counts[k] + b)`` of each session, on
-    ``device``, copied from the host without waiting for the device."""
+    ``device``: from host counts copied without waiting for the device, from
+    (K,) device counts computed there."""
+    if isinstance(counts, torch.Tensor):
+        return counts[:, None] + torch.arange(b, device=counts.device)
     return host_index(torch.tensor(counts, dtype=torch.int64)[:, None] + torch.arange(b), device)
 
 
@@ -115,12 +119,14 @@ def _write_new_rows(l: torch.Tensor, s: torch.Tensor, l_b: torch.Tensor,
     l[torch.arange(k, device=l.device)[:, None], rows] = new_rows
 
 
-def write_slots(buf: torch.Tensor, counts: Sequence[int], vals: torch.Tensor) -> None:
+def write_slots(buf: torch.Tensor, counts: Sequence[int] | torch.Tensor,
+                vals: torch.Tensor) -> None:
     """Write ``vals`` (K, b, ...) into slots ``[counts[k], counts[k] + b)`` of
     ``buf`` (K, cap, ...), in place: one slice write where every session has
-    one count (no index tensor to build), else one indexed write."""
+    one host count (no index tensor to build), else one indexed write (host
+    counts or (K,) device counts)."""
     b = vals.shape[1]
-    if len(set(counts)) == 1:
+    if not isinstance(counts, torch.Tensor) and len(set(counts)) == 1:
         buf[:, counts[0]:counts[0] + b] = vals
         return
     rows = slot_rows(counts, b, buf.device)
@@ -146,8 +152,9 @@ def chol_append_block(
       k_bb: (..., b, b) kernel among the new block's points.
       count: first free slot, or (K stacked factors) one per session;
         ``count + b <= cap`` or this raises.  A 0-d int64 tensor on the
-        device of one factor is the same slot held on the device: nothing
-        is read to the host, and the caller has checked the capacity.
+        device of one factor, or a (K,) one of K factors, is the same held
+        on the device: nothing is read to the host, and the caller has
+        checked the capacity.
       active_new: (..., b) bool — False entries become identity (inert) slots.
       noise: observation noise added to the active diagonal of the new block,
         one value or (K,) one per session.
@@ -181,9 +188,12 @@ def chol_append_block(
     # count on); columns past count+b are zero in the identity padding they
     # replace.  One host count for all: two slice writes; else one indexed
     # write of the whole rows.
-    if on_device:
+    if on_device and count.dim() == 0:
         _write_new_rows(l[None], s[None], l_b[None],
                         (count + torch.arange(b, device=l.device))[None])
+        return l, s, l_b
+    if on_device:
+        _write_new_rows(l, s, l_b, slot_rows(count, b, l.device))
         return l, s, l_b
     if len(set(counts)) == 1:
         c = counts[0]

@@ -14,12 +14,12 @@ cohort programs' :func:`rbf_sessions` form their blocks through it.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
 from ital_tpu_torch.ops import rbf_hopper
-from ital_tpu_torch.ops.chol import host_index
 
 
 def sqdist(
@@ -148,6 +148,15 @@ def _session_rows(a: torch.Tensor, index: Optional[torch.Tensor]) -> torch.Tenso
     return (a if index is None else a[index]).reshape(-1, a.shape[-1])
 
 
+@functools.cache
+def group_index(group: tuple, device) -> torch.Tensor:
+    """The sessions of one hyperparameter group as an int64 index on
+    ``device``, copied from the host once and cached: a captured program
+    may not copy from the host, so the warm-up before its capture fills the
+    cache, as it does the MI tables'.  Callers never write it."""
+    return torch.tensor(group, dtype=torch.int64, device=device)
+
+
 def rbf_sessions(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -168,14 +177,16 @@ def rbf_sessions(
     stacked into one launch with its first session's values.  Where both
     sides are per session, a group of G sessions takes one (G m, G n) launch
     and keeps its G diagonal blocks.  ``a2``/``b2``: the shared side's
-    cached norms.
+    cached norms.  The group plan is decided on the host before the call;
+    nothing here reads the device or copies from the host after the first
+    call with a plan, so a captured program can hold it.
     """
     k = length_scale.shape[0]
     out = None
     for group in groups:
         # One group holds every session, in order; several gather theirs
-        # through an index copied to the device without a wait.
-        index = None if len(groups) == 1 else host_index(group, length_scale.device)
+        # through a cached device index (group_index).
+        index = None if len(groups) == 1 else group_index(tuple(group), length_scale.device)
         ga = a if a.dim() == 2 else _session_rows(a, index)
         gb = b if b.dim() == 2 else _session_rows(b, index)
         blk = rbf_kernel(ga, gb, length_scale[group[0]], var[group[0]], a2=a2, b2=b2)

@@ -15,13 +15,16 @@ replace that function with one that hands over JAX's draws.
 ``GP.learn_every`` re-learns the hyperparameters from the session's labels
 (:mod:`ital_tpu_torch.models.hyperopt`) every k rounds.
 
-``EXPERIMENT.query_batch = K`` runs the sessions in cohorts of K on one
-stacked state (:class:`ital_tpu_torch.models.gp.StackedGPState`, kept for all
-of a cohort's rounds): one stacked selection and one stacked GP update
-advance the whole cohort each round.  ``EXPERIMENT.fused_sessions`` issues
-each session's (or, with ``query_batch``, each cohort's) rounds with no host
-sync between them and reads its AP curve once at the end.  Both draw as the
-serial path draws, so the curves are the serial path's.
+``EXPERIMENT.query_batch = K`` runs the sessions in cohorts of K: one
+stacked selection and one stacked GP update advance the whole cohort each
+round, as one program that stacks the sessions' states inside (on the card
+a captured CUDA graph, the reference's ``round_v``).
+``EXPERIMENT.fused_sessions`` runs each session's (or, with ``query_batch``, each cohort's) rounds as one
+program (the reference's ``fused_v``) and reads its AP curve and picks once
+at the end; with ``GP.learn_every`` the rounds between two re-learns are
+one program and the re-learn runs eagerly between them (see
+:func:`_run_stacked`).  Both draw as the serial path draws, so the curves
+are the serial path's.
 
 ``EXPERIMENT.mesh_devices = p`` shards the corpus over a mesh of p ranks
 (:mod:`ital_tpu_torch.parallel`), one per card (clamped to the cards there
@@ -40,6 +43,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 from typing import Any, Callable, Dict, Optional
 
@@ -54,6 +58,7 @@ from ital_tpu_torch.models.hyperopt import LearnConfig, fit_hyperparams
 from ital_tpu_torch.ops.chol import host_copy
 from ital_tpu_torch.select.base import (
     StrategyParams,
+    cohort_program,
     get_stacked_strategy,
     get_strategy,
     validate_method_kwargs,
@@ -519,7 +524,7 @@ def _sharded_fused_run(mesh, cfg, dataset, plan, state0, params, options, releva
         else:
             draws = [_cohort_draws(cfg, chunk, rnd, dev) for rnd in range(cfg.n_rounds)]
             _, aps = program(gp_mod.stack_states(states), draws, relevant, pad, exclude, params)
-        return aps.cpu().numpy()  # the one host read of the chunk
+        return aps.cpu().numpy(), None  # the one host read of the chunk
 
     res = _run_fused(cfg, dataset, plan, dev, run_chunk, log={"sharded": mesh.size})
     res["fused"] = True
@@ -529,64 +534,87 @@ def _sharded_fused_run(mesh, cfg, dataset, plan, state0, params, options, releva
 def _run_stacked(cfg, dataset, state0, params, select_kwargs, plan) -> Dict[str, Any]:
     """The cohort (``query_batch``) and fused (``fused_sessions``) modes.
 
-    Sessions run in cohorts of ``query_batch`` (1 without it; the last
-    cohort may be short), each on one :class:`~gp_mod.StackedGPState` for
-    all of its rounds: per round one stacked selection, the simulated users,
-    one :func:`~gp_mod.gp_update_stacked` and the K APs, with each session's
-    own draws (:func:`round_draws`) and, with ``GP.learn_every``, its own
-    re-learned hyperparameters at the serial path's cadence.  Unfused, each
-    round's APs come to the host and each session logs a row per round.
-    Fused, every round's draws are made before the first round is issued,
-    the rounds then run with no host sync, and the AP curves come to the
-    host once per cohort (:func:`_run_fused`).  ``GP.refit_every`` is
-    ignored, as the reference ignores it here.
+    Sessions run in cohorts of ``query_batch`` (1 without it), each session
+    on its own state for all of its rounds: per round one stacked selection,
+    the simulated users, one :func:`~gp_mod.gp_update_stacked` and the K
+    APs, with each session's own draws (:func:`round_draws`) and, with
+    ``GP.learn_every``, its own re-learned hyperparameters at the serial
+    path's cadence.  A short last cohort is padded to ``query_batch`` by
+    repeating its first session, whose padded rows are discarded (the
+    reference's rule), so it replays the full cohort's program.  Unfused,
+    each round is one program
+    (:func:`_cohort_rounds`, the reference's ``round_v``), its APs and picks
+    come to the host and each session logs a row per round.  Fused, all the
+    rounds of a cohort are one program (the reference's ``fused_v``), its
+    AP curves and picks read to the host once (:func:`_run_fused`); with
+    ``GP.learn_every`` the rounds between two re-learns are one program and
+    the re-learn (a 50-step autograd ascent and a refit per session) runs
+    eagerly between them, at the reference's cadence.  After the first
+    re-learn every session is a hyperparameter group of its own
+    (:func:`_cohort_plan`), so the later segments share one program.  A
+    strategy without a cohort program body (:func:`cohort_program`; all but
+    ITAL) selects session by session, eagerly, and its users, update and AP
+    replay a program each round.  ``GP.refit_every`` is ignored, as the
+    reference ignores it here.
     """
     if cfg.gp.refit_every:
         print(_REFIT_IGNORED)
     dev = state0.mu.device
     n = dataset.n
-    select = get_stacked_strategy(cfg.method)
+    size = max(cfg.query_batch or 0, 1)
 
-    def masks(chunk):
+    def cohort(chunk):
+        """The chunk padded to the cohort's size, its sessions' states and masks."""
+        padded = chunk + [chunk[0]] * (size - len(chunk))
         relevant = torch.from_numpy(
-            np.stack([dataset.relevance[:, c] for _, c, _ in chunk])).to(dev)
-        exclude = torch.zeros((len(chunk), n), dtype=torch.bool)
-        exclude[torch.arange(len(chunk)), torch.tensor([q for *_, q in chunk])] = True
-        return relevant, exclude.to(dev)
+            np.stack([dataset.relevance[:, c] for _, c, _ in padded])).to(dev)
+        exclude = torch.zeros((size, n), dtype=torch.bool)
+        exclude[torch.arange(size), torch.tensor([q for *_, q in padded])] = True
+        return padded, _query_states(state0, padded), (relevant, exclude.to(dev))
 
-    def advance(st, chunk_masks, rnd, draws):
-        return _cohort_round(cfg, st, select, params, select_kwargs, draws, *chunk_masks, rnd)
+    def rounds(padded, states, chunk_masks, start, stop):
+        return _cohort_rounds(cfg, states, params, select_kwargs, padded, range(start, stop),
+                              *chunk_masks)
 
     if cfg.fused_sessions:
+        # A selection captured with the rounds lets a program run every round
+        # up to the next re-learn; an eager one, one round.
+        captured = cohort_program(cfg.method, cfg.batch_size, select_kwargs) is not None
+        every = (cfg.gp.learn_every or cfg.n_rounds) if captured else 1
+
         def run_chunk(chunk):
-            chunk_masks = masks(chunk)
-            draws = [_cohort_draws(cfg, chunk, rnd, dev) for rnd in range(cfg.n_rounds)]
-            st = _stack_queries(state0, chunk)
-            curves = torch.stack([advance(st, chunk_masks, rnd, draws[rnd])
-                                  for rnd in range(cfg.n_rounds)], dim=1)
-            return curves.cpu().numpy()  # the one host sync
+            padded, states, chunk_masks = cohort(chunk)
+            aps, picks = zip(*(rounds(padded, states, chunk_masks, a,
+                                      min(a + every, cfg.n_rounds))
+                               for a in range(0, cfg.n_rounds, every)))
+            k = len(chunk)  # the one host sync of the cohort
+            return (torch.cat(aps, 1)[:k].cpu().numpy(),
+                    torch.cat(picks, 0).transpose(0, 1)[:k].cpu().numpy())
 
         return _run_fused(cfg, dataset, plan, dev, run_chunk)
 
     logger = JsonlLogger(cfg.log_jsonl)
     timer = Timer(dev)
     ap_rows = np.zeros((len(plan), cfg.n_rounds))
+    pick_rows = np.zeros((len(plan), cfg.n_rounds, cfg.batch_size), np.int64)
     try:
-        for start in range(0, len(plan), cfg.query_batch):
-            chunk = plan[start:start + cfg.query_batch]
-            chunk_masks = masks(chunk)
-            st = _stack_queries(state0, chunk)
+        for start in range(0, len(plan), size):
+            chunk = plan[start:start + size]
+            padded, states, chunk_masks = cohort(chunk)
             for rnd in range(cfg.n_rounds):
-                draws = _cohort_draws(cfg, chunk, rnd, dev)
                 with timer.span("round"):
-                    aps = advance(st, chunk_masks, rnd, draws).cpu().numpy()
+                    aps, picks = rounds(padded, states, chunk_masks, rnd, rnd + 1)
+                    aps, picks = aps[:len(chunk), 0].cpu().numpy(), picks[0, :len(chunk)].cpu()
                 ap_rows[start:start + len(chunk), rnd] = aps
+                pick_rows[start:start + len(chunk), rnd] = picks.numpy()
                 for j, (rep, c, q) in enumerate(chunk):
                     logger.log(rep=rep, cls=c, query=q, round=rnd, ap=float(aps[j]),
                                round_ms=timer.last_ms("round"), query_batch=cfg.query_batch)
     finally:
         logger.close()
-    return _stacked_result(cfg, dataset, plan, dev, ap_rows, timer, "round")
+    out = _stacked_result(cfg, dataset, plan, dev, ap_rows, timer, "round")
+    out["picks"] = pick_rows
+    return out
 
 
 _REFIT_IGNORED = ("# GP.refit_every is a serial/per-round-sharded feature; the "
@@ -596,7 +624,8 @@ _REFIT_IGNORED = ("# GP.refit_every is a serial/per-round-sharded feature; the "
 
 def _run_fused(cfg, dataset, plan, dev, run_chunk, *, log=None) -> Dict[str, Any]:
     """The fused modes' loop: the plan in chunks of ``query_batch`` sessions
-    (1 without it), ``run_chunk(chunk) -> (K, n_rounds)`` AP curves on the
+    (1 without it), ``run_chunk(chunk) -> (curves, picks)``, the (K,
+    n_rounds) AP curves and the (K, n_rounds, b) picks (or None) on the
     host, one JSONL row per session with its curve, the chunk's time
     (``session_ms`` or ``cohort_ms``) and the ``log`` fields."""
     size = max(cfg.query_batch or 0, 1)
@@ -604,12 +633,16 @@ def _run_fused(cfg, dataset, plan, dev, run_chunk, *, log=None) -> Dict[str, Any
     logger = JsonlLogger(cfg.log_jsonl)
     timer = Timer(dev)
     ap_rows = np.zeros((len(plan), cfg.n_rounds))
+    pick_rows = np.zeros((len(plan), cfg.n_rounds, cfg.batch_size), np.int64)
+    picks = None
     try:
         for start in range(0, len(plan), size):
             chunk = plan[start:start + size]
             with timer.span(span):
-                curves = run_chunk(chunk)
+                curves, picks = run_chunk(chunk)
             ap_rows[start:start + len(chunk)] = curves
+            if picks is not None:
+                pick_rows[start:start + len(chunk)] = picks
             took = round(timer.last_ms(span), 3)
             fields = ({"session_ms": took} if size == 1
                       else {"cohort_ms": took, "query_batch": cfg.query_batch})
@@ -618,7 +651,10 @@ def _run_fused(cfg, dataset, plan, dev, run_chunk, *, log=None) -> Dict[str, Any
                            **fields, **(log or {}))
     finally:
         logger.close()
-    return _stacked_result(cfg, dataset, plan, dev, ap_rows, timer, span)
+    out = _stacked_result(cfg, dataset, plan, dev, ap_rows, timer, span)
+    if picks is not None:
+        out["picks"] = pick_rows
+    return out
 
 
 def _stacked_result(cfg, dataset, plan, dev, ap_rows, timer, span) -> Dict[str, Any]:
@@ -643,10 +679,9 @@ def _stacked_result(cfg, dataset, plan, dev, ap_rows, timer, span) -> Dict[str, 
     return out
 
 
-def _stack_queries(state0, chunk) -> gp_mod.StackedGPState:
-    """A cohort's stacked state: each session set to its query on its own buffers."""
-    return gp_mod.stack_states([gp_mod.gp_set_query(gp_mod.gp_session_copy(state0), q)
-                                for _, _, q in chunk])
+def _query_states(state0, chunk) -> list:
+    """A cohort's sessions: each set to its query on its own buffers."""
+    return [gp_mod.gp_set_query(gp_mod.gp_session_copy(state0), q) for _, _, q in chunk]
 
 
 def _cohort_draws(cfg, chunk, rnd, dev):
@@ -657,25 +692,84 @@ def _cohort_draws(cfg, chunk, rnd, dev):
             torch.stack([d[2] for d in draws]))
 
 
-def _cohort_round(cfg, st, select, params, select_kwargs, draws, relevant, exclude, rnd):
-    """One round of a cohort on its stacked state: select, users, update, AP,
-    then the re-learn where the cadence falls (after the AP, as the serial
-    path).  Returns the (K,) APs on the device."""
-    generators, u_label, u_flip = draws
-    batch = select(st, cfg.batch_size, generators, params, **select_kwargs)
-    y, valid = feedback_from_uniforms(u_label, u_flip, batch, relevant,
-                                      params.label_prob, params.mistake_prob)
-    gp_mod.gp_update_stacked(st, batch, y, valid)
-    ap = average_precision(st.mu, relevant, exclude)
-    if cfg.gp.learn_every and (rnd + 1) % cfg.gp.learn_every == 0:
-        _relearn_stacked(st, cfg)
-    return ap
+def _cohort_plan(cfg: ExperimentConfig, k: int, rnd: int) -> list:
+    """The group plan of a cohort of ``k`` sessions at round ``rnd``: one
+    group until its first re-learn (every session starts from the run's
+    hyperparameters), each session its own after it.  Known without
+    reading the hyperparameters back, and the same for a padded cohort."""
+    if cfg.gp.learn_every and rnd >= cfg.gp.learn_every:
+        return [[j] for j in range(k)]
+    return [list(range(k))]
 
 
-def _relearn_stacked(st: gp_mod.StackedGPState, cfg: ExperimentConfig) -> None:
-    """:func:`_relearn_hyperparams` for each session of a stack, written back
-    into the stack (:func:`~gp_mod.refit_stacked`)."""
-    gp_mod.refit_stacked(st, lambda state: _relearn_hyperparams(state, cfg))
+def _rounds_body(x, *, select, drawn, groups, rounds, picks, u_label, u_flip, relevant, exclude,
+                 **inputs) -> tuple:
+    """``rounds`` rounds of a cohort as a program's body: each round's
+    selection by ``select`` (a :class:`~ital_tpu_torch.select.base.
+    CohortProgram`'s picks) with round r of its fed inputs named ``drawn``
+    (R, K, ...), or, where ``select`` is None, round r of ``picks``
+    (R, K, b); the users' answers from the fed uniforms (R, K, b), the
+    stacked update (in place) and the K APs.  Returns the (K, R) APs and
+    the (R, K, b) picks."""
+    fed = {name: inputs.pop(name) for name in drawn}
+    st = gp_mod.program_stack(x, inputs, groups)
+    params = StrategyParams.from_inputs(inputs)
+    aps, batches = [], []
+    for r in range(rounds):
+        if select is None:
+            batch = picks[r]
+        else:
+            batch = select(st, params, **{k: None if v is None else v[r] for k, v in fed.items()})
+        y, valid = feedback_from_uniforms(u_label[r], u_flip[r], batch, relevant,
+                                          params.label_prob, params.mistake_prob)
+        gp_mod.gp_update_stacked(st, batch, y, valid)
+        aps.append(average_precision(st.mu, relevant, exclude))
+        batches.append(batch)
+    return torch.stack(aps, 1), torch.stack(batches)
+
+
+def _cohort_rounds(cfg, states, params, select_kwargs, chunk, rnds, relevant, exclude):
+    """Rounds ``rnds`` of a cohort of sessions ``states`` (written in place),
+    then the re-learn where the cadence falls after the last of them (after
+    the AP, as the serial path).  Returns the (K, R) APs and (R, K, b) picks
+    on the device.
+
+    The rounds are one program (:func:`ital_tpu_torch.graphs.run`), the
+    counterpart of the reference's ``round_v`` (one round) or ``fused_v``
+    (all of a session's rounds), which stacks the sessions' buffers inside.
+    Where the strategy's selection has a cohort program body
+    (:func:`cohort_program`), it runs inside, every round's draws (each
+    session's from its own generator) made before and fed in with the
+    users' uniforms; else ``rnds`` is one round, whose selection runs
+    eagerly, session by session, before the program."""
+    x, dev, b = states[0].x, states[0].mu.device, cfg.batch_size
+    draws = [_cohort_draws(cfg, chunk, rnd, dev) for rnd in rnds]
+    select = cohort_program(cfg.method, b, select_kwargs)
+    picks, fed = None, {}
+    if select is None:
+        (gens, _, _), = draws
+        picks = get_stacked_strategy(cfg.method)(states, b, gens, params, **select_kwargs)[None]
+    else:
+        drawn = [select.draw(gens, x.shape[0], states[0].mu.dtype, dev) for gens, _, _ in draws]
+        fed = {k: None if drawn[0][k] is None else torch.stack([d[k] for d in drawn])
+               for k in drawn[0]}
+    groups = _cohort_plan(cfg, len(states), rnds[0])
+    inputs, groups = gp_mod.cohort_program_inputs(states, groups)
+    inputs.update(params.program_inputs(), **fed, picks=picks,
+                  u_label=torch.stack([d[1] for d in draws]),
+                  u_flip=torch.stack([d[2] for d in draws]), relevant=relevant, exclude=exclude)
+    name = "cohort_round" if select is None or not cfg.fused_sessions else "fused_session"
+    aps, batches = graphs.run(
+        name, functools.partial(_rounds_body, select=None if select is None else select.picks,
+                                drawn=tuple(fed), groups=groups, rounds=len(rnds)),
+        inputs, shared={"x": x}, writes=gp_mod.SESSION_FIELDS,
+        static=(b, len(rnds), None if select is None else select.static, groups))
+    for s in states:
+        s.count += b * len(rnds)
+    if cfg.gp.learn_every and rnds[-1] % cfg.gp.learn_every == cfg.gp.learn_every - 1:
+        for s in states:
+            _relearn_hyperparams(s, cfg)
+    return aps, batches
 
 
 def _learn_kwargs(cfg: ExperimentConfig, state: gp_mod.GPState) -> Dict[str, Any]:

@@ -10,20 +10,24 @@ strategies with random components; deterministic strategies ignore it.
 
 Its stacked form selects for a cohort of K sessions over one corpus::
 
-    select(st: StackedGPState, batch_size, generators, params) -> (K, b) int64
+    select(states, batch_size, generators, params) -> (K, b) int64
 
-with one generator per session (:func:`get_stacked_strategy`).
+with one generator per session (:func:`get_stacked_strategy`), ``states``
+the K sessions' own states.  A strategy whose stacked selection can run
+inside a cohort program (ITAL's) also registers it as a
+:class:`CohortProgram` (:func:`cohort_program`): the runner's cohort rounds
+capture it with the update, whatever the strategy.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import inspect
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
-from ital_tpu_torch.models.gp import GPState, StackedGPState, session_state
+from ital_tpu_torch.models.gp import GPState, StackedGPState
 
 
 @dataclasses.dataclass
@@ -107,11 +111,49 @@ def get_stacked_strategy(name: str) -> SelectFn:
     if name in STACKED:
         return STACKED[name]
 
-    def each_session(st: StackedGPState, batch_size, generators, params, **kwargs):
-        return torch.stack([select(session_state(st, k), batch_size, g, params, **kwargs)
-                            for k, g in enumerate(generators)])
+    def each_session(states, batch_size, generators, params, **kwargs):
+        return torch.stack([select(s, batch_size, g, params, **kwargs)
+                            for s, g in zip(states, generators)])
 
     return each_session
+
+
+@dataclasses.dataclass(frozen=True)
+class CohortProgram:
+    """A strategy's stacked selection as the body of a cohort program: its
+    random inputs drawn before the program runs, its picks made inside.
+
+    ``static``: the hashable options the body closes over (part of the
+    program's signature); ``draw(generators, n, dtype, device)``: the K
+    sessions' random inputs, session k's from ``generators[k]`` in the
+    order its own selection draws, as named (K, ...) tensors or None;
+    ``picks(st, params, **drawn)``: the (K, b) picks of a
+    :class:`StackedGPState` with those inputs fed in."""
+
+    static: tuple
+    draw: Callable[..., dict]
+    picks: SelectFn
+
+
+# name -> (batch_size, the strategy's options) -> its CohortProgram.
+COHORT_PROGRAMS: Dict[str, Callable[[int, dict], CohortProgram]] = {}
+
+
+def register_cohort_program(name: str):
+    def deco(fn: Callable[[int, dict], CohortProgram]) -> Callable[[int, dict], CohortProgram]:
+        COHORT_PROGRAMS[name] = fn
+        return fn
+
+    return deco
+
+
+def cohort_program(name: str, batch_size: int, options: dict) -> Optional[CohortProgram]:
+    """Strategy ``name``'s stacked selection of ``batch_size`` with
+    ``options`` as a cohort program's body, or None where it has none (its
+    stacked form then runs eagerly before the program)."""
+    get_strategy(name)
+    make = COHORT_PROGRAMS.get(name)
+    return None if make is None else make(batch_size, options)
 
 
 def declared_method_kwargs(name: str) -> frozenset:

@@ -20,7 +20,8 @@ the device until the caller reads it.
 :func:`select_ital_stacked` selects for K sessions over one corpus at once
 (the reference's ``jax.vmap(select_ital)``): each greedy step gathers every
 session's moments, scores all their candidates in one MI call and takes each
-session's argmax.  :func:`select_ital` is its one-session case.
+session's argmax.  :func:`select_ital` is its one-session case.  Both run as
+programs (:mod:`ital_tpu_torch.graphs`) over :func:`_stacked_picks`.
 """
 
 from __future__ import annotations
@@ -36,8 +37,10 @@ from ital_tpu_torch import graphs
 from ital_tpu_torch.models.gp import (
     GPState,
     StackedGPState,
+    cohort_program_inputs,
     program_inputs,
     program_state,
+    program_stack,
     stacked_view,
 )
 from ital_tpu_torch.ops.blocking import blocked_map
@@ -49,9 +52,11 @@ from ital_tpu_torch.ops.mvn import (
     small_cholesky,
 )
 from ital_tpu_torch.select.base import (
+    CohortProgram,
     StrategyParams,
     labeled_mask,
     register,
+    register_cohort_program,
     register_stacked,
 )
 from ital_tpu_torch.utils.metrics import top_k_stable
@@ -477,9 +482,73 @@ def _greedy_picks(
     return batch
 
 
+def draw_cohort_inputs(
+    generators: Sequence[Optional[torch.Generator]], n: int, dtype: torch.dtype, device, *,
+    batch_size: int, subsample: bool, randomize: bool,
+) -> dict:
+    """K sessions' random inputs to a stacked ITAL selection, session k's
+    from ``generators[k]`` in the order its own selection draws
+    (:func:`draw_selection_inputs`): ``subsample_uniforms`` (K, n) and
+    ``qmc_shifts`` packed (K, batch_size, batch_size) (:func:`_pack_shifts`),
+    each None where it is not drawn."""
+    drawn = [draw_selection_inputs(g, n, batch_size, dtype, device, subsample=subsample,
+                                   randomize=randomize)
+             for g in (generators if subsample or randomize else ())]
+    return {"subsample_uniforms": torch.stack([u for u, _ in drawn]) if subsample else None,
+            "qmc_shifts": (torch.stack([_pack_shifts(q, batch_size) for _, q in drawn])
+                           if randomize else None)}
+
+
+def _stacked_picks(
+    st: StackedGPState,
+    params: StrategyParams,
+    *,
+    batch_size: int,
+    n_qmc: int = 128,
+    block: int = MI_BLOCK,
+    pool_size: int = 0,
+    subsample_size: int = 0,
+    refine_top: int = 0,
+    refine_n_qmc: int = 512,
+    subsample_uniforms: Optional[torch.Tensor] = None,
+    qmc_shifts: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """(K, batch_size) ITAL batches of the K sessions of ``st``, from fed
+    draws: ``subsample_uniforms`` (K, N) and ``qmc_shifts`` packed
+    (K, batch_size, batch_size) (:func:`_pack_shifts` per session).  The
+    body of every ITAL selection program."""
+    n = st.x.shape[0]
+    if pool_size or subsample_size:
+        ranking = st.mu if pool_size else subsample_uniforms
+        pool_idx, forbid = candidate_pool_indices(st, ranking, min(pool_size or subsample_size, n))
+    else:
+        pool_idx, forbid = None, labeled_mask(st)
+    shifts = None if qmc_shifts is None else [qmc_shifts[:, t, :t] for t in range(batch_size)]
+    return _greedy_picks(st, batch_size, params, pool_idx, forbid, n_qmc=n_qmc, block=block,
+                         refine_top=refine_top, refine_n_qmc=refine_n_qmc, qmc_shifts=shifts)
+
+
+@register_cohort_program("ital")
+def ital_cohort_program(batch_size: int, options: dict) -> CohortProgram:
+    """ITAL's stacked selection with ``options`` (a config's ``[METHOD]``
+    section) as a cohort program's body: the subsample uniforms and QMC
+    shifts are drawn before the program (:func:`draw_cohort_inputs`) and
+    fed to :func:`_stacked_picks` inside it."""
+    options = dict(options)
+    randomize = bool(options.pop("randomize_qmc", False))
+    _check_options(batch_size, options.get("pool_size", 0), options.get("subsample_size", 0),
+                   None)
+    return CohortProgram(
+        static=tuple(sorted(options.items())),
+        draw=functools.partial(draw_cohort_inputs, batch_size=batch_size,
+                               subsample=bool(options.get("subsample_size")),
+                               randomize=randomize),
+        picks=functools.partial(_stacked_picks, batch_size=batch_size, **options))
+
+
 @register_stacked("ital")
 def select_ital_stacked(
-    st: StackedGPState,
+    states: Sequence[GPState],
     batch_size: int,
     generators: Sequence[Optional[torch.Generator]],
     params: StrategyParams,
@@ -494,35 +563,51 @@ def select_ital_stacked(
     randomize_qmc: bool = False,
     subsample_uniforms: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """(K, batch_size) ITAL batches of the K sessions of ``st`` (the
+    """(K, batch_size) ITAL batches of the K sessions ``states`` (the
     reference's ``jax.vmap(select_ital)``), each the batch
     :func:`select_ital` picks for that session alone.
 
     Options as :func:`select_ital`.  Session k draws from ``generators[k]``
-    in the order its own selection draws: its subsample uniforms first, then
-    one shift per greedy step.  Fed draws: ``subsample_uniforms`` (K, N) and
-    ``qmc_shifts``, one (K, t) shift per step t.
+    in the order its own selection draws: its subsample uniforms first,
+    then one shift per greedy step.  Fed draws: ``subsample_uniforms``
+    (K, N) and ``qmc_shifts``, one (K, t) shift per step t.
+
+    The selection is one program (:func:`ital_tpu_torch.graphs.run`), the
+    counterpart of the reference's ``_batched_select``: on the card a graph
+    captured once per K, batch size, options, group plan and corpus, which
+    stacks the sessions' buffers inside, its draws made first and fed in.
+    On the CPU, or in ``graphs.eager()``, the same body runs eagerly.
     """
     _check_options(batch_size, pool_size, subsample_size, qmc_shifts)
-    n = st.x.shape[0]
-    dt, dev = st.mu.dtype, st.mu.device
-    draw_u = bool(subsample_size) and subsample_uniforms is None
-    draw_shifts = randomize_qmc and qmc_shifts is None
-    if draw_u or draw_shifts:
-        drawn = [draw_selection_inputs(g, n, batch_size, dt, dev, subsample=draw_u,
-                                       randomize=draw_shifts) for g in generators]
-        if draw_u:
-            subsample_uniforms = torch.stack([u for u, _ in drawn])
-        if draw_shifts:
-            qmc_shifts = [torch.stack([s[t] for _, s in drawn]) for t in range(batch_size)]
-    if pool_size or subsample_size:
-        ranking = st.mu if pool_size else subsample_uniforms
-        pool_idx, forbid = candidate_pool_indices(st, ranking, min(pool_size or subsample_size, n))
-    else:
-        pool_idx, forbid = None, labeled_mask(st)
-    return _greedy_picks(st, batch_size, params, pool_idx, forbid, n_qmc=n_qmc, block=block,
-                         refine_top=refine_top, refine_n_qmc=refine_n_qmc,
-                         qmc_shifts=qmc_shifts)
+    x = states[0].x
+    drawn = draw_cohort_inputs(generators, x.shape[0], states[0].mu.dtype, x.device,
+                               batch_size=batch_size,
+                               subsample=bool(subsample_size) and subsample_uniforms is None,
+                               randomize=randomize_qmc and qmc_shifts is None)
+    if subsample_size and subsample_uniforms is not None:
+        drawn["subsample_uniforms"] = subsample_uniforms
+    if qmc_shifts is not None:
+        drawn["qmc_shifts"] = _pack_shifts(qmc_shifts, batch_size)
+    options = {"batch_size": batch_size, "n_qmc": n_qmc, "block": block,
+               "pool_size": pool_size, "subsample_size": subsample_size,
+               "refine_top": refine_top, "refine_n_qmc": refine_n_qmc}
+    inputs, groups = cohort_program_inputs(states)
+    inputs.update(params.program_inputs(), **drawn)
+    (batch,) = graphs.run(
+        "select_ital_stacked",
+        functools.partial(_stacked_select_body, options=options, groups=groups),
+        inputs, shared={"x": x}, static=(tuple(options.items()), groups))
+    return batch
+
+
+def _stacked_select_body(x: torch.Tensor, *, options: dict, groups: tuple,
+                         subsample_uniforms: Optional[torch.Tensor],
+                         qmc_shifts: Optional[torch.Tensor], **inputs) -> tuple[torch.Tensor]:
+    """The stacked selection program's body: :func:`_stacked_picks` of the
+    stack of the inputs, with its draws fed in."""
+    return (_stacked_picks(program_stack(x, inputs, groups), StrategyParams.from_inputs(inputs),
+                           **options, subsample_uniforms=subsample_uniforms,
+                           qmc_shifts=qmc_shifts),)
 
 
 @register("ital")
@@ -591,20 +676,20 @@ def select_ital(
 
 def _pack_shifts(qmc_shifts: Sequence[torch.Tensor], batch_size: int) -> torch.Tensor:
     """(batch_size, batch_size) rows of the greedy steps' shifts, step t's (t,)
-    shift in row t's first t columns: one input for a program."""
-    return torch.stack([torch.nn.functional.pad(s, (0, batch_size - s.shape[0]))
-                        for s in qmc_shifts[:batch_size]])
+    shift in row t's first t columns: one input for a program; from (K, t)
+    shifts of K sessions, (K, batch_size, batch_size)."""
+    return torch.stack([torch.nn.functional.pad(s, (0, batch_size - s.shape[-1]))
+                        for s in qmc_shifts[:batch_size]], dim=-2)
 
 
 def _select_body(x: torch.Tensor, *, batch_size: int, options: dict,
                  subsample_uniforms: Optional[torch.Tensor],
                  qmc_shifts: Optional[torch.Tensor], **inputs) -> tuple[torch.Tensor]:
-    """The selection program's body: :func:`select_ital_stacked` of one
-    session with its draws fed in."""
-    return (select_ital_stacked(
-        stacked_view(program_state(x, inputs)), batch_size, [None],
-        StrategyParams.from_inputs(inputs), **options,
-        qmc_shifts=None if qmc_shifts is None else [qmc_shifts[None, t, :t]
-                                                    for t in range(batch_size)],
+    """The selection program's body: :func:`_stacked_picks` of one session
+    with its draws fed in."""
+    return (_stacked_picks(
+        stacked_view(program_state(x, inputs)), StrategyParams.from_inputs(inputs),
+        batch_size=batch_size, **options,
+        qmc_shifts=None if qmc_shifts is None else qmc_shifts[None],
         subsample_uniforms=None if subsample_uniforms is None else subsample_uniforms[None],
     )[0],)

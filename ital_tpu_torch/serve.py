@@ -34,8 +34,14 @@ Concurrency:
   (:func:`ital_tpu_torch.select.base.get_stacked_strategy`; ITAL's is
   :func:`ital_tpu_torch.select.ital.select_ital_stacked`), and the sessions
   of one (width, capacity) feedback group take one stacked GP update
-  (:func:`ital_tpu_torch.models.gp.gp_update_stacked`), written back into
-  each session's buffers under its lock.  Groups larger than the memory
+  (:func:`ital_tpu_torch.models.gp.update_stacked`), written back into
+  each session's buffers under its lock.  On the card ITAL's stacked
+  selection and every stacked update each replay one captured program
+  (:mod:`ital_tpu_torch.graphs`), which stacks the sessions' buffers inside
+  itself.  A group is laid out by hyperparameter group first, larger groups
+  first, so that its program depends on its size and the sizes of its
+  hyperparameter groups alone; the programs held for all signatures keep
+  at most ``graphs.STACK_BYTES`` of stacks.  Groups larger than the memory
   budget (``ITAL_TPU_COHORT_STATE_BYTES``, :meth:`RetrievalService.
   _max_cohort_sessions`) run as several stacked programs, with the same
   results.
@@ -377,10 +383,12 @@ class RetrievalService:
                 rows = self._world.run(_mesh_cohort_select, [sid for sid, _, _ in group], k,
                                        [s.generator.get_state() for s in sessions])
             else:
+                group = _by_hyper_group(group)
+                sessions = [s for _, s, _ in group]
                 name = sessions[0].strategy_name
                 select = get_stacked_strategy(name)
-                rows = select(gp_mod.stack_states([s.state for s in sessions]), k,
-                              [s.generator for s in sessions], sessions[0].params,
+                rows = select([s.state for s in sessions], k, [s.generator for s in sessions],
+                              sessions[0].params,
                               **filter_method_kwargs(name, sessions[0].method_kwargs)).tolist()
             out.update({sid: [int(i) for i in row] for (sid, _, _), row in zip(group, rows)})
         return out
@@ -436,12 +444,16 @@ class RetrievalService:
         """One stacked GP update of locked sessions ``(sid, session, idx, y)``
         with feedback blocks of one width, written back into each session's
         own buffers once the whole update has succeeded."""
+        if self._world is None:
+            group = _by_hyper_group(group)
         idx = np.stack([i for _, _, i, _ in group])
         y = np.stack([y for _, _, _, y in group])
         if self._world is not None:
             self._world.run(_mesh_cohort_update, [sid for sid, *_ in group], idx, y)
             return
-        _update_stacked([s.state for _, s, _, _ in group], idx, y, gp_mod.gp_update_stacked)
+        dev = self.x.device
+        gp_mod.update_stacked([s.state for _, s, _, _ in group], torch.as_tensor(idx, device=dev),
+                              torch.as_tensor(y, device=dev), torch.as_tensor(y != 0, device=dev))
 
     def ranking(self, sid: str, k: int) -> dict:
         sess, lock = self._entry(sid)
@@ -547,14 +559,13 @@ def _restore_into(sess, sid: str, state, extra) -> None:
         sess._density_ls = ("restored", sid)
 
 
-def _update_stacked(states, idx: np.ndarray, y: np.ndarray, update) -> None:
-    """``update`` (a stacked GP update) of ``states`` with (K, b) feedback
-    blocks, written back into each state's own buffers once it succeeded."""
-    dev = states[0].mu.device
-    st = gp_mod.stack_states(states)
-    update(st, torch.as_tensor(idx, device=dev), torch.as_tensor(y, device=dev),
-           torch.as_tensor(y != 0, device=dev))
-    gp_mod.unstack_into(st, states)
+def _by_hyper_group(entries: list) -> list:
+    """Locked group entries ``(sid, session, ...)`` in the order that lays
+    their sessions out by hyperparameter group, larger groups first
+    (:func:`~ital_tpu_torch.models.gp.hyper_group_order`): a stacked
+    program's group plan then depends on the group sizes alone, not on the
+    order of the request's sessions."""
+    return [entries[k] for k in gp_mod.hyper_group_order([e[1].state for e in entries])]
 
 
 # -- mesh commands: run on every rank of a mesh service (MeshWorld.run) -------
@@ -601,8 +612,16 @@ def _mesh_absorb(ctx, sid: str, idx: np.ndarray, y: np.ndarray) -> None:
 
 
 def _mesh_cohort_update(ctx, sids: list, idx: np.ndarray, y: np.ndarray) -> None:
-    _update_stacked([ctx.sessions[sid].state for sid in sids], idx, y,
-                    sh.make_sharded_cohort_update(ctx.mesh))
+    """One sharded stacked update of the sessions ``sids`` with (K, b)
+    feedback blocks, written back into each session's own buffers once it
+    succeeded."""
+    states = [ctx.sessions[sid].state for sid in sids]
+    dev = states[0].mu.device
+    st = gp_mod.stack_states(states)
+    sh.make_sharded_cohort_update(ctx.mesh)(st, torch.as_tensor(idx, device=dev),
+                                            torch.as_tensor(y, device=dev),
+                                            torch.as_tensor(y != 0, device=dev))
+    gp_mod.unstack_into(st, states)
 
 
 def _mesh_ranking(ctx, sid: str, k: int) -> tuple:

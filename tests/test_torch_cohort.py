@@ -270,7 +270,7 @@ def test_select_stacked_matches_jax_vmap_and_per_session(warmed, kw):
         fed["subsample_uniforms"] = torch.stack([u for u, _ in draws])
     if kw.get("randomize_qmc"):
         fed["qmc_shifts"] = [torch.stack([s[t] for _, s in draws]) for t in range(3)]
-    got = tital.select_ital_stacked(tgp.stack_states(ts), 3, [None] * 3, tp, **fed, **kw)
+    got = tital.select_ital_stacked(ts, 3, [None] * 3, tp, **fed, **kw)
     np.testing.assert_array_equal(got.numpy(), want)
     for k, s in enumerate(ts):
         one = {"subsample_uniforms": fed["subsample_uniforms"][k]} if "subsample_uniforms" in fed \
@@ -288,7 +288,7 @@ def test_select_stacked_draws_each_session_from_its_own_generator(warmed):
     _, ts = warmed
     _, tp = _params()
     kw = {"subsample_size": 40, "n_qmc": 32, "randomize_qmc": True}
-    got = tital.select_ital_stacked(tgp.stack_states(ts), 3,
+    got = tital.select_ital_stacked(ts, 3,
                                     [torch.Generator().manual_seed(s) for s in (1, 2, 3)], tp, **kw)
     for k, s in enumerate(ts):
         one = tital.select_ital(s, 3, torch.Generator().manual_seed(k + 1), tp, **kw)
@@ -300,7 +300,7 @@ def test_stacked_lookup_loops_other_strategies(warmed):
     _, tp = _params()
     assert tbase.get_stacked_strategy("ital") is tital.select_ital_stacked
     emoc = tbase.get_stacked_strategy("emoc")
-    got = emoc(tgp.stack_states(ts), 2, [None] * 3, tp)
+    got = emoc(ts, 2, [None] * 3, tp)
     for k, s in enumerate(ts):
         want = tbase.get_strategy("emoc")(s, 2, None, tp)
         np.testing.assert_array_equal(got[k].numpy(), want.numpy())

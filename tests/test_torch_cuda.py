@@ -267,9 +267,9 @@ def test_cuda_launch_count_is_exact_under_threads():
 @pytest.mark.cuda
 def test_cuda_stacked_select_and_update_match_the_cpu():
     """Three sessions stacked on the card, one with other hyperparameters:
-    one stacked ITAL selection and one stacked GP update launch the kernel
-    once per block and hyperparameter group, pick the CPU's batches and
-    reach the CPU's posterior means within 1e-4."""
+    one stacked ITAL selection and one stacked GP update, run eagerly, launch
+    the kernel once per block and hyperparameter group, pick the CPU's
+    batches and reach the CPU's posterior means within 1e-4."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     from ital_tpu_torch.models import gp as gp_mod
@@ -281,7 +281,7 @@ def test_cuda_stacked_select_and_update_match_the_cpu():
     x = np.concatenate([c + rng.normal(size=(300, 128)) for c in centers]).astype(np.float32)
     specs = [(3, 16.0, 1.0), (310, 16.0, 1.0), (620, 14.0, 0.9)]
 
-    def stack(dev):
+    def sessions(dev):
         states = []
         for q, ls, var in specs:
             st = gp_mod.gp_init(torch.from_numpy(x).to(dev), ls, var, 0.1, 16)
@@ -290,18 +290,20 @@ def test_cuda_stacked_select_and_update_match_the_cpu():
             gp_mod.gp_update(st, picks, torch.tensor([1.0, 1.0, -1.0, -1.0], device=dev),
                              torch.ones(4, dtype=torch.bool, device=dev))
             states.append(st)
-        return gp_mod.stack_states(states)
+        return states
 
     kw = {"pool_size": 30, "n_qmc": 32, "refine_top": 8, "refine_n_qmc": 128}
     new_idx = torch.tensor([[5, 6, 7, 8], [311, 312, 400, 401], [621, 700, 10, 11]])
     new_y = torch.tensor([[1.0, 1.0, -1.0, 1.0], [1.0, -1.0, 1.0, 1.0], [1.0, 1.0, -1.0, -1.0]])
     out = {}
     for dev in ("cpu", "cuda"):
-        st = stack(dev)
+        states = sessions(dev)
+        st = gp_mod.stack_states(states)
         assert st.hyper_groups == [[0, 1], [2]]
         params = StrategyParams.create(dev, label_prob=0.9, mistake_prob=0.05)
         before = rbf_hopper.LAUNCHES
-        picks = select_ital_stacked(st, 4, [None] * 3, params, **kw)
+        with graphs.eager():  # the graphed selection is held to this in a later test
+            picks = select_ital_stacked(states, 4, [None] * 3, params, **kw)
         selected = rbf_hopper.LAUNCHES - before
         gp_mod.gp_update_stacked(st, new_idx.to(dev), new_y.to(dev),
                                  torch.ones(3, 4, dtype=torch.bool, device=dev))
@@ -370,3 +372,47 @@ def test_cuda_replays_count_kernel_launches():
     (prog,) = [p for p in graphs.programs() if p.replays > replays.get(id(p), 0)]
     assert prog.name == "select_ital"
     assert rbf_hopper.LAUNCHES - before == sum(prog.launches.values()) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_stacked_select_and_update_equal_eager():
+    """On the card: the stacked ITAL selection and the stacked update of
+    three sessions' own states (two hyperparameter groups, differing
+    counts), each one captured program, give the picks of their
+    ``graphs.eager()`` runs and bit-equal posteriors; the second round
+    replays both programs."""
+    _needs_card()
+    from ital_tpu_torch.models import gp as gp_mod
+    from ital_tpu_torch.select.base import StrategyParams
+    from ital_tpu_torch.select.ital import select_ital_stacked
+
+    ds = tds._synthetic_surrogate("mirflickr", 3000, 128, 14, seed=2)
+    x = torch.from_numpy(ds.x).cuda()
+    params = StrategyParams.create("cuda", label_prob=0.8, mistake_prob=0.05)
+    states = []
+    for q, ls, blocks in ((3, 12.0, 1), (1200, 10.0, 0), (2500, 12.0, 2)):
+        st = gp_mod.gp_set_query(gp_mod.gp_init(x, ls, 1.0, 0.1, 32), q)
+        for j in range(blocks):
+            gp_mod.gp_update(st, torch.arange(4, device="cuda") + 10 * j + q % 7,
+                             torch.tensor([1.0, -1.0, 1.0, -1.0], device="cuda"),
+                             torch.ones(4, dtype=torch.bool, device="cuda"))
+        states.append(st)
+    twins = [gp_mod.gp_session_copy(s) for s in states]
+    before = graphs.programs()  # held: a released program's id is not reused
+    for r in range(2):
+        picks = select_ital_stacked(states, 4, [None] * 3, params, **GRAPH_KW)
+        with graphs.eager():
+            want = select_ital_stacked(twins, 4, [None] * 3, params, **GRAPH_KW)
+        assert torch.equal(picks, want), r
+        y = torch.where(picks % 2 == 0, 1.0, -1.0)
+        valid = torch.ones_like(picks, dtype=torch.bool)
+        gp_mod.update_stacked(states, picks, y, valid)
+        with graphs.eager():
+            gp_mod.update_stacked(twins, want, y, valid)
+        for a, b in zip(states, twins):
+            assert a.count == b.count
+            for f in gp_mod.SESSION_FIELDS:
+                assert torch.equal(getattr(a, f), getattr(b, f)), (r, f)
+    mine = [p for p in graphs.programs() if all(p is not q for q in before)]
+    assert sorted(p.name for p in mine) == ["gp_update_stacked", "select_ital_stacked"]
+    assert all(p.replays == 2 for p in mine)

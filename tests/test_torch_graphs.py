@@ -13,6 +13,7 @@ held by ``tests/test_torch_cuda.py`` (JAX-free, for the card) and
 """
 
 import contextlib
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -138,7 +139,7 @@ def test_fed_draws_pick_as_generator_draws(surrogate, kw):
     where the selection leaves it."""
     ts = _warm(_session_state(surrogate), surrogate)
     g_inside = torch.Generator().manual_seed(5)
-    inside = tital.select_ital_stacked(tgp.stacked_view(ts), 4, [g_inside],
+    inside = tital.select_ital_stacked([ts], 4, [g_inside],
                                        StrategyParams.create("cpu", label_prob=0.8), **kw)[0]
     g = torch.Generator().manual_seed(5)
     u, shifts = tital.draw_selection_inputs(
@@ -272,11 +273,11 @@ def test_device_count_selection_equals_host_count(surrogate, rounds):
     picks the host count's batch."""
     ts = _warm(_session_state(surrogate), surrogate, rounds=rounds)
     p = StrategyParams.create("cpu", label_prob=0.8, mistake_prob=0.05)
-    host = tital.select_ital_stacked(tgp.stacked_view(ts), 4, [None], p, **PRODUCTION_KW)
-    dev = _copy(ts)
-    dev.count = torch.tensor(ts.count)
-    got = tital.select_ital_stacked(tgp.stacked_view(dev), 4, [None], p, **PRODUCTION_KW)
+    host = tital._stacked_picks(tgp.stacked_view(ts), p, batch_size=4, **PRODUCTION_KW)
+    dev = dataclasses.replace(tgp.stacked_view(_copy(ts)), counts=torch.tensor([ts.count]))
+    got = tital._stacked_picks(dev, p, batch_size=4, **PRODUCTION_KW)
     assert torch.equal(got, host)
+    assert torch.equal(tital.select_ital(ts, 4, None, p, **PRODUCTION_KW), host[0])
 
 
 # --- the deferred Cholesky check -----------------------------------------
