@@ -31,7 +31,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    to MI ties at f32 resolution, checked step by step) and reaches the same
    posterior mean on the plain path.
 6. harness: ``ital_tpu_torch.runner.run_experiment`` on ``configs/mirflickr.ini``
-   (25 000 x 512, depth cut to 2 classes x 5 rounds) for eight strategies:
+   (25 000 x 512, depth cut to 1 class x 5 rounds) for eight strategies:
    ITAL with the production options, EMOC, batch EMOC, MCMI[min], SUD, RBMAL,
    uncertainty and random sampling.  The launch counts are reset just
    before; every selection of the five strategies that build kernel blocks
@@ -40,7 +40,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    checkpoint is restored on the CPU through ``load_session`` and must pick
    the card's batch up to EMOC-score ties.  One more run, ITAL with
    ``GP.learn_every=2`` (1 class x 4 rounds), must log finite learned
-   hyperparameters and move the length scale.
+   hyperparameters and move the length scale; its select and update spans
+   and each re-learn (one program, synchronized) are timed.
 7. serving: ``ital_tpu_torch.serve`` on the same corpus with the production
    [GP]/[USER]/[METHOD] settings and cap 64, served over HTTP on an
    ephemeral port from a daemon thread and driven with ``urllib``: four ITAL
@@ -51,8 +52,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    session, three rounds of ``/batch_select``, a seeded simulated user and
    ``/batch_feedback``, then ``/ranking``, ``/snapshot`` restored into a CPU
    service (posterior mean within ``CPU_MU_ATOL`` after one more update on
-   both) and ``/learn`` (50 steps) on the card and on the CPU from that
-   state: the length scale and variance must move, and agree within
+   both) and ``/learn`` (50 steps; on the card one captured program) on the
+   card and on the CPU from that state: the length scale and variance must
+   move, and agree within
    ``LEARN_RTOL``.  Every request kind that forms RBF blocks must launch the
    kernel; each kind's synchronized host latency is printed with the card's
    name and power limit.
@@ -64,7 +66,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    session, beside the bound of the function it computes (each input read
    once, a shared corpus once for all groups, only the K blocks it returns
    written) and the bound of its launches' own work.  Then the runner (3 classes x
-   2 queries, depth cut to 5 rounds, cap 64) serially (uncounted: the
+   2 queries, depth cut to 3 rounds, cap 64) serially (uncounted: the
    baseline), then with ``fused_sessions`` (one captured program of all of
    a session's rounds; the fused path's count), with ``query_batch = 4``
    (one captured program a cohort round, the second cohort of 2 padded to
@@ -88,7 +90,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    capture and instantiate ms, replays, launches, static buffers and pool
    growth, are printed with the card's name and power limit.  Last, mixed
    cohort traffic over HTTP in the same four turns: eight sessions, three
-   of them after ``/learn``, through ``MIX_REQUESTS`` (cohorts of 2, 3, 4
+   of them after ``/learn`` (eager in the eager turns), through
+   ``MIX_REQUESTS`` (cohorts of 2, 3, 4
    and 8 in varying orders and mixes of learned and default sessions, a
    ``/batch_select`` and a ``/batch_feedback`` each), twice: graphed picks
    equal eager picks, and the second graphed turn captures nothing (every
@@ -175,12 +178,34 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    serial harness at the production options (2 classes x 5 rounds),
    graphed against eager: equal AP, picks and MAP up to MI ties.  The
    launch count is reset before the graphed runs and counts the replays.
+   Programs are counted by ``graphs.captures()`` and held by identity: a
+   capture may release other programs.
+
+13. learn: the hyperparameter ascent as programs.  ``/learn``
+   (``RetrievalService.learn``, 50 steps) on two production sessions with
+   three rounds of history each, in four turns, graphed, eager, eager,
+   graphed, each history learned by a session and its twin: one
+   ``relearn`` program (the ascent and the refit), replayed by the second
+   history; learned values within ``LEARN_GRAPH_RTOL`` of eager, ``mu``
+   after the refit bit-equal; the ascent's gradient at every step within
+   ``LEARN_GRAPH_RTOL`` of eager (uncounted); the CPU's re-learn from the
+   same state within ``LEARN_RTOL``; host ms of ``LEARN_TIMED`` re-learns
+   a turn.  Then two fused cohorts of 4 x ``LEARN_COHORT_ROUNDS`` rounds at the
+   production options with ``GP.learn_every = LEARN_EVERY``, graphed then
+   eager: one program per cohort, its three stacked re-learns inside
+   (held by identity and replays), graphed picks equal to eager up to the
+   first MI tie (on the eager state) and the curves while they agree; its
+   ms against eager and against the same cohort with learning off; each
+   program's warm-up, capture and instantiate ms, replays, launches per
+   replay, static buffers and pool growth.  The launch count is reset
+   before the phase.
 
 The second-to-last line is a JSON object describing the kernel (launches on
 the main paths in all, per route and per path, its bound, its time and the
 plain version's, and its times at the 100 000-row shapes, at the mesh
-cohort's stacked shard shapes and at the large-cap refit's shapes); the
-last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+cohort's stacked shard shapes, at the large-cap refit's shapes and at the
+ascent's (64, 64, 512) block with its launches per ``/learn``); the last
+line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -204,9 +229,9 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "mirflickr_production.ini"
 HARNESS_CONFIG = ROOT / "configs" / "mirflickr.ini"
-# Depth cut to 2 classes x 5 rounds; the labeled buffers keep the width the
+# Depth cut to 1 class x 5 rounds; the labeled buffers keep the width the
 # 10-round configuration sizes automatically (1 + 10 x 4 slots -> 48).
-HARNESS_OVERRIDES = ("EXPERIMENT.max_classes=2", "EXPERIMENT.n_rounds=5", "GP.cap=48")
+HARNESS_OVERRIDES = ("EXPERIMENT.max_classes=1", "EXPERIMENT.n_rounds=5", "GP.cap=48")
 HARNESS_METHODS = ("ital", "emoc", "emoc_batch", "mcmi_min", "sud", "rbmal",
                    "uncertainty_sampling", "random")
 # Strategies whose every selection forms RBF blocks (pool cross-kernels,
@@ -220,6 +245,8 @@ WORK_DIR = ROOT / "build" / "chip_smoke"
 SEED = 0
 CAP = 64
 MID_ROUND = 5  # round whose state is replayed on the CPU in phase 5
+# The (cap, cap, D) block that gp_fit forms once and the ascent at every step.
+ASCENT_SHAPE = "k_ll (64, 64, 512): gp_fit, the ascent"
 F32_ATOL = 1e-5  # times var: f32 kernel vs plain f32
 BF16_ATOL = 1e-4  # times var: bf16 kernel vs plain on the same bf16 values
 CPU_MU_ATOL = 1e-4  # posterior mean, card vs CPU after one update
@@ -241,12 +268,12 @@ LEARN_RTOL = 1e-3
 # Request kinds whose every request forms RBF blocks on the card.
 KERNEL_REQUESTS = ("create with density", "query", "batch_select", "batch",
                    "batch_feedback", "feedback", "learn")
-# Phase 8: the runner's cohorts of 4 (3 classes x 2 queries, 5 rounds: a full
+# Phase 8: the runner's cohorts of 4 (3 classes x 2 queries, 3 rounds: a full
 # cohort and a padded one of 2) and the HTTP cohort of 8 sessions (4 classes x
 # 2 queries) beside 8 twins.
 COHORT_CLASSES = 3
 COHORT_QB = 4
-COHORT_ROUNDS = 5
+COHORT_ROUNDS = 3
 COHORT_K = 8
 COHORT_KINDS = ("batch_select", "batch", "batch_feedback", "feedback")
 COHORT_MODES = {"fused": {"fused_sessions": True}, "query_batch": {"query_batch": COHORT_QB},
@@ -260,7 +287,7 @@ COHORT_MU_ATOL = 1e-7
 SCALE_CONFIG = ROOT / "configs" / "scale100k.ini"
 SCALE_OVERRIDES = ("EXPERIMENT.max_classes=1", "EXPERIMENT.n_rounds=3")
 RING_METHODS = ("emoc", "mcmi_min", "sud")
-RING_OVERRIDES = HARNESS_OVERRIDES + ("EXPERIMENT.max_classes=1", "EXPERIMENT.n_rounds=2")
+RING_OVERRIDES = HARNESS_OVERRIDES + ("EXPERIMENT.n_rounds=2",)
 # Phase 10: configs/scale100k.ini cut to 2 classes x 2 queries x 3 rounds,
 # fused sessions and cohorts of 4 on the mesh (clamped to the cards).
 MESH_OVERRIDES = ("EXPERIMENT.max_classes=2", "EXPERIMENT.queries_per_class=2",
@@ -282,6 +309,11 @@ GRAPH_MU_ATOL = 1e-6
 ROUND_STEPS = 5
 ENTRY_SHAPE = {"n": 2048, "d": 64, "cap": 64, "ls": 6.0, "query": 7}
 GRAPH_HARNESS_OVERRIDES = ("EXPERIMENT.max_classes=2", "EXPERIMENT.n_rounds=5")
+# Phase 13: /learn's programs and a fused learning cohort of 4 x 6 rounds.
+LEARN_GRAPH_RTOL = 1e-6  # learned values and gradients, graphed vs eager on the card
+LEARN_TIMED = 3  # re-learns timed per turn
+LEARN_COHORT_ROUNDS = 6
+LEARN_EVERY = 2
 # The card's published peaks (H100 SXM, dense), for the kernel's bound: HBM
 # bytes per second, and TF32 and bf16 tensor operations per second (the f32
 # route does its products as 3xTF32: three TF32 products per f32 one).
@@ -295,17 +327,19 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def rbf_bound_ms(m: int, n: int, d: int, bf16: bool, norms: int) -> tuple[float, str]:
+def rbf_bound_ms(m: int, n: int, d: int, bf16: bool, norms: int,
+                 same: bool = False) -> tuple[float, str]:
     """The least time the card could take for one (M, N, D) RBF block, and
     which of bytes and operations sets it.
 
-    Bytes: a and b read once, the ``norms`` given f32 norm vectors (their
-    entries) read once, the f32 output written once.  Operations: the 2 M N D
-    of the product, three times over in TF32 for f32 inputs (3xTF32), once
-    in bf16 for a bf16 corpus.
+    Bytes: a and b read once (once in all where ``same``: b is a's rows, as
+    in a labeled set's own block K(xl, xl)), the ``norms`` given f32 norm
+    vectors (their entries) read once, the f32 output written once.
+    Operations: the 2 M N D of the product, three times over in TF32 for f32
+    inputs (3xTF32), once in bf16 for a bf16 corpus.
     """
     item = 2 if bf16 else 4
-    nbytes = (m + n) * d * item + 4 * norms + 4 * m * n
+    nbytes = (m if same else m + n) * d * item + 4 * norms + 4 * m * n
     ops = 2.0 * m * n * d * (1 if bf16 else 3)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / (BF16_OPS_PER_S if bf16 else TF32_OPS_PER_S) * 1e3
@@ -401,6 +435,7 @@ def kernel_phase(torch, ds) -> dict:
     pick = lambda k: torch.from_numpy(rng.choice(n, size=k, replace=False)).to(dev)
     i64, i4, i3, i4096 = pick(64), pick(4), pick(3), pick(4096)
     i2048, i512, i48 = pick(2048), pick(512), pick(48)
+    xl = x[i64]  # a labeled set, whose own block the fit and the ascent form
     ls = torch.tensor(50.0, device=dev)
     var = torch.tensor(1.0, device=dev)
     # name, a, b, norms, length scale, var, atol (times var)
@@ -408,7 +443,7 @@ def kernel_phase(torch, ds) -> dict:
         ("gp_fit cross (64, 25000, 512) b2", x[i64], x, {"b2": x2}, ls, var, F32_ATOL),
         ("gp_update cross (4, 25000, 512) b2", x[i4], x, {"b2": x2}, ls, var, F32_ATOL),
         ("pool cross (4096, 3, 512)", x[i4096], x[i3], {}, ls, var, F32_ATOL),
-        ("gp_fit k_ll (64, 64, 512)", x[i64], x[i64], {}, ls, var, F32_ATOL),
+        (ASCENT_SHAPE, xl, xl, {}, ls, var, F32_ATOL),
         ("cov columns (25000, 3, 512) a2", x, x[i3], {"a2": x2}, ls, var, F32_ATOL),
         ("ragged (100, 300, 8)", x[:100, :8].contiguous(), x[100:400, :8].contiguous(), {},
          torch.tensor(4.0, device=dev), torch.tensor(0.9, device=dev), F32_ATOL),
@@ -426,6 +461,7 @@ def kernel_phase(torch, ds) -> dict:
     ]
     worst = 0.0
     main = None
+    by_shape = {}
     for name, a, b, norms, l, v, atol in cases:
         m, d = a.shape
         route = rbf_hopper.choose_route(m, b.shape[0], d, a.dtype, a.data_ptr(), b.data_ptr())
@@ -447,7 +483,7 @@ def kernel_phase(torch, ds) -> dict:
         dev_us = {r: _device_us(torch, fns[r]) for r in errs}
         ms, spread = timed[route.name]
         bound, bound_by = rbf_bound_ms(m, b.shape[0], d, a.dtype == torch.bfloat16,
-                                       sum(v.numel() for v in norms.values()))
+                                       sum(v.numel() for v in norms.values()), same=a is b)
         print(f"kernel: {name}: bound {bound * 1e3:.2f} us ({bound_by}); "
               f"route {route.name} (variant {route.variant}, transposed "
               f"{route.transposed}); max_abs_err {err:.3e} (atol {tol:.1e}; per route "
@@ -462,11 +498,13 @@ def kernel_phase(torch, ds) -> dict:
               f"{name}: the chosen route ({ms} ms) is not slower than the tile kernel "
               f"({tile_ms} ms) beyond the runs' spread")
         worst = max(worst, err, *errs.values())
+        by_shape[name] = {"ms": ms, "plain_ms": timed["plain"][0], "bound_ms": bound,
+                          "bound_by": bound_by, "max_abs_err": err}
         if main is None:
             main = (ms, timed["plain"][0], bound, bound_by)
     check(all(c > 0 for c in rbf_hopper.ROUTE_LAUNCHES.values()), "both routes launched in phase 3")
     return {"max_abs_err": worst, "ms": main[0], "plain_ms": main[1], "bound_ms": main[2],
-            "bound_by": main[3]}
+            "bound_by": main[3], "by_shape": by_shape}
 
 
 def session_phase(torch, ds, cfg, dev) -> dict:
@@ -714,16 +752,35 @@ def _learn_run(runner, base, production, ds, dev) -> None:
     hyperparameters must be finite and the length scale must move."""
     from ital_tpu_torch.ops import rbf_hopper
 
+    import torch
+
     log = WORK_DIR / "learn_every.jsonl"
     cfg = dataclasses.replace(
         base, method="ital", method_kwargs=dict(production.method_kwargs), max_classes=1,
         n_rounds=4, gp=dataclasses.replace(base.gp, learn_every=2), log_jsonl=str(log))
     before = rbf_hopper.LAUNCHES
-    res = runner.run_experiment(cfg, ds, device=dev)
+    relearn, relearn_ms = runner._relearn_hyperparams, []
+
+    def timed(state, c):  # the re-learn program, synchronized
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = relearn(state, c)
+        torch.cuda.synchronize()
+        relearn_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    runner._relearn_hyperparams = timed
+    try:
+        res = runner.run_experiment(cfg, ds, device=dev)
+    finally:
+        runner._relearn_hyperparams = relearn
     rows = [json.loads(line) for line in log.read_text().splitlines()]
     hyper = [(r["length_scale"], r["gp_var"], r["gp_noise"]) for r in rows]
     print(f"harness ital learn_every=2: MAP {[round(float(m), 6) for m in res['map']]}; "
-          f"(length_scale, var, noise) per round {hyper}; launches "
+          f"(length_scale, var, noise) per round {hyper}; select {res['select_ms']:.3f} ms "
+          f"mean, {res['select_ms_steady']:.3f} steady; update {res['update_ms']:.3f} ms mean, "
+          f"{res['update_ms_steady']:.3f} steady; re-learn (one program, synchronized) ms "
+          f"{[round(t, 3) for t in relearn_ms]} (the first with its capture); launches "
           f"{rbf_hopper.LAUNCHES - before}")
     check(len(rows) == cfg.n_rounds and bool(np.isfinite(res["ap"]).all()), "learn_every: AP rows")
     check(all(np.isfinite(h).all() and min(h) > 0 for h in hyper),
@@ -1147,7 +1204,7 @@ def _eager_service(svc, eager: bool):
     if not eager:
         yield
         return
-    names = ("next_batch_many", "feedback_many", "next_batch", "feedback", "set_query")
+    names = ("next_batch_many", "feedback_many", "next_batch", "feedback", "set_query", "learn")
     orig = {n: getattr(svc, n) for n in names}
 
     def wrap(fn):
@@ -1217,7 +1274,7 @@ def _cohort_http(torch, ds, cfg, dev, smi: str):
             queries = [(int(q), c) for c in classes for q in ds.queries_for_class(c, rng, 2)]
             user = _user(rng, ds, cfg.user.label_prob, cfg.user.mistake_prob)
             picks_by_round, mu_by_round = [], []
-            captured = len(graphs.programs())
+            captured = graphs.captures()
             with _graphed_or_eager(turn), _eager_service(svc, turn == "eager"):
                 # The twins are the baseline: their requests count in no path.
                 cohort, twins = [], []
@@ -1263,7 +1320,7 @@ def _cohort_http(torch, ds, cfg, dev, smi: str):
                     print(f"cohort serve {turn} round {r}: " + "; ".join(
                         f"{picks[a]} {list(answers[a].values())}" for a in cohort))
             if turn == "graphed" and i > 0:
-                check(len(graphs.programs()) == captured,
+                check(graphs.captures() == captured,
                       "the second graphed cohort replays the first one's programs")
             turns.append((turn, picks_by_round, mu_by_round))
             for sid in cohort + twins:
@@ -1365,7 +1422,7 @@ def _cohort_mix(torch, ds, cfg, dev, smi: str) -> None:
             queries = [(int(q), c) for c in classes for q in ds.queries_for_class(c, rng, 2)]
             user = _user(rng, ds, cfg.user.label_prob, cfg.user.mistake_prob)
             picks, ms = [], {}
-            known = _known_programs()
+            known, captured = _known_programs(), graphs.captures()
             with _graphed_or_eager(turn), _eager_service(svc, turn == "eager"):
                 sids = []
                 for q, _ in queries:
@@ -1409,8 +1466,9 @@ def _cohort_mix(torch, ds, cfg, dev, smi: str) -> None:
                   f"{graphs.STACK_BYTES / 2**20:.0f}; graph pools "
                   f"{'not measured' if pool is None else f'{pool:.1f} MiB'} [{smi}]")
             if turn == "graphed" and picks_by_turn[:-1]:
-                check(not new, "cohort mix: the second graphed turn replays the first one's "
-                               "programs (all held within graphs.STACK_BYTES)")
+                check(graphs.captures() == captured,
+                      "cohort mix: the second graphed turn replays the first one's programs "
+                      "(all held within graphs.STACK_BYTES)")
     finally:
         srv.shutdown()
         srv.server_close()
@@ -1941,7 +1999,7 @@ def _kernel_shapes(torch, what: str, shapes, ls, var, smi: str) -> list:
             (ms, spread), (plain_ms, plain_spread) = _time_turns_ms(torch, [kern, plain])
             dev_us = _device_us(torch, kern)
             bound, bound_by = rbf_bound_ms(a.shape[0], b.shape[0], d, False,
-                                           sum(v.numel() for v in norms.values()))
+                                           sum(v.numel() for v in norms.values()), same=a is b)
             route = rbf_hopper.choose_route(a.shape[0], b.shape[0], d, a.dtype, a.data_ptr(),
                                             b.data_ptr()).name
             print(f"kernel: {what} {name}: route {route}; max_abs_err {err:.3e} (atol "
@@ -2464,11 +2522,11 @@ def _held_to(torch, graphed: dict, eager: dict, kw: dict, what: str) -> int:
     return len(graphed["batches"])
 
 
-def _busy_share(torch, fn, calls: int = 3) -> Optional[float]:
-    """The device's busy share while ``fn`` runs ``calls`` times back to back:
-    the kernels' and copies' device time (``torch.profiler``, CUDA activity)
-    over the host's synchronized wall time; None where the profiler saw no
-    device time."""
+def _device_profile(torch, fn, calls: int = 3) -> tuple[Optional[float], float]:
+    """The device's busy share while ``fn`` runs ``calls`` times back to
+    back, the kernels' and copies' device time (``torch.profiler``, CUDA
+    activity) over the host's synchronized wall time, None where the
+    profiler saw no device time; and the device operations a call."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2478,10 +2536,15 @@ def _busy_share(torch, fn, calls: int = 3) -> Optional[float]:
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    busy = sum(getattr(e, "self_device_time_total", 0.0) or e.device_time_total
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
-    return busy / wall_us if busy > 0 else None
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(getattr(e, "self_device_time_total", 0.0) or e.device_time_total for e in events)
+    return (busy / wall_us if busy > 0 else None), sum(e.count for e in events) / calls
+
+
+def _busy_share(torch, fn, calls: int = 3) -> Optional[float]:
+    """The device's busy share while ``fn`` runs ``calls`` times back to back
+    (:func:`_device_profile`)."""
+    return _device_profile(torch, fn, calls)[0]
 
 
 def _busy_shares(torch, sess, fb: dict, mode: str) -> tuple:
@@ -2626,10 +2689,10 @@ def graphs_phase(torch, ds, cfg, dev, smi: str) -> dict:
     _reset_counts()  # the graphs path's count starts here
     runs = []
     for i, mode in enumerate(GRAPH_TURNS):
-        before = len(graphs.programs())
+        before = graphs.captures()
         runs.append(_graph_session(torch, ds, x, cfg, q, cls, mode))
         if mode == "graphed" and i > 0:
-            check(len(graphs.programs()) == before,
+            check(graphs.captures() == before,
                   "a second session at the same counts replays the first one's programs")
     collect()
     check(sorted(p.name for p in captured) == ["gp_update", "select_ital"],
@@ -2683,9 +2746,252 @@ def graphs_phase(torch, ds, cfg, dev, smi: str) -> dict:
     return {"launches": launches}
 
 
+def _learn_requests(torch, ds, cfg, dev, smi: str) -> dict:
+    """``/learn`` (``RetrievalService.learn``) on production sessions, graphed
+    and eager in ``GRAPH_TURNS``: two histories, each learned by a session
+    and by its twin, the second history replaying the program captured with
+    the first.  Learned values within ``LEARN_GRAPH_RTOL`` of eager and the
+    refit ``mu`` bit-equal; the ascent's gradient at every step within
+    ``LEARN_GRAPH_RTOL`` of eager (uncounted); the CPU's re-learn from the
+    same state within ``LEARN_RTOL``.  Then ``LEARN_TIMED`` re-learns from
+    one state per turn, timed.  Returns the relearn program."""
+    from ital_tpu_torch import graphs, serve
+    from ital_tpu_torch.models import gp as gp_mod
+    from ital_tpu_torch.models import hyperopt
+
+    # service_from_config's service, on the corpus already loaded.
+    svc = serve.RetrievalService(
+        ds.x, length_scale=cfg.gp.length_scale, var=cfg.gp.var, noise=cfg.gp.noise, cap=cfg.cap,
+        strategy=cfg.method, label_prob=cfg.user.label_prob, mistake_prob=cfg.user.mistake_prob,
+        corpus_name=ds.name, method_kwargs=dict(cfg.method_kwargs), device=dev)
+    rng = np.random.default_rng(SEED + 17)
+    pairs, start = {}, {}
+    with _uncounted():  # the set-up: three rounds a history, not the path
+        for name, c in zip("AB", rng.choice(ds.classes, 2, replace=False)):
+            q = int(ds.queries_for_class(int(c), rng, 1)[0])
+            user = _user(rng, ds, cfg.user.label_prob, cfg.user.mistake_prob)
+            pairs[name] = [svc.create_session() for _ in range(2)]
+            for sid in pairs[name]:
+                svc.set_query(sid, q)
+            for _ in range(SERVE_ROUNDS):
+                answers = user(svc.next_batch(pairs[name][0], SERVE_K), int(c))
+                for sid in pairs[name]:
+                    svc.feedback(sid, answers)
+            start[name] = gp_mod.gp_session_copy(svc._entry(pairs[name][0])[0].state)
+    torch.cuda.synchronize()
+    known, captured = _known_programs(), graphs.captures()
+    learned = {}
+    for (name, j), turn in zip((("A", 0), ("A", 1), ("B", 1), ("B", 0)), GRAPH_TURNS):
+        sid = pairs[name][j]
+        with _graphed_or_eager(turn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vals = svc.learn(sid, LEARN_STEPS)
+            torch.cuda.synchronize()
+        learned[(name, turn)] = (vals, svc._entry(sid)[0].state.mu.clone(),
+                                 (time.perf_counter() - t0) * 1e3)
+    progs = [p for p in _phase_programs(known)]
+    # At most one capture: a corpus at a freed one's address replays its programs.
+    check(graphs.captures() - captured <= 1 and [p.name for p in progs] == ["relearn"]
+          and progs[0].replays - known.get(id(progs[0]), (None, 0))[1] == 2,
+          f"/learn: one relearn program, replayed by both graphed turns: "
+          f"{[(p.name, p.replays) for p in progs]}")
+    for name in "AB":
+        (g, g_mu, g_ms), (e, e_mu, e_ms) = learned[(name, "graphed")], learned[(name, "eager")]
+        rel = {f: abs(g[f] - e[f]) / abs(e[f]) for f in g}
+        print(f"learn {name} ({start[name].count} labeled slots, {LEARN_STEPS} steps): graphed "
+              f"{g} in {g_ms:.3f} ms{' (with the capture)' if name == 'A' else ''}, eager {e} in "
+              f"{e_ms:.3f} ms; relative gaps {rel}; mu bit-equal {bool(torch.equal(g_mu, e_mu))} "
+              f"[{smi}]")
+        check(all(r <= LEARN_GRAPH_RTOL for r in rel.values()),
+              f"learn {name}: graphed values within {LEARN_GRAPH_RTOL} of eager")
+        check(bool(torch.equal(g_mu, e_mu)), f"learn {name}: mu after the refit graphed == eager")
+        check(g["length_scale"] != cfg.gp.length_scale, f"learn {name}: the length scale moved")
+    with _uncounted():
+        worst = 0.0
+        for name in "AB":
+            st = start[name]
+            rows = st.x[st.idx]
+            _, got = hyperopt.fit_with_gradients(rows, st.y, st.active, st.hyper,
+                                                 steps=LEARN_STEPS)
+            with graphs.eager():
+                _, want = hyperopt.fit_with_gradients(rows, st.y, st.active, st.hyper,
+                                                      steps=LEARN_STEPS)
+            worst = max(worst, float(((got - want).abs() / want.abs().clamp(min=1e-12)).max()))
+        cpu = gp_mod.state_from_arrays(gp_mod.state_to_arrays(start["A"]), "cpu")
+        cpu_h = hyperopt.relearn(cpu, steps=LEARN_STEPS)
+    cpu_vals = {f: float(getattr(cpu_h, f)) for f in ("length_scale", "var", "noise")}
+    card = learned[("A", "graphed")][0]
+    cpu_rel = {f: abs(card[f] - cpu_vals[f]) / abs(cpu_vals[f]) for f in card}
+    print(f"learn: the ascent's gradient, graphed against eager at each of {LEARN_STEPS} steps "
+          f"of both histories, max relative gap {worst:.3e} (rtol {LEARN_GRAPH_RTOL}); the CPU "
+          f"from A's state {cpu_vals}, relative gaps to the card {cpu_rel} (rtol {LEARN_RTOL})")
+    check(worst <= LEARN_GRAPH_RTOL, "the replayed ascent's gradients equal eager at every step")
+    check(all(r <= LEARN_RTOL for r in cpu_rel.values()), "card and CPU re-learn agree")
+    times = []
+    for turn in GRAPH_TURNS:
+        ms = []
+        with _graphed_or_eager(turn):
+            for _ in range(LEARN_TIMED):
+                state = gp_mod.gp_session_copy(start["A"])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                hyperopt.relearn(state, steps=LEARN_STEPS)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        times.append((turn, ms))
+    steady = {mode: float(np.median([t for m, ms in times if m == mode for t in ms]))
+              for mode in ("graphed", "eager")}
+    with _uncounted():
+        busy = {}
+        for mode in ("graphed", "eager"):
+            with _graphed_or_eager(mode):
+                busy[mode] = _device_profile(torch, lambda: hyperopt.relearn(
+                    gp_mod.gp_session_copy(start["A"]), steps=LEARN_STEPS))
+    fmt = lambda v: "not measured" if v is None else f"{v * 100:.1f} %"
+    print("learn re-learn turns (host ms, synchronized): " + "; ".join(
+        f"{turn} {[round(t, 3) for t in ms]}" for turn, ms in times)
+        + f"; median graphed {steady['graphed']:.3f}, eager {steady['eager']:.3f}; device busy "
+        + "; ".join(f"{mode} {fmt(b)}, {ops:.0f} device ops a call" for mode, (b, ops)
+                    in busy.items()) + f" (profiler, 3 calls each) [{smi}]")
+    _print_programs(progs, known, "learn", smi)
+    return progs[0]
+
+
+@contextlib.contextmanager
+def _record_cohort_selections(record: list):
+    """Append ``(each session's state, params)`` before every selection of
+    the runner's cohort bodies (``runner.cohort_program``) to ``record``:
+    for a body that runs eagerly, the state each round's picks come from."""
+    from ital_tpu_torch import runner
+    from ital_tpu_torch.models import gp as gp_mod
+
+    make = runner.cohort_program
+
+    def recording(name, batch_size, options):
+        prog = make(name, batch_size, options)
+        if prog is None:
+            return None
+
+        def picks(st, params, **drawn):
+            record.append(([gp_mod.gp_session_copy(gp_mod.session_state(st, k))
+                            for k in range(st.k)], params))
+            return prog.picks(st, params, **drawn)
+
+        return dataclasses.replace(prog, picks=picks)
+
+    runner.cohort_program = recording
+    try:
+        yield
+    finally:
+        runner.cohort_program = make
+
+
+def _timed_cohorts(runner, plan, ds, dev) -> tuple:
+    """A fused cohort run and each cohort's ms (its JSONL's ``cohort_ms``),
+    in order."""
+    log = Path(plan.log_jsonl)
+    log.parent.mkdir(parents=True, exist_ok=True)
+    log.unlink(missing_ok=True)  # the logger appends
+    res = runner.run_experiment(plan, ds, device=dev)
+    rows = [json.loads(line) for line in log.read_text().splitlines()]
+    return res, [r["cohort_ms"] for r in rows[::plan.query_batch]]
+
+
+def _learn_cohort(torch, ds, cfg, dev, smi: str):
+    """Two fused cohorts of 4 x ``LEARN_COHORT_ROUNDS`` rounds at the
+    production options with ``GP.learn_every = LEARN_EVERY``, graphed, then
+    eager: the graphed run replays one program, its re-learns inside, for
+    both cohorts (held by identity and replays; the second cohort's replay
+    is the timed one); graphed picks equal to eager up to the first MI tie
+    (on the eager state) and the curves while they agree.  Then the same
+    cohorts with learning off, graphed.  Returns the learning program."""
+    import types
+
+    from ital_tpu_torch import graphs, runner
+
+    plan = dataclasses.replace(
+        cfg, max_classes=4, queries_per_class=2, n_rounds=LEARN_COHORT_ROUNDS, query_batch=4,
+        fused_sessions=True, gp=dataclasses.replace(cfg.gp, cap=CAP, learn_every=LEARN_EVERY),
+        log_jsonl=str(WORK_DIR / "learn_cohort.jsonl"))
+    n_sess, rounds, kw = 8, plan.n_rounds, plan.method_kwargs
+    runs = []
+    for turn in ("graphed", "eager"):
+        record = []
+        known, captured = _known_programs(), graphs.captures()
+        with _graphed_or_eager(turn), (_record_cohort_selections(record) if turn == "eager"
+                                        else contextlib.nullcontext()):
+            res, ms = _timed_cohorts(runner, plan, ds, dev)
+        check(res["ap"].shape == (n_sess, rounds) and bool(np.isfinite(res["ap"]).all()),
+              f"learning cohort {turn}: AP shape and values")
+        runs.append((turn, res, record, ms))
+        if turn == "graphed":
+            # The run's corpus is its own: a run captures, unless its corpus
+            # took a freed one's address and replays that one's program.
+            mine = _phase_programs(known)
+            check(graphs.captures() - captured <= 1 and [p.name for p in mine] == ["fused_session"]
+                  and mine[0].replays - known.get(id(mine[0]), (None, 0))[1] == 2,
+                  f"learning cohort: one program for both cohorts of the run: "
+                  f"{[(p.name, p.replays) for p in mine]}")
+            prog = mine[0]
+    (_, g, _, _), (_, e, rec, _) = runs
+    for k in range(n_sess):
+        gp_, ep = g["picks"][k].tolist(), e["picks"][k].tolist()
+        r = next((r for r in range(rounds) if gp_[r] != ep[r]), rounds)
+        check(np.array_equal(g["ap"][k, :r], e["ap"][k, :r]),
+              "learning cohort: graphed curves equal eager while the picks agree")
+        if r < rounds:
+            states, params = rec[(k // 4) * rounds + r]
+            with _uncounted():
+                gaps = _tie_gaps(types.SimpleNamespace(state=states[k % 4], params=params),
+                                 gp_[r], kw)
+            print(f"learning cohort session {k}: round {r} graphed {gp_[r]} eager {ep[r]}; "
+                  f"refined-MI gaps on the eager state {gaps} (tie atol {MI_TIE_ATOL})")
+            check(all(abs(x) <= MI_TIE_ATOL for x in gaps),
+                  "learning cohort: graphed and eager picks differ only by ties")
+    off = dataclasses.replace(plan, gp=dataclasses.replace(plan.gp, learn_every=0))
+    res_off, off_ms = _timed_cohorts(runner, off, ds, dev)
+    cells = "; ".join(f"{turn} {[round(t, 3) for t in ms]}" for turn, _, _, ms in runs)
+    (first, replay), eager_ms = runs[0][3], float(np.mean(runs[1][3]))
+    # A run captures once (each run's corpus is its own): n cohorts take
+    # first + (n - 1) replays graphed against n eager ones.
+    even = (first - replay) / (eager_ms - replay) if eager_ms > replay else float("inf")
+    print(f"learning cohort (2 cohorts of 4 x {rounds} rounds, learn_every {LEARN_EVERY}, "
+          f"{plan.gp.learn_steps} steps, cap {CAP}; ms a cohort, the first graphed with the "
+          f"capture): {cells}; learning off, graphed {[round(t, 3) for t in off_ms]}; the run "
+          f"graphed {sum(runs[0][3]):.3f} ms, eager {sum(runs[1][3]):.3f}; the capture pays "
+          f"back at {even:.2f} cohorts a run; MAP learning "
+          f"{[round(float(m), 6) for m in runs[0][1]['map']]}, off "
+          f"{[round(float(m), 6) for m in res_off['map']]} [{smi}]")
+    _print_programs([prog], {}, "learning cohort", smi)
+    return prog
+
+
+def learn_phase(torch, ds, cfg, dev, smi: str) -> dict:
+    """Phase 13: the hyperparameter ascent as programs, ``/learn``'s and the
+    fused learning cohort's; returns the graphed runs' launches by route and
+    the relearn program's launches per replay."""
+    from ital_tpu_torch.ops import rbf_hopper
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    _reset_counts()  # the learn path's count starts here
+    relearn = _learn_requests(torch, ds, cfg, dev, smi)
+    cohort = _learn_cohort(torch, ds, cfg, dev, smi)
+    launches = dict(rbf_hopper.ROUTE_LAUNCHES)
+    per_learn = sum(relearn.launches.values())
+    check(per_learn >= LEARN_STEPS and sum(launches.values()) > 0,
+          f"the kernel launched in every ascent step of /learn ({per_learn} a replay)")
+    print(f"learn phase: {time.perf_counter() - t_phase:.1f} s; launches {launches}; per /learn "
+          f"{per_learn}, per learning cohort {sum(cohort.launches.values())}")
+    return {"launches": launches, "per_learn": per_learn}
+
+
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
+    clock = lambda name: print(f"clock: {name} done at {time.perf_counter() - t_start:.1f} s")
     kind, smi = device_phase(torch)
     sys.path.insert(0, str(ROOT))
     from ital_tpu_torch.data.datasets import load_dataset
@@ -2696,23 +3002,34 @@ def main() -> int:
     build_phase()
     ds = load_dataset(cfg.dataset, **cfg.dataset_kwargs)
     print(f"data: {ds.name} {ds.x.shape[0]} x {ds.x.shape[1]}")
+    clock("build and data")
     kern = kernel_phase(torch, ds)
+    clock("kernel")
     sess = session_phase(torch, ds, cfg, torch.device("cuda"))
     cpu_phase(torch, ds, cfg, sess["mid"])
+    clock("session and CPU replay")
     harness = harness_phase(torch, ds, torch.device("cuda"))
     emoc_replay_phase(torch, ds, harness["replay"])
+    clock("harness")
     served = serve_phase(torch, ds, cfg, torch.device("cuda"), smi)
+    clock("serving")
     cohort, rise25 = cohort_phase(torch, ds, cfg, torch.device("cuda"), smi)
+    clock("cohort")
     shard = sharded_phase(torch, ds, cfg, torch.device("cuda"), smi, rise25)
     mesh = mesh_phase(torch, shard["big"], cfg, torch.device("cuda"), smi)
     large = bigcap_phase(torch, shard["big"], torch.device("cuda"), smi)
+    clock("sharded, mesh and large cap")
     graphed = graphs_phase(torch, ds, cfg, torch.device("cuda"), smi)
+    clock("graphs")
+    learn = learn_phase(torch, ds, cfg, torch.device("cuda"), smi)
+    clock("learn")
     # At 512 features every RBF call of the paths takes the tensor-core route
     # (the router's rule, PERF.md); the tile kernel serves narrower or
     # unaligned features and is held against the plain version in phase 3.
     paths = {"session": sess, "harness": harness, "serving": served, **cohort,
              "sharded": {"launches": shard["launches"]}, "mesh": {"launches": mesh["launches"]},
-             "bigcap": {"launches": large["launches"]}, "graphs": graphed}
+             "bigcap": {"launches": large["launches"]}, "graphs": graphed,
+             "learn": {"launches": learn["launches"]}}
     by_route = {r: sum(p["launches"][r] for p in paths.values()) for r in sess["launches"]}
     check(by_route["wgmma"] > 0, f"the tensor-core route launched on the main path: {by_route}")
     check(all(sum(p["launches"].values()) > 0 for p in paths.values()),
@@ -2739,6 +3056,9 @@ def main() -> int:
         "shapes_100k": shard["shapes"],
         "shapes_mesh_cohort": mesh["shapes"],
         "shapes_bigcap": large["shapes"],
+        # The ascent's block at every step of /learn (and gp_fit's k_ll).
+        "shape_ascent": {"shape": "64x64x512 f32", "launches_per_learn": learn["per_learn"],
+                         **kern["by_shape"][ASCENT_SHAPE]},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

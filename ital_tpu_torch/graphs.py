@@ -75,6 +75,7 @@ _LOCK = threading.RLock()  # every program's capture, copy-in, replay and copy-o
 _POOL: list = []  # the one memory pool of every program, made at the first capture
 _LOCAL = threading.local()  # .eager: eager() depth; .pending: checks of a body being captured
 _USES = itertools.count(1)  # the order of the programs' calls, for STACK_BYTES
+_CAPTURES = [0]  # programs captured in this process (released ones included)
 # Devices whose tensors a call runs through a captured graph.
 _GRAPH_DEVICES = ("cuda",)
 # Static bytes the programs that stack sessions (a list input) keep
@@ -320,6 +321,7 @@ def run(name: str, body: Callable[..., tuple], inputs: dict, *, shared: Optional
             prog = _capture(name, body, inputs, shared, device)
             prog.key, prog.stacks = key, stacks
             _PROGRAMS[key] = prog
+            _CAPTURES[0] += 1
         if not prog.shared or any(ref() is None for ref in prog.shared):
             # A new tensor at a dead one's address and layout: the program is its.
             prog.shared = tuple(weakref.ref(t) for t in shared.values())
@@ -407,6 +409,15 @@ def _capture_graph(name, body, buffers, shared, device):
 
 
 def programs() -> list[Program]:
-    """Every program captured in this process, in capture order."""
+    """Every program captured in this process and not released since, in
+    capture order."""
     with _LOCK:
         return list(_PROGRAMS.values())
+
+
+def captures() -> int:
+    """How many programs this process has captured, released ones included:
+    a capture may release other programs, so the count of :func:`programs`
+    does not tell whether a call captured."""
+    with _LOCK:
+        return _CAPTURES[0]

@@ -149,6 +149,8 @@ class StackedGPState:
 
 
 SESSION_FIELDS = ("idx", "y", "valid", "l", "beta", "v", "mu", "sig2")
+# The fields a refit replaces: the factor and the whitened posterior.
+POSTERIOR_FIELDS = ("l", "beta", "v", "mu", "sig2")
 _HYPER = ("length_scale", "var", "noise")
 
 
@@ -283,7 +285,7 @@ def refit_stacked(st: StackedGPState, refit: Callable[[GPState], GPState]) -> No
     hyper = {f: getattr(st.hyper, f).clone() for f in _HYPER}
     for k in range(st.k):
         fitted = refit(session_state(st, k))
-        for f in ("l", "beta", "v", "mu", "sig2"):
+        for f in POSTERIOR_FIELDS:
             getattr(st, f)[k].copy_(getattr(fitted, f))
         for f in hyper:
             hyper[f][k] = getattr(fitted.hyper, f)
@@ -385,6 +387,43 @@ def gp_fit(state: GPState, *, gather: Optional[GatherFn] = None) -> GPState:
     state.mu = v.T @ beta
     state.sig2 = torch.clamp(h.var - (v * v).sum(0), min=1e-8)
     return state
+
+
+def gp_refit(state: GPState, *, gather: Optional[GatherFn] = None) -> GPState:
+    """:func:`gp_fit` into the session's own buffers: ``l``, ``beta``, ``v``,
+    ``mu`` and ``sig2`` are written in place, each in its layout, as a
+    program's body writes them (its writes are copied back once its checks
+    have passed).  Returns ``state``."""
+    fitted = gp_fit(dataclasses.replace(state), gather=gather)
+    for f in POSTERIOR_FIELDS:
+        getattr(state, f).copy_(getattr(fitted, f))
+    return state
+
+
+def gp_fit_stacked(st: StackedGPState) -> StackedGPState:
+    """:func:`gp_refit` of K sessions at once, each with its own
+    hyperparameters, in place on ``st`` (the reference's ``jax.vmap`` of
+    ``gp_fit``): the RBF blocks through
+    :func:`~ital_tpu_torch.ops.kernels.rbf_sessions` (one launch per
+    hyperparameter group and block), one batched Cholesky and batched
+    triangular solves.  A labeled block that is not positive definite
+    raises before anything is written or, inside a program's capture, once
+    the program has run.  Returns ``st``."""
+    h, groups = st.hyper, st.hyper_groups
+    active = st.active
+    xl = st.x[st.idx]  # (K, cap, D)
+    k_ll = rbf_sessions(xl, xl, h.length_scale, h.var, groups)
+    l = chol_ops.padded_cholesky(k_ll, active, h.noise)
+    k_l_all = rbf_sessions(xl, st.x, h.length_scale, h.var, groups, b2=st.x2)  # (K, cap, N)
+    k_l_all = torch.where(active[..., None], k_l_all, 0.0)
+    v = chol_ops.tri_solve(l, k_l_all)
+    beta = chol_ops.tri_solve(l, torch.where(active, st.y, 0.0)[..., None])[..., 0]
+    st.l.copy_(l)
+    st.beta.copy_(beta)
+    st.v.copy_(v)
+    st.mu.copy_((v.mT @ beta[..., None])[..., 0])
+    st.sig2.copy_(torch.clamp(h.var[:, None] - (v * v).sum(-2), min=1e-8))
+    return st
 
 
 def gp_set_query(state: GPState, query_idx: int, *,

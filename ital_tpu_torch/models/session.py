@@ -5,15 +5,15 @@ ranks the corpus, and picks the next batch through the configured selection
 strategy.  Everything runs on the corpus' device; only the returned batches
 and rankings come to the host.
 
-On the card the ITAL fetch and every update each replay one captured program
-(:mod:`ital_tpu_torch.graphs`), the counterparts of the reference's
-``_jit_select`` and ``_update_donated``: process-wide, shared by every session
-with the same signature.  The other strategies select eagerly.
+On the card the ITAL fetch, every update and every re-learn each replay one
+captured program (:mod:`ital_tpu_torch.graphs`), the counterparts of the
+reference's ``_jit_select``, ``_update_donated`` and jitted
+``fit_hyperparams``: process-wide, shared by every session with the same
+signature.  The other strategies select eagerly.
 """
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Dict, Optional
 
 import numpy as np
@@ -235,21 +235,15 @@ class ActiveRetrieval:
 
         Type-II maximum likelihood (:mod:`ital_tpu_torch.models.hyperopt`), or
         MAP type-II with ``prior_strength``/``noise_floor``, anchored at the
-        current hyperparameters.  Returns the new values.  Should the fit or
-        the refit raise (a labeled block that is not positive definite), the
-        session keeps its state as it was.
+        current hyperparameters; the ascent and the refit are one program
+        (:func:`~ital_tpu_torch.models.hyperopt.relearn`).  Returns the new
+        values.  Should the fit or the refit raise (a labeled block that is
+        not positive definite), the session keeps its state as it was.
         """
-        from ital_tpu_torch.models.hyperopt import fit_hyperparams
+        from ital_tpu_torch.models.hyperopt import relearn
 
-        st = self.state
-        hyper = fit_hyperparams(
-            st.x[st.idx], st.y, st.active, st.hyper,
-            steps=steps, lr=lr, learn_noise=learn_noise,
-            prior_strength=prior_strength, noise_floor=noise_floor,
-        )
-        # gp_fit rebinds the posterior fields of the copy it is given, so
-        # self.state changes only once the refit has succeeded.
-        self.state = gp_mod.gp_fit(dataclasses.replace(st, hyper=hyper))
+        hyper = relearn(self.state, steps=steps, lr=lr, learn_noise=learn_noise,
+                        prior_strength=prior_strength, noise_floor=noise_floor)
         return {
             "length_scale": float(hyper.length_scale),
             "var": float(hyper.var),

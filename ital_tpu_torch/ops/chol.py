@@ -42,18 +42,40 @@ def _identity_pad(k: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
     return torch.where(m2, k, eye)
 
 
+def padded_cholesky_ex(
+    k_ll: torch.Tensor, active: torch.Tensor, noise: torch.Tensor | float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`padded_cholesky` and its unchecked ``info`` (one per matrix, as
+    ``torch.linalg.cholesky_ex`` gives it), for a caller that checks several
+    factorizations at once.  Nothing is read to the host."""
+    eye = torch.eye(k_ll.shape[-1], dtype=k_ll.dtype, device=k_ll.device)
+    return torch.linalg.cholesky_ex(_identity_pad(k_ll + _per_matrix(noise) * eye, active))
+
+
 def padded_cholesky(
     k_ll: torch.Tensor, active: torch.Tensor, noise: torch.Tensor | float
 ) -> torch.Tensor:
     """Cholesky of ``k_ll + noise*I`` restricted to ``active`` slots, identity
-    elsewhere; ``noise`` is one value or one per leading batch element."""
-    eye = torch.eye(k_ll.shape[-1], dtype=k_ll.dtype, device=k_ll.device)
-    return torch.linalg.cholesky(_identity_pad(k_ll + _per_matrix(noise) * eye, active))
+    elsewhere; ``noise`` is one value or one per leading batch element.  A
+    matrix that is not positive definite raises ``torch.linalg.LinAlgError``
+    at once or, inside a program's capture, once the program has run
+    (:func:`ital_tpu_torch.graphs.check_after`)."""
+    l, info = padded_cholesky_ex(k_ll, active, noise)
+    graphs.check_after(info, check_cholesky_info)
+    return l
 
 
-def tri_solve(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve ``L x = b`` with ``L`` lower triangular (leading dims broadcast)."""
+def tri_solve(l: torch.Tensor, b: torch.Tensor, *, trans: bool = False) -> torch.Tensor:
+    """Solve ``L x = b`` (or ``L^T x = b``) with ``L`` lower triangular
+    (leading dims broadcast)."""
+    if trans:
+        return torch.linalg.solve_triangular(l.mT, b, upper=True)
     return torch.linalg.solve_triangular(l, b, upper=False)
+
+
+def cho_solve(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve ``L L^T x = b``."""
+    return tri_solve(l, tri_solve(l, b), trans=True)
 
 
 def host_copy(values, device, dtype=None) -> torch.Tensor:

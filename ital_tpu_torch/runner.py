@@ -20,9 +20,8 @@ stacked selection and one stacked GP update advance the whole cohort each
 round, as one program that stacks the sessions' states inside (on the card
 a captured CUDA graph, the reference's ``round_v``).
 ``EXPERIMENT.fused_sessions`` runs each session's (or, with ``query_batch``, each cohort's) rounds as one
-program (the reference's ``fused_v``) and reads its AP curve and picks once
-at the end; with ``GP.learn_every`` the rounds between two re-learns are
-one program and the re-learn runs eagerly between them (see
+program (the reference's ``fused_v``), the re-learns of ``GP.learn_every``
+included, and reads its AP curve and picks once at the end (see
 :func:`_run_stacked`).  Both draw as the serial path draws, so the curves
 are the serial path's.
 
@@ -54,7 +53,7 @@ from ital_tpu_torch import graphs
 from ital_tpu_torch.data import datasets as ds_mod
 from ital_tpu_torch.data.user import feedback_from_uniforms
 from ital_tpu_torch.models import gp as gp_mod
-from ital_tpu_torch.models.hyperopt import LearnConfig, fit_hyperparams
+from ital_tpu_torch.models.hyperopt import LearnConfig, fit_hyperparams, relearn, relearn_stacked
 from ital_tpu_torch.ops.chol import host_copy
 from ital_tpu_torch.select.base import (
     StrategyParams,
@@ -210,9 +209,11 @@ class _SessionOps:
     corpus rows by index (``None``: index the state's corpus);
     ``save``/``load`` write and read a round checkpoint; ``log`` holds extra
     JSONL fields.  ``layout`` lays a session out for ``step`` after
-    ``gp_set_query`` and after a load, ``refit`` refits its posterior after
-    a re-learn and for ``GP.refit_every``, which ``drift_refit = False``
-    skips (a path that refits every round).
+    ``gp_set_query`` and after a load, ``refit`` refits its posterior for
+    ``GP.refit_every``, which ``drift_refit = False`` skips (a path that
+    refits every round); ``relearn(state, cfg) -> state`` re-learns its
+    hyperparameters and refits it (:func:`_relearn_hyperparams` on one
+    device, :func:`_relearn_on_mesh` on a mesh).
     """
 
     masks: Callable
@@ -222,6 +223,7 @@ class _SessionOps:
     load: Callable
     log: Dict[str, Any]
     refit: Callable
+    relearn: Callable
     layout: Callable = lambda state: state
     drift_refit: bool = True
 
@@ -272,7 +274,8 @@ def _serial_ops(cfg, dataset, params, select_kwargs, dev) -> _SessionOps:
         return state, ap, recalls
 
     return _SessionOps(masks=masks, step=step, gather=None, save=ckpt.save_session,
-                       load=ckpt.load_session, log={}, refit=gp_mod.gp_fit)
+                       load=ckpt.load_session, log={}, refit=gp_mod.gp_fit,
+                       relearn=_relearn_hyperparams)
 
 
 def _run_sessions(cfg, dataset, state0, ops, plan, dev, *, profile_dir, log_jsonl):
@@ -329,7 +332,7 @@ def _run_session(cfg, state0, ops, rep, c, q, timer, logger) -> list[float]:
         draws = round_draws(cfg.seed, rep, c, q, rnd, cfg.batch_size, dev)
         state, ap, recalls = ops.step(state, draws, masks, timer)
         if cfg.gp.learn_every and (rnd + 1) % cfg.gp.learn_every == 0:
-            state = _relearn_hyperparams(state, cfg, gather=ops.gather, refit=ops.refit)
+            state = ops.relearn(state, cfg)
         elif (cfg.gp.refit_every and ops.drift_refit
               and (rnd + 1) % cfg.gp.refit_every == 0):
             # Periodic from-scratch refit: bounds long-horizon f32 append drift.
@@ -459,6 +462,7 @@ def _sharded_run(mesh, cfg, dataset) -> Dict[str, Any]:
     round_fn = make_round(mesh, strategy=cfg.method, batch_size=cfg.batch_size,
                           recall_ks=RECALL_KS, **options)
     gather = lambda gidx: sh.gather_rows(mesh, state0.x, gidx)  # noqa: E731
+    refit = lambda state: gp_mod.gp_fit(state, gather=gather)  # noqa: E731
 
     def masks(c, q):
         relevant = torch.from_numpy(np.ascontiguousarray(relevance[:, c])).to(dev)
@@ -474,14 +478,17 @@ def _sharded_run(mesh, cfg, dataset) -> Dict[str, Any]:
         save=lambda path, state, extra: sh.save_sharded_session(mesh, path, state, extra),
         load=lambda path, state: sh.load_sharded_session(mesh, path, state),
         log={"sharded": mesh.size},
-        refit=lambda state: gp_mod.gp_fit(state, gather=gather),
+        refit=refit,
+        relearn=functools.partial(_relearn_on_mesh, gather=gather, refit=refit),
     )
     if big:
         # set_query and a load leave l replicated: take this rank's block-row.
         # The refit is the distributed one, and a round already refits.
+        refit = bigcap.make_bigcap_fit(mesh)
         ops = dataclasses.replace(
             ops, layout=lambda state: bigcap.shard_state_bigcap(state, mesh, corpus_sharded=True),
-            refit=bigcap.make_bigcap_fit(mesh), drift_refit=False)
+            refit=refit, drift_refit=False,
+            relearn=functools.partial(_relearn_on_mesh, gather=gather, refit=refit))
     res = _run_sessions(cfg, dataset, state0, ops, plan, dev,
                         profile_dir=cfg.profile_dir if rank0 else None,
                         log_jsonl=cfg.log_jsonl if rank0 else None)
@@ -546,16 +553,18 @@ def _run_stacked(cfg, dataset, state0, params, select_kwargs, plan) -> Dict[str,
     (:func:`_cohort_rounds`, the reference's ``round_v``), its APs and picks
     come to the host and each session logs a row per round.  Fused, all the
     rounds of a cohort are one program (the reference's ``fused_v``), its
-    AP curves and picks read to the host once (:func:`_run_fused`); with
-    ``GP.learn_every`` the rounds between two re-learns are one program and
-    the re-learn (a 50-step autograd ascent and a refit per session) runs
-    eagerly between them, at the reference's cadence.  After the first
-    re-learn every session is a hyperparameter group of its own
-    (:func:`_cohort_plan`), so the later segments share one program.  A
-    strategy without a cohort program body (:func:`cohort_program`; all but
-    ITAL) selects session by session, eagerly, and its users, update and AP
-    replay a program each round.  ``GP.refit_every`` is ignored, as the
-    reference ignores it here.
+    AP curves and picks read to the host once (:func:`_run_fused`).  With
+    ``GP.learn_every`` the re-learn (the K sessions' ascents as one and
+    their refits, :func:`~ital_tpu_torch.models.hyperopt.relearn_stacked`)
+    runs inside the program, after the AP of each round on which the
+    cadence falls, as in the reference's ``round_v`` / ``fused_v``: unfused,
+    such a round is a second program; fused, a cohort's rounds stay one.
+    After the first re-learn every session is a hyperparameter group of its
+    own (:func:`_cohort_plan`).  A strategy without a cohort program body
+    (:func:`cohort_program`; all but ITAL) selects session by session,
+    eagerly, before each round's program, which holds its users, update, AP
+    and re-learn.  ``GP.refit_every`` is ignored, as the reference ignores
+    it here.
     """
     if cfg.gp.refit_every:
         print(_REFIT_IGNORED)
@@ -577,10 +586,10 @@ def _run_stacked(cfg, dataset, state0, params, select_kwargs, plan) -> Dict[str,
                               *chunk_masks)
 
     if cfg.fused_sessions:
-        # A selection captured with the rounds lets a program run every round
-        # up to the next re-learn; an eager one, one round.
+        # A selection captured with the rounds lets a program run every
+        # round; an eager one, one round.
         captured = cohort_program(cfg.method, cfg.batch_size, select_kwargs) is not None
-        every = (cfg.gp.learn_every or cfg.n_rounds) if captured else 1
+        every = cfg.n_rounds if captured else 1
 
         def run_chunk(chunk):
             padded, states, chunk_masks = cohort(chunk)
@@ -702,15 +711,18 @@ def _cohort_plan(cfg: ExperimentConfig, k: int, rnd: int) -> list:
     return [list(range(k))]
 
 
-def _rounds_body(x, *, select, drawn, groups, rounds, picks, u_label, u_flip, relevant, exclude,
-                 **inputs) -> tuple:
+def _rounds_body(x, *, select, drawn, groups, rounds, learn_after, learn, picks, u_label, u_flip,
+                 relevant, exclude, center, **inputs) -> tuple:
     """``rounds`` rounds of a cohort as a program's body: each round's
     selection by ``select`` (a :class:`~ital_tpu_torch.select.base.
     CohortProgram`'s picks) with round r of its fed inputs named ``drawn``
     (R, K, ...), or, where ``select`` is None, round r of ``picks``
     (R, K, b); the users' answers from the fed uniforms (R, K, b), the
-    stacked update (in place) and the K APs.  Returns the (K, R) APs and
-    the (R, K, b) picks."""
+    stacked update (in place) and the K APs; after the AP of each round in
+    ``learn_after``, the K sessions' re-learn and refit with the ascent's
+    options ``learn`` and the prior's (3,) ``center`` (or None).  Returns
+    the (K, R) APs, the (R, K, b) picks and, where the program re-learns,
+    the (K, 3) final (length_scale, var, noise)."""
     fed = {name: inputs.pop(name) for name in drawn}
     st = gp_mod.program_stack(x, inputs, groups)
     params = StrategyParams.from_inputs(inputs)
@@ -725,23 +737,31 @@ def _rounds_body(x, *, select, drawn, groups, rounds, picks, u_label, u_flip, re
         gp_mod.gp_update_stacked(st, batch, y, valid)
         aps.append(average_precision(st.mu, relevant, exclude))
         batches.append(batch)
-    return torch.stack(aps, 1), torch.stack(batches)
+        if r in learn_after:
+            relearn_stacked(st, center=center, **dict(learn))
+    out = (torch.stack(aps, 1), torch.stack(batches))
+    if learn_after:
+        h = st.hyper
+        out += (torch.stack([h.length_scale, h.var, h.noise], -1),)
+    return out
 
 
 def _cohort_rounds(cfg, states, params, select_kwargs, chunk, rnds, relevant, exclude):
     """Rounds ``rnds`` of a cohort of sessions ``states`` (written in place),
-    then the re-learn where the cadence falls after the last of them (after
-    the AP, as the serial path).  Returns the (K, R) APs and (R, K, b) picks
-    on the device.
+    each followed by the re-learn where the cadence falls (after the AP, as
+    the serial path).  Returns the (K, R) APs and (R, K, b) picks on the
+    device.
 
     The rounds are one program (:func:`ital_tpu_torch.graphs.run`), the
     counterpart of the reference's ``round_v`` (one round) or ``fused_v``
-    (all of a session's rounds), which stacks the sessions' buffers inside.
-    Where the strategy's selection has a cohort program body
-    (:func:`cohort_program`), it runs inside, every round's draws (each
-    session's from its own generator) made before and fed in with the
-    users' uniforms; else ``rnds`` is one round, whose selection runs
-    eagerly, session by session, before the program."""
+    (all of a session's rounds), which stacks the sessions' buffers inside
+    and re-learns inside.  Where the strategy's selection has a cohort
+    program body (:func:`cohort_program`), it runs inside, every round's
+    draws (each session's from its own generator) made before and fed in
+    with the users' uniforms; else ``rnds`` is one round, whose selection
+    runs eagerly, session by session, before the program.  After a
+    re-learn each session takes new 0-d hyperparameters from the program's
+    output."""
     x, dev, b = states[0].x, states[0].mu.device, cfg.batch_size
     draws = [_cohort_draws(cfg, chunk, rnd, dev) for rnd in rnds]
     select = cohort_program(cfg.method, b, select_kwargs)
@@ -755,20 +775,26 @@ def _cohort_rounds(cfg, states, params, select_kwargs, chunk, rnds, relevant, ex
                for k in drawn[0]}
     groups = _cohort_plan(cfg, len(states), rnds[0])
     inputs, groups = gp_mod.cohort_program_inputs(states, groups)
+    every = cfg.gp.learn_every
+    learn_after = tuple(r for r, rnd in enumerate(rnds) if every and (rnd + 1) % every == 0)
+    learn = LearnConfig.from_gp(cfg.gp) if learn_after else None
     inputs.update(params.program_inputs(), **fed, picks=picks,
                   u_label=torch.stack([d[1] for d in draws]),
-                  u_flip=torch.stack([d[2] for d in draws]), relevant=relevant, exclude=exclude)
+                  u_flip=torch.stack([d[2] for d in draws]), relevant=relevant, exclude=exclude,
+                  center=learn.center_of(states[0].mu) if learn else None)
     name = "cohort_round" if select is None or not cfg.fused_sessions else "fused_session"
-    aps, batches = graphs.run(
+    options = learn.options() if learn else ()
+    aps, batches, *hyper = graphs.run(
         name, functools.partial(_rounds_body, select=None if select is None else select.picks,
-                                drawn=tuple(fed), groups=groups, rounds=len(rnds)),
+                                drawn=tuple(fed), groups=groups, rounds=len(rnds),
+                                learn_after=learn_after, learn=options),
         inputs, shared={"x": x}, writes=gp_mod.SESSION_FIELDS,
-        static=(b, len(rnds), None if select is None else select.static, groups))
-    for s in states:
+        static=(b, len(rnds), None if select is None else select.static, groups, learn_after,
+                options))
+    for k, s in enumerate(states):
         s.count += b * len(rnds)
-    if cfg.gp.learn_every and rnds[-1] % cfg.gp.learn_every == cfg.gp.learn_every - 1:
-        for s in states:
-            _relearn_hyperparams(s, cfg)
+        if hyper:
+            s.hyper = gp_mod.GPHyper(*hyper[0][k].unbind())
     return aps, batches
 
 
@@ -779,18 +805,23 @@ def _learn_kwargs(cfg: ExperimentConfig, state: gp_mod.GPState) -> Dict[str, Any
     return LearnConfig.from_gp(cfg.gp).fit_kwargs(state.mu)
 
 
-def _relearn_hyperparams(state: gp_mod.GPState, cfg: ExperimentConfig, *,
-                         gather=None, refit=None) -> gp_mod.GPState:
+def _relearn_hyperparams(state: gp_mod.GPState, cfg: ExperimentConfig) -> gp_mod.GPState:
     """Re-learn the hyperparameters from the session's labels so far (type-II
-    ML, or MAP type-II with the ``GP.learn_*`` knobs), then refit the posterior.
-    On a mesh (``gather``: the collective row gather) every rank learns from
-    the gathered labeled rows alike, and the refit is the sharded one.
-    ``refit`` replaces the refit (the large-cap path's distributed one)."""
-    rows = state.x[state.idx] if gather is None else gather(state.idx)
-    state.hyper = fit_hyperparams(rows, state.y, state.active, state.hyper,
+    ML, or MAP type-II with the ``GP.learn_*`` knobs), then refit the
+    posterior: one program, the ascent and the refit
+    (:func:`~ital_tpu_torch.models.hyperopt.relearn`)."""
+    relearn(state, **_learn_kwargs(cfg, state))
+    return state
+
+
+def _relearn_on_mesh(state: gp_mod.GPState, cfg: ExperimentConfig, *, gather: Callable,
+                     refit: Callable) -> gp_mod.GPState:
+    """:func:`_relearn_hyperparams` on a mesh: every rank learns from the
+    labeled rows gathered by ``gather`` (the collective row gather) alike,
+    the ascent alone a program, then refits with ``refit`` (the mesh's, or
+    the large-cap path's distributed one)."""
+    state.hyper = fit_hyperparams(gather(state.idx), state.y, state.active, state.hyper,
                                   **_learn_kwargs(cfg, state))
-    if refit is None:
-        return gp_mod.gp_fit(state, gather=gather)
     return refit(state)
 
 

@@ -94,3 +94,58 @@ def test_tri_solve_matches_jax(rng):
     want = np.asarray(jchol.tri_solve(jnp.asarray(l), jnp.asarray(b)))
     got = tchol.tri_solve(torch.from_numpy(l), torch.from_numpy(b))
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,atol", [(np.float32, 1e-5), (np.float64, 1e-12)])
+@pytest.mark.parametrize("batch", [(), (3,)], ids=["one", "batched"])
+def test_transposed_solve_and_cho_solve_match_jax(rng, dtype, atol, batch):
+    """``tri_solve(..., trans=True)`` solves ``L^T x = b`` and ``cho_solve``
+    ``L L^T x = b``, as the reference's; batched factors broadcast."""
+    ks = [_spd(rng, 9, dtype) for _ in range(int(np.prod(batch)))]
+    l = np.stack([np.linalg.cholesky(k) for k in ks]).reshape(*batch, 9, 9).astype(dtype)
+    b = rng.normal(size=(*batch, 9, 3)).astype(dtype)
+    with jax.enable_x64(dtype == np.float64):
+        jl, jb = jnp.asarray(l.reshape(-1, 9, 9)), jnp.asarray(b.reshape(-1, 9, 3))
+        want_t = np.stack([np.asarray(jchol.tri_solve(jl[i], jb[i], trans=True))
+                           for i in range(jl.shape[0])]).reshape(b.shape)
+        want_c = np.stack([np.asarray(jchol.cho_solve(jl[i], jb[i]))
+                           for i in range(jl.shape[0])]).reshape(b.shape)
+    tl, tb = torch.from_numpy(l), torch.from_numpy(b)
+    got_t = tchol.tri_solve(tl, tb, trans=True)
+    got_c = tchol.cho_solve(tl, tb)
+    np.testing.assert_allclose(got_t.numpy(), want_t, atol=atol)
+    np.testing.assert_allclose(got_c.numpy(), want_c, atol=atol * 10)
+    np.testing.assert_allclose((tl.mT @ got_t).numpy(), b, atol=atol * 10)
+    np.testing.assert_allclose((tl @ tl.mT @ got_c).numpy(), b, atol=atol * 100)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_padded_cholesky_differentiates_as_the_library_cholesky(dtype):
+    """The factor through ``cholesky_ex`` and its gradient equal
+    ``torch.linalg.cholesky``'s bit for bit (the ascent differentiates it)."""
+    rng = np.random.default_rng(0)
+    k = torch.from_numpy(_spd(rng, 8, np.float64)).to(dtype)
+    active = torch.tensor([1, 1, 0, 1, 1, 1, 0, 0], dtype=torch.bool)
+    w = torch.from_numpy(rng.normal(size=(8, 8))).to(dtype)
+    out = []
+    for factor in (tchol.padded_cholesky,
+                   lambda a, m, n: torch.linalg.cholesky(
+                       tchol._identity_pad(a + n * torch.eye(8, dtype=dtype), m))):
+        noise = torch.tensor(0.3, dtype=dtype, requires_grad=True)
+        kk = k.clone().requires_grad_(True)
+        l = factor(kk, active, noise)
+        (l * w).sum().backward()
+        out.append((l.detach(), kk.grad, noise.grad))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+def test_padded_cholesky_ex_reports_without_raising():
+    """``padded_cholesky_ex`` hands the flags back unchecked; the checked
+    form raises the library's error."""
+    k = torch.tensor([[[1.0, 2.0], [2.0, 1.0]], [[2.0, 0.0], [0.0, 2.0]]])
+    active = torch.ones(2, 2, dtype=torch.bool)
+    _, info = tchol.padded_cholesky_ex(k, active, 0.0)
+    assert info.tolist() == [2, 0]
+    with pytest.raises(torch.linalg.LinAlgError, match=r"Batch element 0.*order 2"):
+        tchol.padded_cholesky(k, active, 0.0)

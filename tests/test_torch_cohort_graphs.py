@@ -39,6 +39,7 @@ from ital_tpu import runner as jrunner
 from ital_tpu import serve as jserve
 from ital_tpu.data import datasets as jds
 from ital_tpu.models import gp as jgp
+from ital_tpu.select import ital as jital
 from ital_tpu.select.base import StrategyParams as JaxParams
 from ital_tpu.utils import config as jconfig
 from ital_tpu_torch import graphs
@@ -232,6 +233,78 @@ def test_runner_cohort_programs_match_round_v_and_fused_v(surrogate, jax_surroga
         assert len(set(row.tolist())) == 4
 
 
+def _tie_gap(state, theirs, ours, kw) -> float:
+    """Where ``ours`` first parts from ``theirs`` (two batches picked greedily
+    on the reference's ``state`` with the production options), the relative
+    gap between the refined MI of the two picks of that step, with the
+    shared earlier picks as the partial batch, computed by the reference
+    (``ital_tpu.select.ital``); 0 where the batches agree."""
+    t = next((t for t in range(len(theirs)) if theirs[t] != ours[t]), None)
+    if t is None:
+        return 0.0
+    params = JaxParams(label_prob=jnp.asarray(0.8), mistake_prob=jnp.asarray(0.05))
+    pair = jnp.asarray([theirs[t], ours[t]], jnp.int32)
+    if t:
+        mu_b, cov_bb, cross, sig2 = jital._joint_posterior(
+            state, jnp.asarray(theirs, jnp.int32), t, params.jitter)
+        cross = cross[pair]
+    else:
+        dt = state.mu.dtype
+        mu_b, cov_bb, cross = jnp.zeros((0,), dt), jnp.zeros((0, 0), dt), jnp.zeros((2, 0), dt)
+        sig2 = state.sig2 + params.jitter
+    mi = np.asarray(jital.mi_scores_from_moments(state.mu[pair], sig2[pair], cross, mu_b,
+                                                 cov_bb, params, t=t,
+                                                 n_qmc=kw["refine_n_qmc"]), np.float64)
+    return float(abs(mi[0] - mi[1]) / np.abs(mi).max())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("mode", [
+    {"query_batch": 3},
+    {"query_batch": 2, "fused_sessions": True, "gp": {"learn_every": 2, "learn_steps": 10}},
+], ids=["qb3 (round_v)", "qb2+fused+learn (fused_v)"])
+def test_runner_cohort_programs_part_from_the_reference_only_at_mi_ties(
+        surrogate, jax_surrogate, monkeypatch, mode, seed):
+    """At plan seeds 0 and 1, where the two packages' runs part: the
+    runner's cohort programs on JAX's draws pick the reference's batches
+    round by round (its serial run's: the reference's ``round_v`` and
+    ``fused_v`` return no picks, and at these seeds part from its serial
+    run at ties of their own) up to the first round where a session's
+    batches part, with the same curves; there the two batches are an MI
+    tie, the refined MI of their first differing picks within 1e-5
+    relative, as the reference's own MI functions score them on its
+    recorded state."""
+    record = []
+    make = jrunner.make_step_fns
+
+    def recording(cfg):
+        select_step, absorb_step = make(cfg)
+
+        def spy(state, key, params):
+            batch = select_step(state, key, params)
+            record.append((state, np.asarray(batch)))
+            return batch
+
+        return spy, absorb_step
+
+    monkeypatch.setattr(jrunner, "make_step_fns", recording)
+    want = jrunner.run_experiment(
+        _run_cfg(jconfig, gp=dict(mode.get("gp", {})), seed=seed), jax_surrogate)
+    monkeypatch.setattr(trunner, "round_draws", jax_round_draws)
+    got = trunner.run_experiment(_run_cfg(tconfig, **dict(mode, seed=seed)), surrogate,
+                                 device="cpu")
+    n_sess, rounds = want["ap"].shape
+    assert len(record) == n_sess * rounds and got["picks"].shape == (n_sess, rounds, 4)
+    for k in range(n_sess):
+        theirs = [record[k * rounds + r][1].tolist() for r in range(rounds)]
+        ours = got["picks"][k].tolist()
+        r = next((r for r in range(rounds) if theirs[r] != ours[r]), rounds)
+        np.testing.assert_allclose(got["ap"][k, :r], want["ap"][k, :r], atol=1e-5)
+        if r < rounds:
+            gap = _tie_gap(record[k * rounds + r][0], theirs[r], ours[r], PRODUCTION_KW)
+            assert gap <= 1e-5, (k, r, theirs[r], ours[r], gap)
+
+
 # -- device counts and the device group index against the host forms -------------
 
 
@@ -402,21 +475,26 @@ def test_cohort_program_registry():
         base.cohort_program("nope", 4, {})
 
 
-@pytest.mark.parametrize("mode,programs", [
-    ({"query_batch": 3}, {"cohort_round": 2 * 3}),
+@pytest.mark.parametrize("mode,programs,captures", [
+    ({"query_batch": 3}, {"cohort_round": 2 * 3}, 1),
     ({"query_batch": 3, "fused_sessions": True, "gp": {"learn_every": 2, "learn_steps": 5}},
-     {"fused_session": 2 * 2}),
-    ({"fused_sessions": True}, {"fused_session": 4}),
-    ({"query_batch": 3, "method": "emoc", "method_kwargs": {}}, {"cohort_round": 2 * 3}),
-], ids=["qb3", "qb3+fused+learn", "fused", "qb3 emoc"])
-def test_runner_programs_replay_and_equal_eager(surrogate, stand_in, mode, programs):
+     {"fused_session": 2}, 1),
+    ({"fused_sessions": True}, {"fused_session": 4}, 1),
+    ({"query_batch": 3, "method": "emoc", "method_kwargs": {}}, {"cohort_round": 2 * 3}, 1),
+    ({"query_batch": 3, "gp": {"learn_every": 2, "learn_steps": 5}}, {"cohort_round": 2 * 3},
+     3),
+], ids=["qb3", "qb3+fused+learn", "fused", "qb3 emoc", "qb3+learn"])
+def test_runner_programs_replay_and_equal_eager(surrogate, stand_in, mode, programs, captures):
     """The runner's cohort round and fused cohort through the graph path give
     the eager run's curves and picks; the padded last cohort replays the full
-    cohort's program, and with ``GP.learn_every`` the segments after the
-    first re-learn share one program (two programs, each replayed once a
-    cohort)."""
+    cohort's program.  With ``GP.learn_every`` a fused cohort's rounds and
+    re-learns stay one program, and unfused the re-learning round captures a
+    signature of its own (before it, one hyperparameter group; after it,
+    singletons: three programs)."""
     cfg = _run_cfg(tconfig, **dict(mode, gp=dict(mode.get("gp", {}))))
+    before = graphs.captures()
     graphed = trunner.run_experiment(cfg, surrogate, device="cpu")
+    assert graphs.captures() - before == captures
     with graphs.eager():
         eager = trunner.run_experiment(cfg, surrogate, device="cpu")
     assert np.array_equal(graphed["ap"], eager["ap"])
@@ -425,10 +503,7 @@ def test_runner_programs_replay_and_equal_eager(surrogate, stand_in, mode, progr
     for p in graphs.programs():
         by_name[p.name] = by_name.get(p.name, 0) + p.replays
     assert by_name == programs
-    if "learn_every" in mode.get("gp", {}):
-        assert len(stand_in) == 2  # grouped before the first re-learn, singletons after
-    else:
-        assert len(stand_in) == 1
+    assert stand_in == [next(iter(programs))] * captures
 
 
 @pytest.mark.parametrize("graphed", [True, False], ids=["graphed", "eager"])

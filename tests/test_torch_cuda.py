@@ -338,7 +338,7 @@ def test_cuda_graphed_session_equals_eager():
     graphed, plain = ActiveRetrieval(x, **kw), ActiveRetrieval(x, **kw)
     graphed.update_query(17)
     plain.update_query(17)
-    before = len(graphs.programs())
+    before = graphs.captures()
     for _ in range(3):
         got = graphed.fetch_unlabelled(4)
         with graphs.eager():
@@ -349,11 +349,11 @@ def test_cuda_graphed_session_equals_eager():
         with graphs.eager():
             plain.update(fb)
         assert float((graphed.state.mu - plain.state.mu).abs().max()) <= 1e-6
-    assert len(graphs.programs()) == before + 2
+    assert graphs.captures() == before + 2  # the fetch and the update
     second = ActiveRetrieval(x, **kw)
     second.update_query(40)
     second.update({int(i): -1 for i in second.fetch_unlabelled(4)})
-    assert len(graphs.programs()) == before + 2
+    assert graphs.captures() == before + 2
 
 
 @pytest.mark.cuda
@@ -416,3 +416,45 @@ def test_cuda_graphed_stacked_select_and_update_equal_eager():
     mine = [p for p in graphs.programs() if all(p is not q for q in before)]
     assert sorted(p.name for p in mine) == ["gp_update_stacked", "select_ital_stacked"]
     assert all(p.replays == 2 for p in mine)
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_ascent_equals_eager_at_every_step():
+    """On the card: the hyperparameter ascent as one captured program (the
+    backward passes included) gives the eager ascent's gradient at every
+    step and its learned values, also when replayed on a labeled set other
+    than the one it was captured with; the stacked ascent of three sessions
+    follows each session's own."""
+    _needs_card()
+    from ital_tpu_torch.models import hyperopt
+    from ital_tpu_torch.models.gp import GPHyper
+
+    ds = tds._synthetic_surrogate("mirflickr", 3000, 128, 14, seed=3)
+    x = torch.from_numpy(ds.x).cuda()
+    rng = np.random.default_rng(0)
+    h0 = GPHyper(*(torch.tensor(v, device="cuda") for v in (12.0, 1.0, 0.1)))
+    sets = []
+    for _ in range(3):
+        idx = torch.from_numpy(rng.choice(3000, 32, replace=False)).cuda()
+        y = torch.from_numpy(np.where(rng.random(32) < 0.4, 1.0, -1.0).astype(np.float32)).cuda()
+        active = torch.arange(32, device="cuda") < 25
+        sets.append((x[idx], y, active))
+    before = graphs.captures()
+    for xl, y, active in sets[:2]:
+        got, got_g = hyperopt.fit_with_gradients(xl, y, active, h0, steps=30, prior_strength=1.0)
+        with graphs.eager():
+            want, want_g = hyperopt.fit_with_gradients(xl, y, active, h0, steps=30,
+                                                       prior_strength=1.0)
+        rel = ((got_g - want_g).abs() / want_g.abs().clamp(min=1e-6)).max()
+        assert float(rel) <= 1e-6 and bool((got_g != 0).all())
+        for f in ("length_scale", "var", "noise"):
+            a, b = float(getattr(got, f)), float(getattr(want, f))
+            assert abs(a - b) <= 1e-6 * abs(b), f
+    assert graphs.captures() == before + 1
+    xl, y, active = (torch.stack(t) for t in zip(*sets))
+    theta0 = hyperopt._log_theta(h0).expand(3, 3).contiguous()
+    stacked = hyperopt.fit_hyperparams_stacked(xl, y, active, theta0, steps=30)
+    for k in range(3):
+        one = hyperopt.fit_hyperparams(xl[k], y[k], active[k], h0, steps=30)
+        want = torch.log(torch.stack([one.length_scale, one.var, one.noise]))
+        assert float((stacked[k] - want).abs().max()) <= 1e-5
