@@ -113,8 +113,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the device memory peak of both paths are printed with the card's name
    and power limit.  Last, the memory one stacked selection and update of 8
    production sessions add at 100 000 rows, which with phase 8's at 25 000
-   rows fits the server's select budget (``serve.SELECT_COPIES`` (cap, N)
-   copies plus ``serve.SELECT_FIXED_BYTES`` a session), held to it.
+   rows fits the server's select budget for ITAL (``serve.SELECT_BUDGET``:
+   (cap, N) copies plus fixed bytes a session), held to it.
 
 10. mesh programs: the mesh's fused and cohort programs and the mesh
    service (``parallel.sharded.make_sharded_session`` /
@@ -200,12 +200,36 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    replay, static buffers and pool growth.  The launch count is reset
    before the phase.
 
+14. strategies: every strategy but ITAL (the 15 baselines and
+   ``ital_regression``) as programs, on the 25 000 x 512 surrogate at the
+   harness's settings (``configs/mirflickr.ini``; batch 4, cap 64).  First
+   the kernel at the blocks their programs launch (the diversity penalties'
+   (N, cap) and (N, t) similarity blocks, alone and for a stack of 8, EMOC's
+   (N, 2048) and MCMI's (N, 512) column blocks) against its plain version
+   and its bound.  Then, per strategy, on one service: a ``/batch_select``
+   of 8 sessions with four user models (``RetrievalService.next_batch_many``)
+   must be one program call, captured then replayed; its batches are held to
+   8 twins fetched one at a time (uncounted) up to score ties
+   (``EMOC_TIE_RTOL`` relative at the first parting, scored on the twin's
+   state); the device memory it adds per session is printed in copies of a
+   (cap, N) f32 buffer and held to the strategy's ``serve.SELECT_BUDGET``
+   entry, which it is the source of; its time graphed and eager.  A twin's
+   fetch in graphed, eager, eager, graphed turns (picks up to ties).  Then
+   two fused cohorts of 4 x 3 rounds through the runner, one
+   ``fused_session`` program call each (a capture, then a replay), the
+   first cohort eager beside (uncounted): picks up to ties, the curves equal
+   while the picks agree.  Each program's capture ms, launches per replay,
+   static buffers and pool growth, and the graph pools' MiB, are printed
+   with the card's name and power limit.  The launch count is reset before
+   the phase's programs.
+
 The second-to-last line is a JSON object describing the kernel (launches on
 the main paths in all, per route and per path, its bound, its time and the
 plain version's, and its times at the 100 000-row shapes, at the mesh
 cohort's stacked shard shapes, at the large-cap refit's shapes and at the
-ascent's (64, 64, 512) block with its launches per ``/learn``); the last
-line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+ascent's (64, 64, 512) block with its launches per ``/learn``, at the
+strategies' blocks, and each strategy program's launches per replay); the
+last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -1483,7 +1507,8 @@ def _check_budget(per_session: dict, cap: int, n: int) -> None:
     server's budget model (``serve.max_cohort_sessions``' terms)."""
     from ital_tpu_torch import serve
 
-    model = {"batch_select": serve.SELECT_COPIES * cap * n * 4 + serve.SELECT_FIXED_BYTES,
+    copies, fixed = serve.SELECT_BUDGET["ital"]
+    model = {"batch_select": copies * cap * n * 4 + fixed,
              "batch_feedback": serve.UPDATE_COPIES * cap * n * 4}
     print(f"cohort budget at {n} rows, cap {cap}: per session " + "; ".join(
         f"{kind} {per_session[kind] / 2**20:.2f} MiB against the model's "
@@ -2862,7 +2887,7 @@ def _learn_requests(torch, ds, cfg, dev, smi: str) -> dict:
 def _record_cohort_selections(record: list):
     """Append ``(each session's state, params)`` before every selection of
     the runner's cohort bodies (``runner.cohort_program``) to ``record``:
-    for a body that runs eagerly, the state each round's picks come from."""
+    where the body runs eagerly, the state each round's picks come from."""
     from ital_tpu_torch import runner
     from ital_tpu_torch.models import gp as gp_mod
 
@@ -2870,8 +2895,6 @@ def _record_cohort_selections(record: list):
 
     def recording(name, batch_size, options):
         prog = make(name, batch_size, options)
-        if prog is None:
-            return None
 
         def picks(st, params, **drawn):
             record.append(([gp_mod.gp_session_copy(gp_mod.session_state(st, k))
@@ -2987,6 +3010,306 @@ def learn_phase(torch, ds, cfg, dev, smi: str) -> dict:
     return {"launches": launches, "per_learn": per_learn}
 
 
+STRATEGY_ROUNDS = 3  # the fused cohort's rounds
+STRATEGY_QB = 4  # its sessions
+STRATEGY_K = 8  # sessions of a /batch_select
+# The user models of a /batch_select group, session by session:
+# (label_prob, mistake_prob).
+STRATEGY_USERS = ((0.8, 0.05), (0.9, 0.0), (0.7, 0.1), (1.0, 0.02))
+
+
+def _strategy_names() -> list:
+    """The strategies phase 14 covers: every registered one but ITAL."""
+    from ital_tpu_torch.select import STRATEGIES
+
+    return sorted(set(STRATEGIES) - {"ital"})
+
+
+@contextlib.contextmanager
+def _following(picks: list):
+    """Make the strategies' greedy loops (``greedy_argmax_stacked`` of a
+    stack of one) follow ``picks`` and yield each step's (N,) scores."""
+    import torch
+
+    from ital_tpu_torch.select import baselines, regression
+
+    seen = []
+
+    def follow(score_fn, st, batch_size):
+        batch = torch.tensor([picks], dtype=torch.int64, device=st.idx.device)
+        for t in range(batch_size):
+            seen.append(score_fn(batch, t)[0])
+        return batch
+
+    saved = baselines.greedy_argmax_stacked, regression.greedy_argmax_stacked
+    baselines.greedy_argmax_stacked = regression.greedy_argmax_stacked = follow
+    try:
+        yield seen
+    finally:
+        baselines.greedy_argmax_stacked, regression.greedy_argmax_stacked = saved
+
+
+def _parting_gap(name: str, state, params, a: list, b: list) -> Optional[tuple]:
+    """Where batches ``a`` and ``b`` of strategy ``name`` from ``state``
+    first part, ``(step, relative score gap)`` of their picks there, scored
+    eagerly on ``state`` after their common prefix (uncounted); None where
+    they agree."""
+    from ital_tpu_torch import graphs
+    from ital_tpu_torch.select import STRATEGIES
+
+    t = next((i for i in range(len(a)) if a[i] != b[i]), None)
+    if t is None:
+        return None
+    with _uncounted(), graphs.eager(), _following(a) as seen:
+        STRATEGIES[name](state, len(a), None, params)
+    sa, sb = float(seen[t][a[t]]), float(seen[t][b[t]])
+    return t, abs(sa - sb) / max(abs(sa), abs(sb), 1e-30)
+
+
+def _held_up_to_ties(name: str, state, params, a: list, b: list, what: str) -> bool:
+    """Hold batch ``a`` to ``b`` up to a score tie at their first parting
+    (``EMOC_TIE_RTOL`` relative; ``random`` draws alike, no tie allowed).
+    Returns whether they differ."""
+    gap = _parting_gap(name, state, params, a, b) if name != "random" else None
+    if a == b:
+        return False
+    print(f"{what}: {name} {a} against {b}; first parting (step, relative score gap) {gap} "
+          f"(tie rtol {EMOC_TIE_RTOL})")
+    check(gap is not None and gap[1] <= EMOC_TIE_RTOL, f"{what}: {name} picks part only at ties")
+    return True
+
+
+def _strategy_kernel_shapes(torch, ds, cfg, smi: str) -> list:
+    """The kernel at the blocks the strategies' programs launch at 25 000 x
+    512: the diversity penalties' similarity to a session's labeled rows
+    (N, cap) and to its partial batch (N, t), each alone and for a stack of
+    8 in one hyperparameter group, and EMOC's (N, 2048) and MCMI's
+    (N, 512) column blocks (var 1 for the penalties, the GP's var for the
+    columns)."""
+    x = torch.from_numpy(ds.x).cuda()
+    x2 = (x * x).sum(-1)
+    ls = torch.tensor(cfg.gp.length_scale, device="cuda")
+    b, k = cfg.batch_size, STRATEGY_K
+    shapes = [
+        ("25000x64x512 (N, cap): similarity to one session's labeled rows", x, x[:CAP],
+         {"a2": x2}),
+        (f"25000x{k * CAP}x512 (N, K cap): a stack of {k}, one group", x, x[:k * CAP],
+         {"a2": x2}),
+        (f"25000x{b - 1}x512 (N, t): similarity to a partial batch", x, x[:b - 1], {"a2": x2}),
+        (f"25000x{k * (b - 1)}x512 (N, K t): a stack of {k}'s partial batches", x,
+         x[:k * (b - 1)], {"a2": x2}),
+    ]
+    sim = _kernel_shapes(torch, "strategies", shapes, ls, 1.0, smi)
+    var = torch.tensor(cfg.gp.var, device="cuda")
+    cols = [("25000x2048x512 (N, 2048): an EMOC column block", x, x[:2048],
+             {"a2": x2, "b2": x2[:2048]}),
+            ("25000x512x512 (N, 512): an MCMI column block", x, x[:512], {"a2": x2})]
+    return sim + _kernel_shapes(torch, "strategies", cols, ls, var, smi)
+
+
+def _strategy_service(torch, svc, ds, name: str, rng) -> tuple:
+    """``STRATEGY_K`` sessions of ``name`` on ``svc`` with mixed user
+    models, each with a query and one round of answers, and a twin of each
+    with the same history: (cohort ids, twin ids, each session's class)."""
+    classes = [int(c) for c in rng.choice(ds.classes, STRATEGY_K // 2, replace=False)]
+    queries = [(int(q), c) for c in classes for q in ds.queries_for_class(c, rng, 2)]
+    cohort, twins = [], []
+    for j, (q, c) in enumerate(queries):
+        lp, mp = STRATEGY_USERS[j % len(STRATEGY_USERS)]
+        shown = [int(i) for i in rng.choice(ds.n, 4, replace=False) if int(i) != q]
+        labels = {str(i): (1 if ds.relevance[i, c] else -1) for i in shown}
+        for out in (cohort, twins):
+            sid = svc.create_session(strategy=name, cap=CAP, label_prob=lp, mistake_prob=mp)
+            svc.set_query(sid, q)
+            svc.feedback(sid, labels)
+            out.append(sid)
+    return cohort, twins, [c for _, c in queries]
+
+
+def _timed_ms(torch, fn) -> tuple:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _strategy_requests(torch, svc, ds, name: str, rng, smi: str) -> dict:
+    """Phase 14's service part for strategy ``name``: a ``/batch_select``
+    of ``STRATEGY_K`` sessions with mixed user models (one program, its
+    memory rise per session, its batches against twins fetched one at a
+    time up to ties), graphed beside eager; then a twin's fetch in graphed,
+    eager, eager, graphed turns (picks up to ties).  Returns the times,
+    the memory and the programs' launches per replay."""
+    from ital_tpu_torch import graphs, serve
+
+    cohort, twins, _ = _strategy_service(torch, svc, ds, name, rng)
+    calls = []
+    run = graphs.run
+
+    def spy(prog, *a, **kw):
+        calls.append(prog)
+        return run(prog, *a, **kw)
+
+    rise = []
+    known = _known_programs()
+
+    def measured():
+        with graphs._LOCK:  # release dead programs now, not inside the measured call
+            graphs._release_dead()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        allocated = torch.cuda.memory_allocated()
+        out = svc.next_batch_many(cohort, SERVE_K)
+        torch.cuda.synchronize()
+        rise.append((torch.cuda.max_memory_allocated() - allocated) / STRATEGY_K)
+        return out
+
+    graphs.run = spy
+    try:
+        (picks, first_ms), (_, replay_ms) = _timed_ms(torch, measured), _timed_ms(torch, measured)
+    finally:
+        graphs.run = run
+    (prog,) = _phase_programs(known)
+    check(calls == [f"select_{name}_stacked"] * 2 and prog.name == calls[0],
+          f"{name}: a /batch_select of {STRATEGY_K} mixed user models is one program: {calls}")
+    entries = {sid: svc._entry(sid)[0] for sid in cohort + twins}
+    differ = 0
+    with _uncounted():
+        for a, b in zip(cohort, twins):
+            twin = entries[b]
+            differ += _held_up_to_ties(name, twin.state, twin.params, picks[a],
+                                       svc.next_batch(b, SERVE_K), "batch_select vs twin")
+        with graphs.eager():
+            _, eager_ms = _timed_ms(torch, lambda: svc.next_batch_many(cohort, SERVE_K))
+    sess = entries[twins[0]]
+    fetch, turns = {}, {}
+    known = _known_programs()
+    for turn in GRAPH_TURNS:
+        sess.generator.manual_seed(SEED)
+        with _graphed_or_eager(turn):
+            batch, ms = _timed_ms(torch, lambda: sess.fetch_unlabelled(SERVE_K).tolist())
+        fetch.setdefault(turn, []).append(ms)
+        turns.setdefault(turn, batch)
+    _held_up_to_ties(name, sess.state, sess.params, turns["graphed"], turns["eager"],
+                     "fetch graphed vs eager")
+    (one,) = _phase_programs(known)
+    check(one.name == f"select_{name}", f"{name}: the fetch is one program: {one.name}")
+    copies, fixed = serve.SELECT_BUDGET[name]
+    model = copies * CAP * ds.n * 4 + fixed
+    per_session = max(rise)
+    print(f"strategies {name}: /batch_select of {STRATEGY_K} (mixed user models) capture call "
+          f"{first_ms:.3f} ms, replay {replay_ms:.3f} ms, eager {eager_ms:.3f} ms; "
+          f"{differ} of {STRATEGY_K} differ from their twins at ties; memory per session "
+          f"{per_session / 2**20:.2f} MiB ({per_session / (CAP * ds.n * 4):.3f} (cap, N) f32 "
+          f"copies; the budget's {model / 2**20:.2f} MiB); fetch graphed "
+          f"{[round(t, 3) for t in fetch['graphed']]} ms, eager "
+          f"{[round(t, 3) for t in fetch['eager']]} ms [{smi}]")
+    check(per_session <= model, f"{name}: a stacked selection stays within its budget entry")
+    _print_programs([one, prog], {}, f"strategies {name}", smi)
+    for sid in cohort + twins:
+        svc.delete(sid)
+    return {"fetch_ms": fetch, "batch_select_ms": {"capture_call": first_ms, "replay": replay_ms,
+                                                   "eager": eager_ms},
+            "mib_per_session": per_session / 2**20,
+            "launches": {"fetch": sum(one.launches.values()),
+                         "batch_select": sum(prog.launches.values())}}
+
+
+def _strategy_cohort(torch, ds, base, name: str, dev, smi: str) -> dict:
+    """Phase 14's runner part for strategy ``name``: two fused cohorts of
+    ``STRATEGY_QB`` x ``STRATEGY_ROUNDS`` rounds graphed (one
+    ``fused_session`` call each: a capture, then a replay), the first of
+    them eager beside (uncounted): graphed picks equal eager up to ties
+    (scored on the eager state), the curves while they agree."""
+    from ital_tpu_torch import graphs, runner
+
+    plan = dataclasses.replace(
+        base, method=name, method_kwargs={}, max_classes=2 * STRATEGY_QB, queries_per_class=1,
+        n_rounds=STRATEGY_ROUNDS, query_batch=STRATEGY_QB, fused_sessions=True,
+        log_jsonl=str(WORK_DIR / f"strategies_{name}.jsonl"))
+    calls = []
+    run = graphs.run
+
+    def spy(prog, *a, **kw):
+        calls.append(prog)
+        return run(prog, *a, **kw)
+
+    known = _known_programs()
+    graphs.run = spy
+    try:
+        res, ms = _timed_cohorts(runner, plan, ds, dev)
+    finally:
+        graphs.run = run
+    mine = _phase_programs(known)
+    check(calls == ["fused_session"] * 2 and [p.name for p in mine] == ["fused_session"]
+          and mine[0].replays - known.get(id(mine[0]), (None, 0))[1] == 2,
+          f"{name}: one program for both fused cohorts: {calls}, "
+          f"{[(p.name, p.replays) for p in mine]}")
+    prog = mine[0]
+    record = []
+    one = dataclasses.replace(plan, max_classes=STRATEGY_QB,
+                              log_jsonl=str(WORK_DIR / f"strategies_{name}_eager.jsonl"))
+    with _graphed_or_eager("eager"), _record_cohort_selections(record):
+        eager, eager_ms = _timed_cohorts(runner, one, ds, dev)
+    check(bool(np.isfinite(res["ap"]).all()) and res["ap"].shape == (2 * STRATEGY_QB,
+                                                                      STRATEGY_ROUNDS),
+          f"{name}: fused cohort AP shape and values")
+    differ = 0
+    for k in range(STRATEGY_QB):
+        gp_, ep = res["picks"][k].tolist(), eager["picks"][k].tolist()
+        r = next((r for r in range(STRATEGY_ROUNDS) if gp_[r] != ep[r]), STRATEGY_ROUNDS)
+        check(np.array_equal(res["ap"][k, :r], eager["ap"][k, :r]),
+              f"{name}: fused cohort graphed curves equal eager while the picks agree")
+        if r < STRATEGY_ROUNDS:
+            states, params = record[r]
+            differ += _held_up_to_ties(name, states[k], params, gp_[r], ep[r],
+                                       f"fused cohort session {k} round {r}")
+    print(f"strategies {name}: fused cohort of {STRATEGY_QB} x {STRATEGY_ROUNDS} rounds: "
+          f"graphed {[round(t, 3) for t in ms]} ms a cohort (capture, replay), eager "
+          f"{[round(t, 3) for t in eager_ms]}; {differ} sessions part at ties; MAP "
+          f"{[round(float(m), 6) for m in res['map']]} [{smi}]")
+    _print_programs([prog], {}, f"strategies {name} fused cohort", smi)
+    return {"graphed_ms": ms, "eager_ms": eager_ms, "launches": sum(prog.launches.values())}
+
+
+def strategies_phase(torch, ds, dev, smi: str) -> dict:
+    """Phase 14: every strategy but ITAL as programs.  Returns the graphed
+    runs' launches by route, the kernel's timings at the strategies' block
+    shapes and each strategy's times, memory and launches per replay."""
+    from ital_tpu_torch import graphs, serve
+    from ital_tpu_torch.ops import rbf_hopper
+    from ital_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    base = load_config(str(HARNESS_CONFIG), HARNESS_OVERRIDES)
+    shapes = _strategy_kernel_shapes(torch, ds, base, smi)
+    torch.cuda.synchronize()
+    _reset_counts()  # the strategies path's count starts here
+    svc = serve.RetrievalService(
+        ds.x, length_scale=base.gp.length_scale, var=base.gp.var, noise=base.gp.noise, cap=CAP,
+        device=dev)
+    rng = np.random.default_rng(SEED + 14)
+    captured, out = graphs.captures(), {}
+    for name in _strategy_names():
+        t0 = time.perf_counter()
+        before = rbf_hopper.LAUNCHES
+        out[name] = _strategy_requests(torch, svc, ds, name, rng, smi)
+        out[name]["fused"] = _strategy_cohort(torch, ds, base, name, dev, smi)
+        print(f"strategies {name}: {time.perf_counter() - t0:.1f} s, "
+              f"{rbf_hopper.LAUNCHES - before} kernel launches")
+    launches = dict(rbf_hopper.ROUTE_LAUNCHES)
+    check(sum(launches.values()) > 0, "the kernel launched on the strategies path")
+    pool = _pool_mib(torch)
+    held = [p for p in graphs.programs() if p.stacks]
+    print(f"strategies phase: {time.perf_counter() - t_phase:.1f} s; "
+          f"{graphs.captures() - captured} captures; launches {launches}; stacking programs "
+          f"held {len(held)}, static {sum(p.static_bytes for p in held) / 2**20:.2f} MiB of "
+          f"{graphs.STACK_BYTES / 2**20:.0f}; graph pools "
+          f"{'not reported' if pool is None else f'{pool:.1f} MiB'} [{smi}]")
+    return {"launches": launches, "shapes": shapes, "by_strategy": out}
+
+
 def main() -> int:
     import torch
 
@@ -3023,13 +3346,16 @@ def main() -> int:
     clock("graphs")
     learn = learn_phase(torch, ds, cfg, torch.device("cuda"), smi)
     clock("learn")
+    strategies = strategies_phase(torch, ds, torch.device("cuda"), smi)
+    clock("strategies")
     # At 512 features every RBF call of the paths takes the tensor-core route
     # (the router's rule, PERF.md); the tile kernel serves narrower or
     # unaligned features and is held against the plain version in phase 3.
     paths = {"session": sess, "harness": harness, "serving": served, **cohort,
              "sharded": {"launches": shard["launches"]}, "mesh": {"launches": mesh["launches"]},
              "bigcap": {"launches": large["launches"]}, "graphs": graphed,
-             "learn": {"launches": learn["launches"]}}
+             "learn": {"launches": learn["launches"]},
+             "strategies": {"launches": strategies["launches"]}}
     by_route = {r: sum(p["launches"][r] for p in paths.values()) for r in sess["launches"]}
     check(by_route["wgmma"] > 0, f"the tensor-core route launched on the main path: {by_route}")
     check(all(sum(p["launches"].values()) > 0 for p in paths.values()),
@@ -3059,6 +3385,12 @@ def main() -> int:
         # The ascent's block at every step of /learn (and gp_fit's k_ll).
         "shape_ascent": {"shape": "64x64x512 f32", "launches_per_learn": learn["per_learn"],
                          **kern["by_shape"][ASCENT_SHAPE]},
+        # The blocks the strategies' programs launch, and each program's
+        # launches per replay (fetch, /batch_select of 8, fused cohort).
+        "shapes_strategies": strategies["shapes"],
+        "launches_per_replay_strategies": {
+            name: {**r["launches"], "fused_cohort": r["fused"]["launches"]}
+            for name, r in strategies["by_strategy"].items()},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

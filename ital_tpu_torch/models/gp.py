@@ -157,17 +157,26 @@ _HYPER = ("length_scale", "var", "noise")
 def program_inputs(state: GPState) -> dict:
     """``state`` as a program's inputs (:func:`ital_tpu_torch.graphs.run`):
     its host count, which a graph takes as a 0-d device tensor, the session
-    buffers, the hyperparameters and the corpus norms.  The corpus is shared
-    by the sessions and goes in by address; the density, which no program
-    reads, stays out."""
+    buffers, the hyperparameters and the corpus norms.  The corpus and its
+    density are shared by the sessions and go in by address
+    (:func:`program_shared`)."""
     return {"count": state.count, **{f: getattr(state, f) for f in SESSION_FIELDS},
             **{f: getattr(state.hyper, f) for f in _HYPER}, "x2": state.x2}
 
 
-def program_state(x: torch.Tensor, inputs: dict) -> GPState:
-    """The state a program's body works on: corpus ``x`` and the fields of
-    :func:`program_inputs` from ``inputs``, its count a 0-d device tensor."""
-    return GPState(x=x, count=inputs["count"], x2=inputs["x2"],
+def program_shared(state: GPState) -> dict:
+    """The tensors of ``state`` a program reads where they are, keyed by
+    their address (``graphs.run``'s ``shared``): the corpus and, where the
+    state carries one, its density."""
+    return {"x": state.x, **({} if state.density is None else {"density": state.density})}
+
+
+def program_state(x: torch.Tensor, inputs: dict,
+                  density: Optional[torch.Tensor] = None) -> GPState:
+    """The state a program's body works on: corpus ``x``, its ``density``
+    and the fields of :func:`program_inputs` from ``inputs``, its count a
+    0-d device tensor."""
+    return GPState(x=x, count=inputs["count"], x2=inputs["x2"], density=density,
                    hyper=GPHyper(**{f: inputs[f] for f in _HYPER}),
                    **{f: inputs[f] for f in SESSION_FIELDS})
 
@@ -194,11 +203,13 @@ def cohort_program_inputs(states: Sequence[GPState], groups: Optional[list] = No
             tuple(tuple(g) for g in groups))
 
 
-def program_stack(x: torch.Tensor, inputs: dict, groups: tuple) -> StackedGPState:
-    """The stack a cohort program's body works on: corpus ``x`` and the
-    fields of :func:`cohort_program_inputs` from ``inputs``, its counts a
-    (K,) device tensor and ``groups`` its group plan."""
-    return StackedGPState(x=x, counts=inputs["counts"], x2=inputs["x2"],
+def program_stack(x: torch.Tensor, inputs: dict, groups: tuple,
+                  density: Optional[torch.Tensor] = None) -> StackedGPState:
+    """The stack a cohort program's body works on: corpus ``x``, its
+    ``density`` and the fields of :func:`cohort_program_inputs` from
+    ``inputs``, its counts a (K,) device tensor and ``groups`` its group
+    plan."""
+    return StackedGPState(x=x, counts=inputs["counts"], x2=inputs["x2"], density=density,
                           hyper=GPHyper(**{f: inputs[f] for f in _HYPER}),
                           hyper_groups=[list(g) for g in groups],
                           **{f: inputs[f] for f in SESSION_FIELDS})
@@ -604,6 +615,45 @@ def gp_posterior_cov_columns(state: GPState, ind: torch.Tensor) -> torch.Tensor:
     return k_cross - state.v.T @ state.v[:, ind]
 
 
+def gp_posterior_cov_columns_stacked(st: StackedGPState, ind: torch.Tensor) -> torch.Tensor:
+    """:func:`gp_posterior_cov_columns` of each session of ``st``: (K, N, k)
+    for its own corpus indices ``ind`` (K, k), the RBF columns one
+    :func:`~ital_tpu_torch.ops.kernels.rbf_sessions` call per
+    hyperparameter group."""
+    h = st.hyper
+    k_cross = rbf_sessions(st.x, st.x[ind], h.length_scale, h.var, st.hyper_groups, a2=st.x2)
+    return k_cross - st.v.mT @ st.v.gather(2, ind[:, None, :].expand(-1, st.cap, -1))
+
+
+def gp_posterior_cov_blocks(st: StackedGPState, cols: slice):
+    """Each session's posterior covariance between every corpus point and
+    the corpus columns ``cols``, as ``(k, (N, cols) block)`` pairs, one
+    session after another: each hyperparameter group forms one RBF block,
+    which its sessions share, and each subtracts its own ``v^T v[:, cols]``
+    from it.  A generator, so that one session's block is held at a time."""
+    h = st.hyper
+    for group in st.hyper_groups:
+        k_cross = rbf_kernel(st.x, st.x[cols], h.length_scale[group[0]], h.var[group[0]],
+                             a2=st.x2)
+        for k in group:
+            yield k, k_cross - st.v[k].T @ st.v[k][:, cols]
+
+
+def max_sim_stacked(st: StackedGPState, members: torch.Tensor,
+                    keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(K, N) max RBF similarity (var 1) of each corpus point to each
+    session's own corpus rows ``members`` (K, m), counting only those where
+    ``keep`` (K, m) holds (-inf where none does): a (K, m, D) gather and one
+    :func:`~ital_tpu_torch.ops.kernels.rbf_sessions` call per
+    hyperparameter group."""
+    h = st.hyper
+    sims = rbf_sessions(st.x, st.x[members], h.length_scale, torch.ones_like(h.var),
+                        st.hyper_groups, a2=st.x2)  # (K, N, m)
+    if keep is not None:
+        sims = torch.where(keep[:, None, :], sims, -torch.inf)
+    return sims.amax(-1)
+
+
 def gp_predict_mean(state: GPState, ind: torch.Tensor) -> torch.Tensor:
     """Posterior mean at corpus indices ``ind``."""
     return state.mu[ind]
@@ -665,6 +715,16 @@ def gp_updated_whitening(
     w = chol_ops.tri_solve(la, cross)
     g = chol_ops.tri_solve(la, resid[:, None])[:, 0]
     return g, w
+
+
+def gp_updated_whitening_stacked(st: StackedGPState, ind: torch.Tensor,
+                                 y_hyp: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`gp_updated_whitening` of each session of ``st`` with its own
+    block ``ind``, ``y_hyp`` (K, k), one session after another; writes
+    nothing.  Returns ``(g (K, k), w (K, k, N))``."""
+    gs, ws = zip(*(gp_updated_whitening(session_state(st, k), ind[k], y_hyp[k])
+                   for k in range(st.k)))
+    return torch.stack(gs), torch.stack(ws)
 
 
 def gp_updated_prediction(

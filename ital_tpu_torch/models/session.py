@@ -5,11 +5,11 @@ ranks the corpus, and picks the next batch through the configured selection
 strategy.  Everything runs on the corpus' device; only the returned batches
 and rankings come to the host.
 
-On the card the ITAL fetch, every update and every re-learn each replay one
-captured program (:mod:`ital_tpu_torch.graphs`), the counterparts of the
-reference's ``_jit_select``, ``_update_donated`` and jitted
-``fit_hyperparams``: process-wide, shared by every session with the same
-signature.  The other strategies select eagerly.
+On the card every fetch, whatever the strategy, every update and every
+re-learn each replay one captured program (:mod:`ital_tpu_torch.graphs`),
+the counterparts of the reference's ``_jit_select``, ``_update_donated`` and
+jitted ``fit_hyperparams``: process-wide, shared by every session with the
+same signature.
 """
 
 from __future__ import annotations
@@ -172,7 +172,9 @@ class ActiveRetrieval:
         self.state = gp_mod.gp_set_query(self.state, self.query)
 
     def fetch_unlabelled(self, k: int) -> np.ndarray:
-        """Next batch of k candidate indices to show the user."""
+        """Next batch of k candidate indices to show the user: the
+        strategy's selection program (the reference's ``_jit_select``), its
+        draws from the session's generator."""
         select = get_strategy(self.strategy_name)
         # Filtered on every call: a restored session's options replace
         # method_kwargs, and may name options another strategy declares.

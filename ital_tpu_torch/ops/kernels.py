@@ -249,3 +249,36 @@ def blockwise_reduce_abs_kpost(
         return k_post.sum(0)
 
     return torch.cat([one_block(blk) for blk in cand_idx.split(block)])
+
+
+def blockwise_reduce_abs_kpost_stacked(
+    x: torch.Tensor,
+    v: torch.Tensor,
+    length_scale: torch.Tensor,
+    var: torch.Tensor,
+    groups: list,
+    *,
+    x2: Optional[torch.Tensor] = None,
+    block: int = 2048,
+) -> torch.Tensor:
+    """:func:`blockwise_reduce_abs_kpost` over every corpus point for K
+    sessions at once: (K, N) ``sum_x |k_post_k(x, c)|``, ``v`` (K, r, N) the
+    sessions' own whitened rows.
+
+    Per block of candidates, each hyperparameter group (``groups``, as
+    :func:`rbf_sessions` takes them; ``length_scale``, ``var`` (K,)) forms
+    one shared (N, block) kernel block, one kernel launch, and each of its
+    sessions subtracts its own ``v^T v[:, block]`` from it and reduces, one
+    session after another: a block per group and one session's temporaries
+    are held at a time, never K blocks.
+    """
+    n = x.shape[0]
+    out = v.new_empty((v.shape[0], n))
+    for lo in range(0, n, block):
+        c = slice(lo, min(lo + block, n))
+        norms = {} if x2 is None else {"a2": x2, "b2": x2[c]}
+        for group in groups:
+            k_cross = rbf_kernel(x, x[c], length_scale[group[0]], var[group[0]], **norms)
+            for k in group:
+                out[k, c] = (k_cross - v[k].T @ v[k][:, c]).abs_().sum(0)
+    return out

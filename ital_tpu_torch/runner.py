@@ -58,7 +58,6 @@ from ital_tpu_torch.ops.chol import host_copy
 from ital_tpu_torch.select.base import (
     StrategyParams,
     cohort_program,
-    get_stacked_strategy,
     get_strategy,
     validate_method_kwargs,
 )
@@ -560,11 +559,9 @@ def _run_stacked(cfg, dataset, state0, params, select_kwargs, plan) -> Dict[str,
     cadence falls, as in the reference's ``round_v`` / ``fused_v``: unfused,
     such a round is a second program; fused, a cohort's rounds stay one.
     After the first re-learn every session is a hyperparameter group of its
-    own (:func:`_cohort_plan`).  A strategy without a cohort program body
-    (:func:`cohort_program`; all but ITAL) selects session by session,
-    eagerly, before each round's program, which holds its users, update, AP
-    and re-learn.  ``GP.refit_every`` is ignored, as the reference ignores
-    it here.
+    own (:func:`_cohort_plan`).  Every strategy's selection runs inside the
+    program (its cohort program body, :func:`cohort_program`).
+    ``GP.refit_every`` is ignored, as the reference ignores it here.
     """
     if cfg.gp.refit_every:
         print(_REFIT_IGNORED)
@@ -586,19 +583,11 @@ def _run_stacked(cfg, dataset, state0, params, select_kwargs, plan) -> Dict[str,
                               *chunk_masks)
 
     if cfg.fused_sessions:
-        # A selection captured with the rounds lets a program run every
-        # round; an eager one, one round.
-        captured = cohort_program(cfg.method, cfg.batch_size, select_kwargs) is not None
-        every = cfg.n_rounds if captured else 1
-
         def run_chunk(chunk):
             padded, states, chunk_masks = cohort(chunk)
-            aps, picks = zip(*(rounds(padded, states, chunk_masks, a,
-                                      min(a + every, cfg.n_rounds))
-                               for a in range(0, cfg.n_rounds, every)))
+            aps, picks = rounds(padded, states, chunk_masks, 0, cfg.n_rounds)
             k = len(chunk)  # the one host sync of the cohort
-            return (torch.cat(aps, 1)[:k].cpu().numpy(),
-                    torch.cat(picks, 0).transpose(0, 1)[:k].cpu().numpy())
+            return aps[:k].cpu().numpy(), picks.transpose(0, 1)[:k].cpu().numpy()
 
         return _run_fused(cfg, dataset, plan, dev, run_chunk)
 
@@ -711,27 +700,23 @@ def _cohort_plan(cfg: ExperimentConfig, k: int, rnd: int) -> list:
     return [list(range(k))]
 
 
-def _rounds_body(x, *, select, drawn, groups, rounds, learn_after, learn, picks, u_label, u_flip,
-                 relevant, exclude, center, **inputs) -> tuple:
+def _rounds_body(x, density=None, *, select, drawn, groups, rounds, learn_after, learn, u_label,
+                 u_flip, relevant, exclude, center, **inputs) -> tuple:
     """``rounds`` rounds of a cohort as a program's body: each round's
     selection by ``select`` (a :class:`~ital_tpu_torch.select.base.
     CohortProgram`'s picks) with round r of its fed inputs named ``drawn``
-    (R, K, ...), or, where ``select`` is None, round r of ``picks``
-    (R, K, b); the users' answers from the fed uniforms (R, K, b), the
+    (R, K, ...); the users' answers from the fed uniforms (R, K, b), the
     stacked update (in place) and the K APs; after the AP of each round in
     ``learn_after``, the K sessions' re-learn and refit with the ascent's
     options ``learn`` and the prior's (3,) ``center`` (or None).  Returns
     the (K, R) APs, the (R, K, b) picks and, where the program re-learns,
     the (K, 3) final (length_scale, var, noise)."""
     fed = {name: inputs.pop(name) for name in drawn}
-    st = gp_mod.program_stack(x, inputs, groups)
+    st = gp_mod.program_stack(x, inputs, groups, density)
     params = StrategyParams.from_inputs(inputs)
     aps, batches = [], []
     for r in range(rounds):
-        if select is None:
-            batch = picks[r]
-        else:
-            batch = select(st, params, **{k: None if v is None else v[r] for k, v in fed.items()})
+        batch = select(st, params, **{k: None if v is None else v[r] for k, v in fed.items()})
         y, valid = feedback_from_uniforms(u_label[r], u_flip[r], batch, relevant,
                                           params.label_prob, params.mistake_prob)
         gp_mod.gp_update_stacked(st, batch, y, valid)
@@ -755,42 +740,34 @@ def _cohort_rounds(cfg, states, params, select_kwargs, chunk, rnds, relevant, ex
     The rounds are one program (:func:`ital_tpu_torch.graphs.run`), the
     counterpart of the reference's ``round_v`` (one round) or ``fused_v``
     (all of a session's rounds), which stacks the sessions' buffers inside
-    and re-learns inside.  Where the strategy's selection has a cohort
-    program body (:func:`cohort_program`), it runs inside, every round's
-    draws (each session's from its own generator) made before and fed in
-    with the users' uniforms; else ``rnds`` is one round, whose selection
-    runs eagerly, session by session, before the program.  After a
-    re-learn each session takes new 0-d hyperparameters from the program's
-    output."""
+    and selects and re-learns inside: the strategy's cohort program body
+    (:func:`cohort_program`), every round's draws (each session's from its
+    own generator, in its own selection's order) made before and fed in
+    with the users' uniforms.  After a re-learn each session takes new 0-d
+    hyperparameters from the program's output."""
     x, dev, b = states[0].x, states[0].mu.device, cfg.batch_size
     draws = [_cohort_draws(cfg, chunk, rnd, dev) for rnd in rnds]
     select = cohort_program(cfg.method, b, select_kwargs)
-    picks, fed = None, {}
-    if select is None:
-        (gens, _, _), = draws
-        picks = get_stacked_strategy(cfg.method)(states, b, gens, params, **select_kwargs)[None]
-    else:
-        drawn = [select.draw(gens, x.shape[0], states[0].mu.dtype, dev) for gens, _, _ in draws]
-        fed = {k: None if drawn[0][k] is None else torch.stack([d[k] for d in drawn])
-               for k in drawn[0]}
+    drawn = [select.draw(gens, x.shape[0], states[0].mu.dtype, dev) for gens, _, _ in draws]
+    fed = {k: None if drawn[0][k] is None else torch.stack([d[k] for d in drawn])
+           for k in drawn[0]}
     groups = _cohort_plan(cfg, len(states), rnds[0])
     inputs, groups = gp_mod.cohort_program_inputs(states, groups)
     every = cfg.gp.learn_every
     learn_after = tuple(r for r, rnd in enumerate(rnds) if every and (rnd + 1) % every == 0)
     learn = LearnConfig.from_gp(cfg.gp) if learn_after else None
-    inputs.update(params.program_inputs(), **fed, picks=picks,
+    inputs.update(params.program_inputs(), **fed,
                   u_label=torch.stack([d[1] for d in draws]),
                   u_flip=torch.stack([d[2] for d in draws]), relevant=relevant, exclude=exclude,
                   center=learn.center_of(states[0].mu) if learn else None)
-    name = "cohort_round" if select is None or not cfg.fused_sessions else "fused_session"
+    name = "fused_session" if cfg.fused_sessions else "cohort_round"
     options = learn.options() if learn else ()
     aps, batches, *hyper = graphs.run(
-        name, functools.partial(_rounds_body, select=None if select is None else select.picks,
-                                drawn=tuple(fed), groups=groups, rounds=len(rnds),
-                                learn_after=learn_after, learn=options),
-        inputs, shared={"x": x}, writes=gp_mod.SESSION_FIELDS,
-        static=(b, len(rnds), None if select is None else select.static, groups, learn_after,
-                options))
+        name, functools.partial(_rounds_body, select=select.picks, drawn=tuple(fed),
+                                groups=groups, rounds=len(rnds), learn_after=learn_after,
+                                learn=options),
+        inputs, shared=gp_mod.program_shared(states[0]), writes=gp_mod.SESSION_FIELDS,
+        static=(cfg.method, b, len(rnds), select.static, groups, learn_after, options))
     for k, s in enumerate(states):
         s.count += b * len(rnds)
         if hyper:

@@ -3,26 +3,38 @@
 The methods the ITAL paper (arXiv:1809.02337) compares against: random,
 top-scoring, variance sampling, uncertainty sampling, border(line) sampling
 and its diversity-augmented variant, entropy, EMOC and its batch form,
-MCMI[min], SUD, TCAL, RBMAL, AdaptAL and USDM.  Each is a function of the GP
-posterior registered under the reference's name.
+MCMI[min], SUD, TCAL, RBMAL, AdaptAL and USDM.  Each is registered under the
+reference's name as a program (:func:`ital_tpu_torch.select.base.
+register_program`): a body that picks the batches of K sessions of a
+:class:`~ital_tpu_torch.models.gp.StackedGPState` at once, the reference's
+``jax.vmap`` of the strategy, and serves one session as a stack of one.
+``params`` fields are 0-d or (K,), one value per session.
 
 The heavy ones (``emoc``, ``emoc_batch``, ``mcmi_min``) stream whole-corpus
-(N, block) kernel blocks, and the diversity penalties (N, cap) and (N, t)
+(N, block) kernel blocks, one per hyperparameter group and block, shared by
+the group's sessions, and the diversity penalties (N, cap) and (N, t)
 similarity blocks: on the card these go through the CUDA RBF kernel.
 
 Density-weighted strategies (SUD, TCAL, AdaptAL) read ``state.density``
-(:func:`ital_tpu_torch.models.gp.corpus_density`, computed once per corpus);
-without it they take a uniform density.
+(:func:`ital_tpu_torch.models.gp.corpus_density`, computed once per corpus
+and shared by the stack); without it they take a uniform density.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ital_tpu_torch.models.gp import GPState, gp_posterior_cov_columns, gp_updated_whitening
-from ital_tpu_torch.ops.kernels import blockwise_reduce_abs_kpost, rbf_kernel
+from ital_tpu_torch.models.gp import (
+    GPState,
+    StackedGPState,
+    gp_posterior_cov_blocks,
+    gp_updated_whitening_stacked,
+    max_sim_stacked,
+    stacked_view,
+)
+from ital_tpu_torch.ops.kernels import blockwise_reduce_abs_kpost_stacked
 from ital_tpu_torch.ops.mvn import norm_cdf
-from ital_tpu_torch.select.base import StrategyParams, greedy_argmax_batch, register
+from ital_tpu_torch.select.base import greedy_argmax_stacked, per_session, register_program
 
 _EPS = 1e-12
 
@@ -35,28 +47,23 @@ def _binary_entropy(p: torch.Tensor) -> torch.Tensor:
     return -(p * torch.log(p + _EPS) + (1 - p) * torch.log(1 - p + _EPS))
 
 
-def _p_relevant(state: GPState) -> torch.Tensor:
+def _p_relevant(state: GPState | StackedGPState) -> torch.Tensor:
     """P(R=+1) per corpus point: Phi(mu / sigma) under the latent GP."""
     return _phi(state.mu / torch.sqrt(state.sig2))
 
 
-def _density(state: GPState) -> torch.Tensor:
+def _density(state: GPState | StackedGPState) -> torch.Tensor:
     return torch.ones_like(state.mu) if state.density is None else state.density
 
 
-def _max_sim_to(state: GPState, members: torch.Tensor, keep=None) -> torch.Tensor:
-    """(N,) max RBF similarity (var 1) of each point to the corpus rows ``members``,
-    counting only those where the optional (len(members),) mask ``keep`` holds
-    (-inf where none does)."""
-    sims = rbf_kernel(state.x, state.x[members], state.hyper.length_scale, 1.0,
-                      a2=state.x2)  # (N, len(members))
-    if keep is not None:
-        sims = torch.where(keep[None, :], sims, -torch.inf)
-    return sims.amax(1)
+def _max_sim_to_labeled(st: StackedGPState) -> torch.Tensor:
+    """(K, N) max similarity of each point to each session's labeled rows."""
+    return max_sim_stacked(st, st.idx, st.active)
 
 
-def _max_sim_to_labeled(state: GPState) -> torch.Tensor:
-    return _max_sim_to(state, state.idx, state.active)
+def _greedy(st: StackedGPState, batch_size: int, scores: torch.Tensor) -> torch.Tensor:
+    """The batch of batch-independent (K, N) scores."""
+    return greedy_argmax_stacked(lambda b, t: scores, st, batch_size)
 
 
 # ---------------------------------------------------------------------------
@@ -64,54 +71,50 @@ def _max_sim_to_labeled(state: GPState) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def random_from_uniforms(state: GPState, batch_size: int, uniforms: torch.Tensor) -> torch.Tensor:
-    """The ``random`` pick from given (N,) uniforms: the unlabeled items of largest draw."""
-    return greedy_argmax_batch(lambda b, t: uniforms, state, batch_size)
+def draw_uniforms(generators, n: int, dtype, device) -> dict:
+    """``random``'s draws: each session's (n,) uniforms from its own
+    generator, as ``uniforms`` (K, n)."""
+    return {"uniforms": torch.stack([torch.rand(n, generator=g, dtype=dtype, device=device)
+                                     for g in generators])}
 
 
-@register("random")
-def select_random(state, batch_size, generator, params: StrategyParams):
+def _random(st, params, *, batch_size, uniforms):
     """Uniform random among unlabeled items (reference ``RandomRetrieval``).
 
     Draws N uniforms from ``generator`` (on the state's device) and keeps the
     ``batch_size`` unlabeled items of largest draw.
     """
-    n = state.x.shape[0]
-    u = torch.rand(n, generator=generator, dtype=state.mu.dtype, device=state.mu.device)
-    return random_from_uniforms(state, batch_size, u)
+    return _greedy(st, batch_size, uniforms)
 
 
-@register("topscoring")
-def select_topscoring(state, batch_size, generator, params: StrategyParams):
+def random_from_uniforms(state: GPState, batch_size: int, uniforms: torch.Tensor) -> torch.Tensor:
+    """The ``random`` pick from given (N,) uniforms: the unlabeled items of largest draw."""
+    return _random(stacked_view(state), None, batch_size=batch_size, uniforms=uniforms[None])[0]
+
+
+def _topscoring(st, params, *, batch_size):
     """Pure exploitation: highest posterior relevance mean."""
-    return greedy_argmax_batch(lambda b, t: state.mu, state, batch_size)
+    return _greedy(st, batch_size, st.mu)
 
 
-@register("variance_sampling")
-def select_variance(state, batch_size, generator, params: StrategyParams):
+def _variance(st, params, *, batch_size):
     """Maximum posterior variance (reference ``VarianceSampling``)."""
-    return greedy_argmax_batch(lambda b, t: state.sig2, state, batch_size)
+    return _greedy(st, batch_size, st.sig2)
 
 
-@register("uncertainty_sampling")
-def select_uncertainty(state, batch_size, generator, params: StrategyParams):
+def _uncertainty(st, params, *, batch_size):
     """Minimum |mu|/sigma — closest to the boundary in units of uncertainty."""
-    scores = -state.mu.abs() / torch.sqrt(state.sig2)
-    return greedy_argmax_batch(lambda b, t: scores, state, batch_size)
+    return _greedy(st, batch_size, -st.mu.abs() / torch.sqrt(st.sig2))
 
 
-@register("borderline_sampling")
-def select_borderline(state, batch_size, generator, params: StrategyParams):
+def _borderline(st, params, *, batch_size):
     """Minimum |mu| — closest to the decision boundary."""
-    scores = -state.mu.abs()
-    return greedy_argmax_batch(lambda b, t: scores, state, batch_size)
+    return _greedy(st, batch_size, -st.mu.abs())
 
 
-@register("entropy_sampling")
-def select_entropy(state, batch_size, generator, params: StrategyParams):
+def _entropy(st, params, *, batch_size):
     """Maximum binary entropy of P(R=+1)."""
-    scores = _binary_entropy(_p_relevant(state))
-    return greedy_argmax_batch(lambda b, t: scores, state, batch_size)
+    return _greedy(st, batch_size, _binary_entropy(_p_relevant(st)))
 
 
 # ---------------------------------------------------------------------------
@@ -119,57 +122,55 @@ def select_entropy(state, batch_size, generator, params: StrategyParams):
 # ---------------------------------------------------------------------------
 
 
-def _diversity_greedy(state, batch_size, base_scores, weight):
+def _diversity_greedy(st, batch_size, base_scores, weight):
     """Greedy argmax of ``base - weight * max_sim(candidate, chosen + labeled)``.
 
     The penalty is the max over the union of the labeled and the already
     chosen items; summing the two maxes would double-penalize candidates
-    near both sets.
+    near both sets.  ``weight``: 0-d or one per session (K,).
     """
-    sim_lab = torch.clamp(_max_sim_to_labeled(state), min=0.0)
+    sim_lab = torch.clamp(_max_sim_to_labeled(st), min=0.0)
+    weight = per_session(weight)
 
     def score(batch, t):
         sim = sim_lab
         if t > 0:
-            sim = torch.maximum(sim, _max_sim_to(state, batch[:t]))
+            sim = torch.maximum(sim, max_sim_stacked(st, batch[:, :t]))
         return base_scores - weight * sim
 
-    return greedy_argmax_batch(score, state, batch_size)
+    return greedy_argmax_stacked(score, st, batch_size)
 
 
-@register("borderline_diversity_sampling")
-def select_borderline_diversity(state, batch_size, generator, params: StrategyParams):
+def _borderline_diversity(st, params, *, batch_size):
     """Borderline sampling with a redundancy penalty against labeled and chosen items."""
-    return _diversity_greedy(state, batch_size, -state.mu.abs(), params.tradeoff)
+    return _diversity_greedy(st, batch_size, -st.mu.abs(), params.tradeoff)
 
 
-@register("usdm")
-def select_usdm(state, batch_size, generator, params: StrategyParams):
+def _usdm(st, params, *, batch_size):
     """Uncertainty sampling with diversity maximization: uncertainty minus
     max-similarity to the labeled items and the growing batch."""
-    unc = -state.mu.abs() / torch.sqrt(state.sig2)
-    return _diversity_greedy(state, batch_size, unc, params.tradeoff)
+    unc = -st.mu.abs() / torch.sqrt(st.sig2)
+    return _diversity_greedy(st, batch_size, unc, params.tradeoff)
 
 
-@register("rbmal")
-def select_rbmal(state, batch_size, generator, params: StrategyParams):
+def _rbmal(st, params, *, batch_size):
     """Ranked batch-mode AL (Cardoso et al. 2017):
     score = alpha * (1 - max_sim_to_labeled_or_chosen) + (1 - alpha) * uncertainty,
     with alpha = |U| / (|U| + |L|) recomputed as the batch grows."""
-    n = state.x.shape[0]
-    dt = state.mu.dtype
-    n_lab = state.active.sum()
-    unc = 1.0 - torch.tanh(state.mu).abs()  # uncertainty in [0, 1]
-    sim_lab = torch.clamp(_max_sim_to_labeled(state), min=0.0)
+    n = st.x.shape[0]
+    dt = st.mu.dtype
+    n_lab = st.active.sum(-1)[:, None]  # (K, 1): each session's labels
+    unc = 1.0 - torch.tanh(st.mu).abs()  # uncertainty in [0, 1]
+    sim_lab = torch.clamp(_max_sim_to_labeled(st), min=0.0)
 
     def score(batch, t):
         alpha = (n - n_lab - t).to(dt) / n
         sim = sim_lab
         if t > 0:
-            sim = torch.maximum(sim, _max_sim_to(state, batch[:t]))
+            sim = torch.maximum(sim, max_sim_stacked(st, batch[:, :t]))
         return alpha * (1.0 - sim) + (1.0 - alpha) * unc
 
-    return greedy_argmax_batch(score, state, batch_size)
+    return greedy_argmax_stacked(score, st, batch_size)
 
 
 # ---------------------------------------------------------------------------
@@ -177,28 +178,24 @@ def select_rbmal(state, batch_size, generator, params: StrategyParams):
 # ---------------------------------------------------------------------------
 
 
-@register("sud")
-def select_sud(state, batch_size, generator, params: StrategyParams):
+def _sud(st, params, *, batch_size):
     """Sampling by uncertainty and density: entropy x density."""
-    scores = _binary_entropy(_p_relevant(state)) * _density(state)
-    return greedy_argmax_batch(lambda b, t: scores, state, batch_size)
+    return _greedy(st, batch_size, _binary_entropy(_p_relevant(st)) * _density(st))
 
 
-@register("tcal")
-def select_tcal(state, batch_size, generator, params: StrategyParams):
+def _tcal(st, params, *, batch_size):
     """Density-weighted border sampling with a diversity-greedy batch
     (triple-criteria AL: uncertainty, density, diversity)."""
-    base = -state.mu.abs() * _density(state)
-    return _diversity_greedy(state, batch_size, base, params.tradeoff)
+    base = -st.mu.abs() * _density(st)
+    return _diversity_greedy(st, batch_size, base, params.tradeoff)
 
 
-@register("adapt_al")
-def select_adapt_al(state, batch_size, generator, params: StrategyParams):
+def _adapt_al(st, params, *, batch_size):
     """Adaptive AL: entropy^beta * density^(1-beta) with ``beta = params.tradeoff``."""
-    ent = _binary_entropy(_p_relevant(state))
-    beta = params.tradeoff
-    scores = torch.pow(ent + _EPS, beta) * torch.pow(_density(state) + _EPS, 1.0 - beta)
-    return greedy_argmax_batch(lambda b, t: scores, state, batch_size)
+    ent = _binary_entropy(_p_relevant(st))
+    beta = per_session(params.tradeoff)
+    scores = torch.pow(ent + _EPS, beta) * torch.pow(_density(st) + _EPS, 1.0 - beta)
+    return _greedy(st, batch_size, scores)
 
 
 # ---------------------------------------------------------------------------
@@ -218,74 +215,92 @@ def emoc_scores_from_moments(mu, sig2, noise, colabs):
     return exp_change / (sig2 + noise) * colabs
 
 
-def _colabs(state: GPState, v: torch.Tensor) -> torch.Tensor:
-    """(N,) column-abs-sums of the posterior covariance whose whitened rows are ``v``."""
-    n = state.x.shape[0]
-    return blockwise_reduce_abs_kpost(
-        state.x, v, torch.arange(n, device=state.x.device),
-        state.hyper.length_scale, state.hyper.var, x2=state.x2,
-    )
+def _colabs(st: StackedGPState, v: torch.Tensor) -> torch.Tensor:
+    """(K, N) column-abs-sums of each session's posterior covariance whose
+    whitened rows are ``v`` (K, r, N)."""
+    h = st.hyper
+    return blockwise_reduce_abs_kpost_stacked(st.x, v, h.length_scale, h.var, st.hyper_groups,
+                                              x2=st.x2)
 
 
-@register("emoc")
-def select_emoc(state, batch_size, generator, params: StrategyParams):
+def _emoc(st, params, *, batch_size):
     """Expected model output change (reference ``EMOC``), over the whole corpus."""
-    scores = emoc_scores_from_moments(state.mu, state.sig2, state.hyper.noise,
-                                      _colabs(state, state.v))
-    return greedy_argmax_batch(lambda b, t: scores, state, batch_size)
+    scores = emoc_scores_from_moments(st.mu, st.sig2, per_session(st.hyper.noise),
+                                      _colabs(st, st.v))
+    return _greedy(st, batch_size, scores)
 
 
-@register("emoc_batch")
-def select_emoc_batch(state, batch_size, generator, params: StrategyParams):
+def _emoc_batch(st, params, *, batch_size):
     """Batch EMOC: greedy expected model output change given the partial batch.
 
     Each greedy step re-scores every candidate against the posterior as if
     the chosen members were labeled with their most probable labels
     (``sign(mu)``), through the block hypothetical update
-    (:func:`gp_updated_whitening`): ``t`` extra rows on ``v``.  At t=0 this is
-    :func:`select_emoc`.
+    (:func:`~ital_tpu_torch.models.gp.gp_updated_whitening`): ``t`` extra
+    rows on ``v``.  At t=0 this is ``emoc``.
     """
+    noise = per_session(st.hyper.noise)
+
     def score(batch, t):
         if t == 0:
-            mu_h, sig2_h, v_aug = state.mu, state.sig2, state.v
+            mu_h, sig2_h, v_aug = st.mu, st.sig2, st.v
         else:
-            ind = batch[:t]
-            y_hyp = torch.where(state.mu[ind] >= 0.0, 1.0, -1.0)
-            g, w = gp_updated_whitening(state, ind, y_hyp)
-            mu_h = state.mu + w.T @ g
-            sig2_h = torch.clamp(state.sig2 - (w * w).sum(0), min=1e-8)
-            v_aug = torch.cat([state.v, w])
-        return emoc_scores_from_moments(mu_h, sig2_h, state.hyper.noise, _colabs(state, v_aug))
+            ind = batch[:, :t]
+            y_hyp = torch.where(st.mu.gather(1, ind) >= 0.0, 1.0, -1.0)
+            g, w = gp_updated_whitening_stacked(st, ind, y_hyp)  # (K, t), (K, t, N)
+            mu_h = st.mu + (w.mT @ g[..., None])[..., 0]
+            sig2_h = torch.clamp(st.sig2 - (w * w).sum(-2), min=1e-8)
+            v_aug = torch.cat([st.v, w], dim=-2)
+        return emoc_scores_from_moments(mu_h, sig2_h, noise, _colabs(st, v_aug))
 
-    return greedy_argmax_batch(score, state, batch_size)
+    return greedy_argmax_stacked(score, st, batch_size)
 
 
-@register("mcmi_min")
-def select_mcmi_min(state, batch_size, generator, params: StrategyParams, *, block: int = 512):
+def _mcmi_min(st, params, *, batch_size, block: int = 512):
     """MCMI[min] (Guo & Greiner): pick the candidate whose worst-case label
     most reduces the total label entropy of the corpus.
 
     score(c) = min_{y in {-1,+1}} [ -sum_x H_b( Phi(mu'_x / sigma'_x) ) ]
 
     with (mu', sigma') the closed-form one-point hypothetical posterior.  The
-    N x N computation streams in blocks of ``block`` candidates, each one
-    (N, block) kernel block.
+    N x N computation streams in blocks of ``block`` candidates: per block
+    one (N, block) kernel block per hyperparameter group, which each of its
+    sessions turns into its posterior covariance columns, one session after
+    another.
     """
-    noise = state.hyper.noise
+    noise = st.hyper.noise
+    n = st.x.shape[0]
+    scores = torch.empty_like(st.mu)
+    for lo in range(0, n, block):
+        c = slice(lo, min(lo + block, n))
+        for k, k_post in gp_posterior_cov_blocks(st, c):  # (N, block)
+            mu, sig2 = st.mu[k], st.sig2[k]
+            denom = sig2[c] + noise[k]  # (block,)
+            # The variance shrink does not depend on the label.
+            sig_new = torch.sqrt(torch.clamp(sig2[:, None] - k_post**2 / denom, min=1e-8))
 
-    def one_block(cands):
-        k_post = gp_posterior_cov_columns(state, cands)  # (N, block)
-        denom = state.sig2[cands] + noise  # (block,)
-        # The variance shrink does not depend on the label.
-        sig_new = torch.sqrt(torch.clamp(state.sig2[:, None] - k_post**2 / denom, min=1e-8))
+            def total_entropy(y):
+                gain = (y - mu[c]) / denom  # (block,)
+                mu_new = mu[:, None] + k_post * gain
+                return _binary_entropy(_phi(mu_new / sig_new)).sum(0)
 
-        def total_entropy(y):
-            gain = (y - state.mu[cands]) / denom  # (block,)
-            mu_new = state.mu[:, None] + k_post * gain
-            return _binary_entropy(_phi(mu_new / sig_new)).sum(0)
+            scores[k, c] = -torch.maximum(total_entropy(1.0), total_entropy(-1.0))
+    return _greedy(st, batch_size, scores)
 
-        return -torch.maximum(total_entropy(1.0), total_entropy(-1.0))  # min over y
 
-    cand = torch.arange(state.x.shape[0], device=state.x.device)
-    scores = torch.cat([one_block(c) for c in cand.split(block)])
-    return greedy_argmax_batch(lambda b, t: scores, state, batch_size)
+select_random = register_program("random", _random, draw=draw_uniforms, drawn=("uniforms",))
+select_topscoring = register_program("topscoring", _topscoring)
+select_variance = register_program("variance_sampling", _variance)
+select_uncertainty = register_program("uncertainty_sampling", _uncertainty)
+select_borderline = register_program("borderline_sampling", _borderline)
+select_entropy = register_program("entropy_sampling", _entropy)
+select_borderline_diversity = register_program("borderline_diversity_sampling",
+                                               _borderline_diversity)
+select_usdm = register_program("usdm", _usdm)
+select_rbmal = register_program("rbmal", _rbmal)
+select_sud = register_program("sud", _sud)
+select_tcal = register_program("tcal", _tcal)
+select_adapt_al = register_program("adapt_al", _adapt_al)
+select_emoc = register_program("emoc", _emoc)
+select_emoc_batch = register_program("emoc_batch", _emoc_batch)
+select_mcmi_min = register_program("mcmi_min", _mcmi_min)

@@ -55,6 +55,7 @@ from ital_tpu_torch.select.base import (
     CohortProgram,
     StrategyParams,
     labeled_mask,
+    per_session,
     register,
     register_cohort_program,
     register_stacked,
@@ -98,7 +99,9 @@ def device_tables(m: int, device) -> tuple[torch.Tensor, torch.Tensor]:
 def feedback_given_relevance(
     m: int, label_prob: torch.Tensor, mistake_prob: torch.Tensor
 ) -> torch.Tensor:
-    """(2^m, 3^m) table P(F=f | R=r) under the noisy/skipping user model.
+    """(2^m, 3^m) table P(F=f | R=r) under the noisy/skipping user model;
+    (K, 2^m, 3^m), one per session, from (K,) ``label_prob`` and
+    ``mistake_prob``.
 
     Per item: P(f=0) = 1 - label_prob; P(f=r) = label_prob * (1 - mistake_prob);
     P(f=-r) = label_prob * mistake_prob — factorized across the batch.
@@ -108,19 +111,22 @@ def feedback_given_relevance(
     r = signs[:, None, :]  # (2^m, 1, m)
     f = feedback[None, :, :]  # (1, 3^m, m)
     one = torch.ones((), dtype=dt, device=dev)
-    p_item = torch.where(
-        f == 0.0,
-        one - label_prob,
-        torch.where(f == r, label_prob * (1.0 - mistake_prob), label_prob * mistake_prob),
-    )
+    lp, mp = label_prob[..., None, None, None], mistake_prob[..., None, None, None]
+    p_item = torch.where(f == 0.0, one - lp, torch.where(f == r, lp * (1.0 - mp), lp * mp))
     return torch.prod(p_item, dim=-1)
 
 
-def mutual_information_from_relevance(p_r: torch.Tensor, pfr: torch.Tensor) -> torch.Tensor:
+def mutual_information_from_relevance(p_r: torch.Tensor, pfr: torch.Tensor,
+                                      session: Optional[torch.Tensor] = None) -> torch.Tensor:
     """I(R; F) from relevance-config probabilities ``p_r`` (..., 2^m).
 
     MI = H(F) - H(F|R); the conditional entropy is a fixed per-config row sum.
+    With K sessions' tables ``pfr`` (K, 2^m, 3^m), row c of ``p_r`` (Nc,
+    2^m) takes table ``session[c]``.
     """
+    if pfr.dim() == 3:
+        mi = torch.stack([mutual_information_from_relevance(p_r, t) for t in pfr.unbind(0)])
+        return mi.gather(0, session[None])[0]
     eps = 1e-12
     neg_h_f_given_r = (pfr * torch.log(pfr + eps)).sum(-1)  # (2^m,)
     p_f = p_r @ pfr  # (..., 3^m)
@@ -140,6 +146,7 @@ def mi_scores_from_moments(
     n_qmc: int = 128,
     block: int = MI_BLOCK,
     shift: Optional[torch.Tensor] = None,
+    session: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """MI of appending each candidate to the partial batch, from posterior moments.
 
@@ -152,16 +159,26 @@ def mi_scores_from_moments(
       shift: optional Cranley-Patterson lattice shift in [0,1), (t,) shared
         by every candidate or (Nc, t) with per-candidate moments; ``None``
         uses the unshifted lattice.
+      session: (Nc,) int64, each candidate's session, where ``params``
+        holds K sessions' (K,) user models.
     """
     m = t + 1
     pfr = feedback_given_relevance(m, params.label_prob, params.mistake_prob)
-    streamed = [mu_cand, sig2_cand, cross]
-    pads = [0.0, 1.0, 0.0]  # variance 1.0 keeps pad rows' Cholesky SPD
+    # Streamed per candidate, by name, with their pads (variance 1.0 keeps
+    # pad rows' Cholesky SPD); the rest is shared by every candidate.
+    streamed = {"mu_c": (mu_cand, 0.0), "sig2_c": (sig2_cand, 1.0), "cross_c": (cross, 0.0)}
+    if session is not None:
+        streamed["session_c"] = (session, 0)
     if mu_b.dim() == 2:
-        streamed += [mu_b, cov_bb] + ([] if shift is None else [shift])
-        pads += [0.0, 0.0] + ([] if shift is None else [0.0])
+        streamed.update(mu_bc=(mu_b, 0.0), cov_bbc=(cov_bb, 0.0))
+        if shift is not None:
+            streamed["shift_c"] = (shift, 0.0)
 
-    def score_block(mu_c, sig2_c, cross_c, mu_bc=mu_b, cov_bbc=cov_bb, shift_c=shift):
+    def score_block(*blk):
+        a = {"mu_bc": mu_b, "cov_bbc": cov_bb, "shift_c": shift, "session_c": None,
+             **dict(zip(streamed, blk))}
+        mu_c, sig2_c, cross_c = a["mu_c"], a["sig2_c"], a["cross_c"]
+        mu_bc, cov_bbc, shift_c = a["mu_bc"], a["cov_bbc"], a["shift_c"]
         nb = mu_c.shape[0]
         mu = torch.cat([mu_bc.expand(nb, t), mu_c[:, None]], dim=1)  # (nb, m)
         cov = torch.zeros((nb, m, m), dtype=mu.dtype, device=mu.device)
@@ -172,9 +189,10 @@ def mi_scores_from_moments(
         cov[:, t, t] = sig2_c
         p_r = orthant_probs_all_configs_tree(mu, small_cholesky(cov),
                                              n_points=n_qmc, shift=shift_c)
-        return mutual_information_from_relevance(p_r, pfr)
+        return mutual_information_from_relevance(p_r, pfr, a["session_c"])
 
-    return blocked_map(score_block, streamed, block=block, pad_values=pads)
+    return blocked_map(score_block, [v for v, _ in streamed.values()], block=block,
+                       pad_values=[p for _, p in streamed.values()])
 
 
 def mi_with_error(
@@ -216,7 +234,7 @@ def _session_scores(
     :func:`mi_scores_from_moments` call: the moments are (K, P), (K, P, t),
     (K, t) and (K, t, t), and ``shift`` (K, t); each candidate carries its
     session's partial batch, except for one session, whose candidates share
-    it."""
+    it, and, where ``params`` holds (K,) user models, its session's."""
     k, p = mu_c.shape
 
     def each(a):
@@ -224,10 +242,13 @@ def _session_scores(
             return a[0]
         return a[:, None].expand(k, p, *a.shape[1:]).reshape(k * p, *a.shape[1:])
 
+    session = None
+    if params.label_prob.dim():
+        session = torch.arange(k, device=mu_c.device)[:, None].expand(k, p).reshape(-1)
     scores = mi_scores_from_moments(
         mu_c.reshape(-1), sig2_c.reshape(-1), cross.reshape(k * p, t), each(mu_b),
         each(cov_bb), params, t=t, n_qmc=n_qmc, block=block,
-        shift=None if shift is None else each(shift),
+        shift=None if shift is None else each(shift), session=session,
     )
     return scores.view(k, p)
 
@@ -318,7 +339,8 @@ def _session_moments(
     xs = st.x[bsel]  # (K, t, D)
     vs = st.v.gather(2, bsel[:, None, :].expand(-1, st.cap, -1))  # (K, cap, t)
     k_bb = rbf_sessions(xs, xs, h.length_scale, h.var, groups)
-    cov_bb = k_bb - vs.mT @ vs + params.jitter * torch.eye(t, dtype=dt, device=dev)
+    eye = torch.eye(t, dtype=dt, device=dev)
+    cov_bb = k_bb - vs.mT @ vs + per_session(params.jitter, 2) * eye
     if pool is None:
         k_cb = rbf_sessions(st.x, xs, h.length_scale, h.var, groups, a2=st.x2)
         return mu_b, cov_bb, k_cb - st.v.mT @ vs
@@ -458,11 +480,11 @@ def _greedy_picks(
     k = st.k
     if pool_idx is None:
         pool = None
-        mu_c, sig2_c = st.mu, st.sig2 + params.jitter
+        mu_c, sig2_c = st.mu, st.sig2 + per_session(params.jitter)
     else:
         pool = (st.x[pool_idx], st.v.gather(2, pool_idx[:, None, :].expand(-1, st.cap, -1)))
         mu_c = st.mu.gather(1, pool_idx)
-        sig2_c = st.sig2.gather(1, pool_idx) + params.jitter
+        sig2_c = st.sig2.gather(1, pool_idx) + per_session(params.jitter)
     batch = torch.zeros((k, batch_size), dtype=torch.int64, device=st.idx.device)
     forbid = forbid.clone()
     for t in range(batch_size):
@@ -567,10 +589,14 @@ def select_ital_stacked(
     reference's ``jax.vmap(select_ital)``), each the batch
     :func:`select_ital` picks for that session alone.
 
-    Options as :func:`select_ital`.  Session k draws from ``generators[k]``
-    in the order its own selection draws: its subsample uniforms first,
-    then one shift per greedy step.  Fed draws: ``subsample_uniforms``
-    (K, N) and ``qmc_shifts``, one (K, t) shift per step t.
+    Options as :func:`select_ital`.  ``params``: one user model for all
+    sessions (0-d fields) or each session's own ((K,) fields,
+    :meth:`StrategyParams.stack`): the MI scan then weighs each session's
+    candidates with its own feedback table.  Session k draws from
+    ``generators[k]`` in the order its own selection draws: its subsample
+    uniforms first, then one shift per greedy step.  Fed draws:
+    ``subsample_uniforms`` (K, N) and ``qmc_shifts``, one (K, t) shift per
+    step t.
 
     The selection is one program (:func:`ital_tpu_torch.graphs.run`), the
     counterpart of the reference's ``_batched_select``: on the card a graph

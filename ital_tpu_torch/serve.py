@@ -28,14 +28,15 @@ Concurrency:
 * The cohort endpoints ``POST /batch_select`` and ``POST /batch_feedback``
   take many sessions in one request, lock them in one canonical order
   (duplicates dropped first) and keep each session's own semantics: its own
-  generator, its own feedback bucket width, its own capacity error.  A
+  generator, user model, feedback bucket width and capacity error.  A
   compatible group (same strategy, capacity, options and density) selects
-  with one stacked selection over the shared corpus
-  (:func:`ital_tpu_torch.select.base.get_stacked_strategy`; ITAL's is
-  :func:`ital_tpu_torch.select.ital.select_ital_stacked`), and the sessions
-  of one (width, capacity) feedback group take one stacked GP update
+  with one stacked selection over the shared corpus, whatever its
+  sessions' user models (:func:`ital_tpu_torch.select.base.
+  get_stacked_strategy`; ITAL's is :func:`ital_tpu_torch.select.ital.
+  select_ital_stacked`), and the sessions of one (width, capacity)
+  feedback group take one stacked GP update
   (:func:`ital_tpu_torch.models.gp.update_stacked`), written back into
-  each session's buffers under its lock.  On the card ITAL's stacked
+  each session's buffers under its lock.  On the card every stacked
   selection and every stacked update each replay one captured program
   (:mod:`ital_tpu_torch.graphs`), which stacks the sessions' buffers inside
   itself.  A group is laid out by hyperparameter group first, larger groups
@@ -104,20 +105,38 @@ from ital_tpu_torch.models.session import ActiveRetrieval, resolve_device
 from ital_tpu_torch.parallel import interactive
 from ital_tpu_torch.parallel import sharded as sh
 from ital_tpu_torch.runner import DENSITY_STRATEGIES
-from ital_tpu_torch.select.base import filter_method_kwargs, get_stacked_strategy
+from ital_tpu_torch.select.base import (
+    StrategyParams,
+    filter_method_kwargs,
+    get_stacked_strategy,
+)
 from ital_tpu_torch.utils import checkpoint as ckpt
 
-# Peak device memory a stacked cohort program adds per session: COPIES of the
-# session's (cap, N) f32 whitened buffer v (the stack and the corpus-wide
-# temporaries, which grow with N) plus FIXED_BYTES that do not grow with N
-# (the selection's MI scan over the session's pool).  From the rise of
-# torch.cuda.max_memory_allocated over K = 8 sessions at the production
-# settings (cap 64, pool 4096) on an H100 80GB HBM3 at 700 W (chip_smoke.py
-# phases 8 and 9; PERF.md): a selection added 95.55 MiB a session at 25 000
-# rows and 115.13 MiB at 100 000, which fit 1.07 copies + 89.0 MiB; an
+# Peak device memory a stacked cohort program adds per session: copies of
+# the session's (cap, N) f32 whitened buffer v (the stack and the
+# corpus-wide temporaries, which grow with N) plus fixed bytes that do not
+# grow with N.  From the rise of torch.cuda.max_memory_allocated over K = 8
+# sessions on an H100 80GB HBM3 at 700 W (chip_smoke.py; PERF.md).  ITAL's
+# selection at the production settings (cap 64, pool 4096; phases 8 and 9)
+# added 95.55 MiB a session at 25 000 rows and 115.13 MiB at 100 000, which
+# fit 1.07 copies + 89.0 MiB (the MI scan over the session's pool); an
 # update 1.26 and 1.24 copies.  Rounded up.
-SELECT_COPIES = 1.25
-SELECT_FIXED_BYTES = 96 << 20
+SELECT_BUDGET = {"ital": (1.25, 96 << 20)}
+# Each other strategy's selection at the harness's settings, cap 64 and
+# 25 000 rows (chip_smoke.py phase 14): the measured rise plus 15 %,
+# rounded up to a quarter copy.  Every temporary of theirs grows with N, so
+# the whole rise counts in copies.  Measured, in copies: 1.07-1.13 for the
+# batch-independent scores, 1.21 ital_regression, 3.05 for the diversity
+# penalties' (N, cap) blocks, 13.09 emoc, 14.89 emoc_batch and 11.07
+# mcmi_min, most of these three their (N, block) blocks, which a program
+# holds once for all of its sessions (over 8 here).
+SELECT_BUDGET.update({
+    **dict.fromkeys(("random", "topscoring", "variance_sampling", "uncertainty_sampling",
+                     "borderline_sampling"), (1.25, 0)),
+    **dict.fromkeys(("entropy_sampling", "sud", "adapt_al", "ital_regression"), (1.5, 0)),
+    **dict.fromkeys(("borderline_diversity_sampling", "usdm", "tcal", "rbmal"), (3.75, 0)),
+    "emoc": (15.25, 0), "emoc_batch": (17.25, 0), "mcmi_min": (12.75, 0),
+})
 UPDATE_COPIES = 2
 # The default of ITAL_TPU_COHORT_STATE_BYTES, the device memory a stacked
 # program may take beyond the live sessions and the corpus: a tenth of the
@@ -131,8 +150,7 @@ def max_cohort_sessions(cap: int, n: int, copies: float, fixed_bytes: int = 0) -
     (on a mesh, one rank's shard) takes: the budget
     (``ITAL_TPU_COHORT_STATE_BYTES``, default :data:`COHORT_STATE_BYTES`)
     over ``copies`` (cap, n) f32 buffers plus ``fixed_bytes`` a session
-    (:data:`SELECT_COPIES` and :data:`SELECT_FIXED_BYTES`,
-    :data:`UPDATE_COPIES`)."""
+    (a strategy's :data:`SELECT_BUDGET` entry, :data:`UPDATE_COPIES`)."""
     budget = int(os.environ.get("ITAL_TPU_COHORT_STATE_BYTES", COHORT_STATE_BYTES))
     return max(1, int(budget // (copies * int(cap) * int(n) * 4 + fixed_bytes)))
 
@@ -359,8 +377,8 @@ class RetrievalService:
             )
             if not compatible or len(sessions) == 1:
                 return {sid: self._fetch_locked(sid, s, int(k)) for sid, s, _ in entries}
-            limit = self._max_cohort_sessions(sessions[0].state.cap, SELECT_COPIES,
-                                              SELECT_FIXED_BYTES)
+            limit = self._max_cohort_sessions(sessions[0].state.cap,
+                                              *SELECT_BUDGET[sessions[0].strategy_name])
             out: Dict[str, list] = {}
             for i in range(0, len(entries), limit):
                 out.update(self._select_cohort_locked(entries[i:i + limit], int(k)))
@@ -369,27 +387,31 @@ class RetrievalService:
             self._unlock_group(entries)
 
     def _select_cohort_locked(self, entries, k: int) -> Dict[str, list]:
-        """A compatible, locked group's selection: one stacked selection of
-        the group's sessions (per user model, which the stack shares), each
-        drawing from its own generator; on a mesh one sharded cohort
-        selection."""
+        """A compatible, locked group's selection: one stacked selection
+        program of the group's sessions, each drawing from its own
+        generator, with its own user model where they differ (the
+        reference's ``params_b``); on a mesh one sharded cohort selection
+        per user model, which the mesh's stack shares."""
+        if self._world is not None:
+            return self._mesh_select_cohort_locked(entries, k)
+        group = _by_hyper_group(entries)
+        sessions = [s for _, s, _ in group]
+        name = sessions[0].strategy_name
+        params = (sessions[0].params if len({s.params_key for s in sessions}) == 1
+                  else StrategyParams.stack([s.params for s in sessions]))
+        rows = get_stacked_strategy(name)(
+            [s.state for s in sessions], k, [s.generator for s in sessions], params,
+            **filter_method_kwargs(name, sessions[0].method_kwargs)).tolist()
+        return {sid: [int(i) for i in row] for (sid, _, _), row in zip(group, rows)}
+
+    def _mesh_select_cohort_locked(self, entries, k: int) -> Dict[str, list]:
         by_params: Dict[tuple, list] = {}
         for e in entries:
             by_params.setdefault(e[1].params_key, []).append(e)
         out: Dict[str, list] = {}
         for group in by_params.values():
-            sessions = [s for _, s, _ in group]
-            if self._world is not None:
-                rows = self._world.run(_mesh_cohort_select, [sid for sid, _, _ in group], k,
-                                       [s.generator.get_state() for s in sessions])
-            else:
-                group = _by_hyper_group(group)
-                sessions = [s for _, s, _ in group]
-                name = sessions[0].strategy_name
-                select = get_stacked_strategy(name)
-                rows = select([s.state for s in sessions], k, [s.generator for s in sessions],
-                              sessions[0].params,
-                              **filter_method_kwargs(name, sessions[0].method_kwargs)).tolist()
+            rows = self._world.run(_mesh_cohort_select, [sid for sid, _, _ in group], k,
+                                   [s.generator.get_state() for _, s, _ in group])
             out.update({sid: [int(i) for i in row] for (sid, _, _), row in zip(group, rows)})
         return out
 

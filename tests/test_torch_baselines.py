@@ -67,16 +67,19 @@ def states(request):
     return js, tgp.state_from_arrays(arrays, "cpu")
 
 
-def _spy_first_scores(monkeypatch, module, zeros):
-    """Record the t=0 scores every strategy of ``module`` hands its greedy loop."""
+def _spy_first_scores(monkeypatch, module, zeros, greedy="greedy_argmax_batch", stacked=False):
+    """Record the t=0 scores every strategy of ``module`` hands its greedy
+    loop (``greedy``; the port's is stacked, (K, N) scores of a stack of
+    one, whose row is recorded)."""
     seen = []
-    orig = module.greedy_argmax_batch
+    orig = getattr(module, greedy)
 
     def spy(score_fn, state, batch_size):
-        seen.append(np.asarray(score_fn(zeros(batch_size), 0)))
+        scores = score_fn(zeros(batch_size), 0)
+        seen.append(np.asarray(scores[0] if stacked else scores))
         return orig(score_fn, state, batch_size)
 
-    monkeypatch.setattr(module, "greedy_argmax_batch", spy)
+    monkeypatch.setattr(module, greedy, spy)
     return seen
 
 
@@ -96,7 +99,8 @@ def test_baseline_matches_jax(states, name, monkeypatch):
     j_scores = _spy_first_scores(monkeypatch, jbaselines,
                                  lambda b: jnp.zeros((b,), jnp.int32))
     t_scores = _spy_first_scores(monkeypatch, tbaselines,
-                                 lambda b: torch.zeros(b, dtype=torch.int64))
+                                 lambda b: torch.zeros((1, b), dtype=torch.int64),
+                                 greedy="greedy_argmax_stacked", stacked=True)
 
     want = np.asarray(JAX_STRATEGIES[name](js, BATCH, key, jparams))
     if name == "random":

@@ -459,7 +459,7 @@ def test_cohort_budget_chunks_with_the_same_results(monkeypatch):
     per = 32 * 120 * 4  # one (cap, N) f32 buffer
     monkeypatch.setenv("ITAL_TPU_COHORT_STATE_BYTES", str(int(2 * serve.UPDATE_COPIES * per)))
     assert svc._max_cohort_sessions(32, serve.UPDATE_COPIES) == 2
-    assert svc._max_cohort_sessions(32, serve.SELECT_COPIES, serve.SELECT_FIXED_BYTES) == 1
+    assert svc._max_cohort_sessions(32, *serve.SELECT_BUDGET["ital"]) == 1
     calls = _spy(monkeypatch, svc)
     _round(svc, cohort, twins, 0)
     assert len(calls["cohort"]) == 3 and calls["stacked"] == 3
@@ -473,7 +473,7 @@ def test_cohort_chunk_sizes_at_25k_and_1m_rows(monkeypatch, n, select, update):
     from ital_tpu_torch import serve
 
     monkeypatch.delenv("ITAL_TPU_COHORT_STATE_BYTES", raising=False)
-    assert serve.max_cohort_sessions(64, n, serve.SELECT_COPIES, serve.SELECT_FIXED_BYTES) == select
+    assert serve.max_cohort_sessions(64, n, *serve.SELECT_BUDGET["ital"]) == select
     assert serve.max_cohort_sessions(64, n, serve.UPDATE_COPIES) == update
 
 

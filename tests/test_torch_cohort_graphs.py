@@ -465,12 +465,15 @@ def test_cohort_programs_depend_on_group_sizes_not_order(surrogate, stand_in):
 
 def test_cohort_program_registry():
     """ITAL's selection registers a cohort program body, keyed by its static
-    options; a strategy without one gets None, an unknown one raises."""
+    options; so does every other strategy, keyed by its name and options;
+    an unknown one raises."""
     prog = base.cohort_program("ital", 4, MKW)
     assert prog.static == tuple(sorted(PRODUCTION_KW.items()))
     drawn = prog.draw([torch.Generator().manual_seed(1)] * 2, N, torch.float32, "cpu")
     assert drawn["subsample_uniforms"] is None and drawn["qmc_shifts"].shape == (2, 4, 4)
-    assert base.cohort_program("emoc", 4, {}) is None
+    emoc = base.cohort_program("emoc", 4, {})
+    assert emoc.static == ("emoc", ()) and emoc.draw([None] * 2, N, torch.float32, "cpu") == {}
+    assert set(base.COHORT_PROGRAMS) == set(base.STRATEGIES)
     with pytest.raises(KeyError, match="unknown strategy"):
         base.cohort_program("nope", 4, {})
 

@@ -263,6 +263,64 @@ def test_batch_select_density_sessions_batch():
     assert calls == [tuple(sorted(sids))]
 
 
+@pytest.mark.parametrize("strategy,mkw", [
+    ("ital", {"n_qmc": 32, "pool_size": 40, "refine_top": 8, "refine_n_qmc": 64}),
+    ("tcal", {}), ("random", {})])
+def test_batch_select_mixed_user_models_is_one_program(strategy, mkw, monkeypatch):
+    """Sessions with three user models form one compatible group: one
+    stacked selection program, whose batches are the K ``GET /batch``
+    batches of twins with the same histories and seeds."""
+    from ital_tpu_torch import graphs
+
+    svc = RetrievalService(_corpus(2), length_scale=2.5, noise=0.1, cap=32, strategy=strategy,
+                           method_kwargs=mkw, device="cpu")
+    srv, t, url = _serve(svc)
+    users = [{"label_prob": 0.9, "mistake_prob": 0.05}, {"label_prob": 0.7},
+             {"label_prob": 1.0, "mistake_prob": 0.2}]
+    try:
+        cohort, twins = [], []
+        for q, user in zip((3, 47, 85), users):
+            for out in (cohort, twins):
+                sid = _make(url, q, user)
+                _req(f"{url}/sessions/{sid}/feedback", "POST",
+                     {"labels": {str((q + 11) % 120): 1, str((q + 60) % 120): -1}})
+                out.append(sid)
+        calls = []
+        run = graphs.run
+        monkeypatch.setattr(graphs, "run", lambda name, *a, **kw: calls.append(name) or run(
+            name, *a, **kw))
+        code, r = _req(f"{url}/batch_select", "POST", {"session_ids": cohort, "k": 3})
+        assert code == 200 and calls == [f"select_{strategy}_stacked"]
+        for a, b in zip(cohort, twins):
+            code, single = _req(f"{url}/sessions/{b}/batch?k=3")
+            assert code == 200 and r["batches"][a] == single["batch"]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        t.join(timeout=30)
+
+
+def test_batch_select_chunks_by_each_strategys_budget(monkeypatch):
+    """A group is chunked by its strategy's own ``SELECT_BUDGET`` entry: at
+    a budget of 3.75 (cap, N) copies EMOC's 15.25 copies a session take one
+    session a program and topscoring's 1.25 three; the batches are the
+    per-session ones either way."""
+    svc = RetrievalService(_corpus(3), length_scale=2.5, noise=0.1, cap=32, device="cpu")
+    per = 32 * 120 * 4  # one (cap, N) f32 buffer
+    monkeypatch.setenv("ITAL_TPU_COHORT_STATE_BYTES", str(int(3.75 * per)))
+    for strategy, chunks in (("emoc", 3), ("topscoring", 1)):
+        sids = []
+        for q in (3, 47, 85):
+            sids.append(svc.create_session(strategy=strategy))
+            svc.set_query(sids[-1], q)
+            svc.feedback(sids[-1], {str((q + 11) % 120): 1, str((q + 60) % 120): -1})
+        singles = {sid: svc.next_batch(sid, 2) for sid in sids}
+        calls = _spy_cohorts(svc)
+        assert svc.next_batch_many(sids, 2) == singles
+        assert len(calls) == chunks
+        del svc._select_cohort_locked  # the spy
+
+
 def test_batch_feedback_empty_labels_is_noop(server):
     """An empty label dict in a cohort changes nothing and burns no slots."""
     s_empty, s_a, s_b = _make(server, 3), _make(server, 47), _make(server, 85)
