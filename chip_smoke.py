@@ -106,7 +106,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    rounds) through the runner with ``mesh_devices = 8``, which clamps to the
    card (a world of one on NCCL), beside the same configuration with
    ``mesh_devices = 0`` (uncounted: the baseline): picks agree round by round
-   up to MI ties (``MI_TIE_ATOL``) and the AP curves while they do.  The same
+   up to MI ties (``MI_TIE_ATOL``) and the AP curves while they do.  Then the
+   same configuration's per-round select and update as mesh programs
+   (``make_sharded_round``: a ``sharded_select`` and a ``sharded_absorb``
+   graph with their collectives inside) on one NCCL mesh of one, one session
+   in graphed, eager, eager, graphed turns: picks equal (else MI ties on the
+   eager state), AP and ``mu`` within ``GRAPH_MU_ATOL`` while they agree, the
+   first graphed turn capturing and the second none; select and update ms
+   of every turn and each program's captures, launches per replay and
+   static MiB.  The same
    for EMOC, MCMI[min] and SUD on the 25 000-row harness configuration (1
    class x 2 rounds), up to ``EMOC_TIE_RTOL``.  The kernel's launch count is
    reset before the sharded runs and must grow.  Select and update ms and
@@ -136,7 +144,18 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    (uncounted), which absorb the same answers (picks up to MI ties, each
    mean within ``CPU_MU_ATOL`` of its twin's), then ``/ranking``, ``/learn``
    (against the twin's within ``LEARN_RTOL``) and ``/snapshot`` ->
-   ``/restore``; the service is closed before the phase ends.  The launch
+   ``/restore``; the service is closed before the phase ends.  Each mesh
+   program is also held to ``graphs.eager()`` in graphed, eager, eager,
+   graphed turns on one NCCL mesh of one (the first graphed turn captures,
+   the second replays): the fused session (``FUSED_SESSIONS`` a turn) and
+   the fused cohort of 4 at 100 000 rows (picks and curves equal to eager,
+   else MI ties on the per-round path's state); EMOC's mesh cohort selection
+   of 4 at 25 000 rows as one stacked program against four single
+   programs (picks up to EMOC ties); on the mesh service ``GET /batch``,
+   ``/feedback`` (means within ``GRAPH_MU_ATOL``) and a ``/batch_select`` of
+   8 sessions of two user models as one program against one per user model
+   (picks up to MI ties), with the device's busy share of three replayed
+   and three eager fetches (``torch.profiler``).  The launch
    count is reset before the mesh runs and must grow in every mesh request
    that forms RBF blocks; each request kind's host latency (device
    synchronized), launches and device memory peak, and each mode's cohort
@@ -228,7 +247,8 @@ the main paths in all, per route and per path, its bound, its time and the
 plain version's, and its times at the 100 000-row shapes, at the mesh
 cohort's stacked shard shapes, at the large-cap refit's shapes and at the
 ascent's (64, 64, 512) block with its launches per ``/learn``, at the
-strategies' blocks, and each strategy program's launches per replay); the
+strategies' blocks, and each mesh and strategy program's launches per
+replay); the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -317,6 +337,10 @@ RING_OVERRIDES = HARNESS_OVERRIDES + ("EXPERIMENT.n_rounds=2",)
 MESH_OVERRIDES = ("EXPERIMENT.max_classes=2", "EXPERIMENT.queries_per_class=2",
                   "EXPERIMENT.n_rounds=3")
 MESH_QB = 4
+# The mesh programs graphed against eager (phases 9 and 10): fused sessions
+# a turn, and the second user model of the mixed /batch_select of 8.
+FUSED_SESSIONS = 2
+MIXED_LABEL_PROB, MIXED_MISTAKE_PROB = 0.95, 0.02
 # Phase 11: the reference's own large-cap record (scripts/record_bigcap_session.py
 # with the fast selection of results/bigcap_session_100k_fastsel.json).
 BIGCAP_OVERRIDES = SCALE_OVERRIDES + (
@@ -1784,6 +1808,7 @@ def sharded_phase(torch, ds, cfg, dev, smi: str, rise25: dict) -> dict:
               f"{r['first_round_ms']:.1f} ms; device memory peak {r['peak_mib']:.1f} MiB [{smi}]")
     print(f"sharded scale100k: first round whose picks differ, per session: {res['apart']} of "
           f"{scale.n_rounds}; launches {rbf_hopper.LAUNCHES}")
+    per_replay = _mesh_round_turns(torch, big, scale, dev, smi)
 
     base = load_config(str(HARNESS_CONFIG), RING_OVERRIDES)
     for method in RING_METHODS:
@@ -1813,7 +1838,7 @@ def sharded_phase(torch, ds, cfg, dev, smi: str, rise25: dict) -> dict:
               f"{rise100['batch_feedback'] / 2**20:.2f} MiB at {big.n} [{smi}]")
     _check_budget(rise100, CAP, big.n)
     print(f"sharded phase: {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": launches, "shapes": shapes, "big": big}
+    return {"launches": launches, "shapes": shapes, "big": big, "per_replay": per_replay}
 
 
 def _fit_budget(r_a: dict, n_a: int, r_b: dict, n_b: int, cap: int) -> dict:
@@ -1873,36 +1898,6 @@ def _big_kernel_times(torch, big, scale, dev, smi: str) -> list:
          {"b2": x2}) for m in (CAP, 4)], ls, var, smi)
 
 
-@contextlib.contextmanager
-def _record_mesh_picks(record: list):
-    """Append the (K, b) picks of each selection of the mesh's fused and
-    cohort programs (one session's picks as K = 1) to ``record``."""
-    from ital_tpu_torch.parallel import sharded
-
-    orig = {name: getattr(sharded, name)
-            for name in ("make_sharded_select", "make_sharded_cohort_select")}
-
-    def wrap(make):
-        def made(*args, **kwargs):
-            select = make(*args, **kwargs)
-
-            def watched(*a, **kw):
-                out = select(*a, **kw)
-                record.append(out.reshape(-1, out.shape[-1]).tolist())
-                return out
-
-            return watched
-        return made
-
-    for name, make in orig.items():
-        setattr(sharded, name, wrap(make))
-    try:
-        yield
-    finally:
-        for name, make in orig.items():
-            setattr(sharded, name, make)
-
-
 def _per_session(calls: list, n_sessions: int, rounds: int, cohort: bool) -> list:
     """``[session][round]`` picks from the calls of a cohort (call r: round r
     of every session) or of sessions run one after another."""
@@ -1928,7 +1923,7 @@ def _mesh_vs_single(torch, big, scale, dev, mode: str, change: dict, smi: str) -
 
     cohort = change.get("query_batch", 0) > 1
     per_round = {k: v for k, v in change.items() if k != "fused_sessions"}
-    record, mesh_calls, res = [], [], {}
+    record, res = [], {}
     for run, mesh in (("single", 0), ("mesh", 8)):
         cfg = dataclasses.replace(scale, mesh_devices=mesh, **(per_round if run == "single"
                                                                 else change))
@@ -1938,7 +1933,7 @@ def _mesh_vs_single(torch, big, scale, dev, mode: str, change: dict, smi: str) -
         with (_uncounted() if run == "single" else contextlib.nullcontext()), \
                 ((_record_cohort_programs(record, keep_stacks=True) if cohort
                   else _record_serial("ital", record)) if run == "single"
-                 else _record_mesh_picks(mesh_calls)):
+                 else contextlib.nullcontext()):
             res[run] = runner.run_experiment(cfg, big, device=dev)
         torch.cuda.synchronize()
         res[run]["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
@@ -1954,7 +1949,7 @@ def _mesh_vs_single(torch, big, scale, dev, mode: str, change: dict, smi: str) -
         serial_calls = [([state], [batch]) for state, batch in record]
     single = _per_session([c[1] for c in serial_calls], n_sess, rounds, cohort)
     states = _per_session([c[0] for c in serial_calls], n_sess, rounds, cohort)
-    on_mesh = _per_session(mesh_calls, n_sess, rounds, cohort)
+    on_mesh = [res["mesh"]["picks"][k].tolist() for k in range(n_sess)]
     params = StrategyParams.create(dev, label_prob=scale.user.label_prob,
                                    mistake_prob=scale.user.mistake_prob)
     apart = []
@@ -2038,14 +2033,16 @@ def _kernel_shapes(torch, what: str, shapes, ls, var, smi: str) -> list:
     return out
 
 
-def _mesh_service(torch, big, cfg, dev, smi: str) -> None:
+def _mesh_service(torch, big, cfg, dev, smi: str) -> dict:
     """The mesh service (a mesh of one card, NCCL) over ``big`` at the
     production selection options: ``COHORT_K`` ITAL sessions through
     ``/batch_select`` and ``/batch_feedback`` for ``SERVE_ROUNDS`` rounds,
     beside twins on a single-device service served one request at a time
     (uncounted), which absorb the same answers; then ``/ranking``,
-    ``/learn`` (against the twin's) and ``/snapshot`` -> ``/restore``.
-    Closes the service, and its process group, before it returns."""
+    ``/learn`` (against the twin's) and ``/snapshot`` -> ``/restore``;
+    before ``/ranking``, the mesh programs against eager
+    (:func:`_mesh_service_turns`).  Closes the service, and its process
+    group, before it returns the programs' launches per replay."""
     from ital_tpu_torch import serve
     from ital_tpu_torch.ops import rbf_hopper
 
@@ -2115,6 +2112,7 @@ def _mesh_service(torch, big, cfg, dev, smi: str) -> None:
                       f"mesh serve round {r}: labeled {got[a]} {alone}")
                 check(err <= CPU_MU_ATOL, f"mesh serve round {r}: mu within {CPU_MU_ATOL} "
                                           f"of the twin's ({err})")
+        per_replay = _mesh_service_turns(torch, mesh, cfg, queries, user, smi)
         a, b = cohort[0], twins[0]
         ranked = timed("ranking", lambda: mesh.ranking(a, 20))
         with _uncounted():
@@ -2144,16 +2142,390 @@ def _mesh_service(torch, big, cfg, dev, smi: str) -> None:
               f"{min(ms):.3f} max {max(ms):.3f}; kernel launches per request "
               f"{min(launches[kind])}-{max(launches[kind])}; device memory peak "
               f"{peaks[kind] / 2**20:.1f} MiB [{smi}]")
+    return per_replay
 
 
 def _mesh_scores(ctx, sid):
     return ctx.sessions[sid].scores()
 
 
-def mesh_phase(torch, big, cfg, dev, smi: str) -> dict:
+def _mesh_turns(torch, run, what: str) -> list:
+    """``run(mode)`` in graphed, eager, eager, graphed turns; each turn's
+    result gains the programs it captured (``graphs.captures()``)."""
+    from ital_tpu_torch import graphs
+
+    out = []
+    for mode in GRAPH_TURNS:
+        c0 = graphs.captures()
+        res = run(mode)
+        res["mode"], res["captures"] = mode, graphs.captures() - c0
+        out.append(res)
+    check(out[0]["captures"] > 0 and out[3]["captures"] == 0 and out[1]["captures"] == 0,
+          f"{what}: the first graphed turn captures, the second replays "
+          f"({[t['captures'] for t in out]})")
+    return out
+
+
+def _mesh_launches(progs: list, what: str) -> dict:
+    """Kernel launches per replay of each mesh program, keyed ``what`` and
+    its name (the largest, where a name has several signatures)."""
+    out: dict = {}
+    for p in progs:
+        if p.mesh is not None:
+            key = f"{what}: {p.name}"
+            out[key] = max(out.get(key, 0), sum(p.launches.values()))
+    return out
+
+
+def _ms(values) -> str:
+    return f"{np.median(values):.3f} (min {min(values):.3f}, max {max(values):.3f})"
+
+
+def _mesh_round_turns(torch, big, scale, dev, smi: str) -> dict:
+    """scale100k's per-round select and update as mesh programs on a NCCL
+    mesh of one, one session of ``scale.n_rounds`` rounds in graphed, eager,
+    eager, graphed turns on one mesh: picks equal round by round (else MI
+    ties on the eager state), AP and ``mu`` within ``GRAPH_MU_ATOL`` while
+    they agree; synchronized select and update ms of every turn; each
+    program's captures, launches per replay and held MiB.  Returns the
+    programs' launches per replay."""
+    from ital_tpu_torch import runner
+    from ital_tpu_torch.models import gp as gp_mod
+    from ital_tpu_torch.parallel import make_mesh, sharded
+    from ital_tpu_torch.select.base import StrategyParams
+    from ital_tpu_torch.utils.logging import Timer
+
+    rng = np.random.default_rng(SEED + 29)
+    cls = int(rng.choice(big.classes))
+    q = int(big.queries_for_class(cls, rng, 1)[0])
+    b, kw = scale.batch_size, scale.method_kwargs
+    with make_mesh(1, device=dev) as mesh:
+        known = _known_programs()
+        # A world of one's shard is the whole corpus.
+        state0 = gp_mod.gp_init(torch.from_numpy(big.x).to(dev), scale.gp.length_scale,
+                                scale.gp.var, scale.gp.noise, scale.cap,
+                                corpus_dtype=scale.gp.corpus_dtype or None)
+        params = StrategyParams.create(dev, label_prob=scale.user.label_prob,
+                                       mistake_prob=scale.user.mistake_prob)
+        relevant = torch.from_numpy(np.ascontiguousarray(big.relevance[:, cls])).to(dev)
+        sel_forbid, exclude = sharded.make_masks(big.n, big.n, q, dev)
+        round_fn = sharded.make_sharded_round(mesh, strategy=scale.method, batch_size=b, **kw)
+        set_query = sharded.make_sharded_set_query(mesh)
+
+        def session(mode):
+            timer, out = Timer(dev), {"picks": [], "ap": [], "mu": [], "before": []}
+            with _graphed_or_eager(mode):
+                st = set_query(gp_mod.gp_session_copy(state0), q)
+                for r in range(scale.n_rounds):
+                    out["before"].append(gp_mod.gp_session_copy(st))
+                    draws = runner.round_draws(scale.seed, 0, cls, q, r, b, dev)
+                    st, batch, ap, _ = round_fn(st, *draws, relevant, sel_forbid, exclude, params,
+                                                timer=timer, n_real=big.n)
+                    out["picks"].append(batch.tolist())
+                    out["ap"].append(float(ap))
+                    out["mu"].append(st.mu.clone())
+            out.update({f"{s}_ms": [v * 1e3 for v in timer.values[s]] for s in ("select", "update")})
+            return out
+
+        turns = _mesh_turns(torch, session, "mesh round")
+        eager = turns[1]
+        check(turns[2]["picks"] == eager["picks"], "mesh round: the eager turns agree")
+        for t in (turns[0], turns[3]):
+            for r, (gp, ep) in enumerate(zip(t["picks"], eager["picks"])):
+                if gp != ep:
+                    with _uncounted():
+                        gaps = _mi_gaps(torch, eager["before"][r], params, kw, gp)
+                    print(f"mesh round: round {r} graphed {gp} eager {ep}; MI gaps on the eager "
+                          f"state {gaps}")
+                    check(all(0 <= g <= MI_TIE_ATOL for g in gaps),
+                          "mesh round: graphed and eager picks differ only by MI ties")
+                    break
+                err = float((t["mu"][r] - eager["mu"][r]).abs().max())
+                check(err <= GRAPH_MU_ATOL and abs(t["ap"][r] - eager["ap"][r]) <= 1e-6,
+                      f"mesh round {r}: graphed mu and AP within {GRAPH_MU_ATOL} of eager ({err})")
+        for t in turns:
+            print(f"mesh round {t['mode']} (scale100k, {big.n} x {big.x.shape[1]}, world of 1 on "
+                  f"NCCL): select ms {_ms(t['select_ms'])}; update ms {_ms(t['update_ms'])}; "
+                  f"captures {t['captures']}; picks {t['picks']} [{smi}]")
+        progs = _phase_programs(known)
+        _print_programs(progs, known, "mesh round", smi)
+        return _mesh_launches(progs, "scale100k round")
+
+
+def _mesh_plan(big, k: int, seed: int) -> list:
+    """``k`` (rep, class, query) sessions, two queries per class."""
+    rng = np.random.default_rng(seed)
+    classes = [int(c) for c in rng.choice(big.classes, k // 2, replace=False)]
+    return [(0, c, int(q)) for c in classes for q in big.queries_for_class(c, rng, 2)]
+
+
+def _fused_gaps(torch, mesh, state0, cfg, plan_k, params, masks, picks, r) -> list:
+    """MI gaps of a fused program's round-``r`` picks on the state the
+    per-round mesh path (eager, uncounted) reaches from the same draws."""
+    from ital_tpu_torch import graphs, runner
+    from ital_tpu_torch.models import gp as gp_mod
+    from ital_tpu_torch.parallel import sharded
+
+    _, c, q = plan_k
+    round_fn = sharded.make_sharded_round(mesh, strategy=cfg.method, batch_size=cfg.batch_size,
+                                          **cfg.method_kwargs)
+    with _uncounted(), graphs.eager():
+        st = sharded.make_sharded_set_query(mesh)(gp_mod.gp_session_copy(state0), q)
+        for rnd in range(r):
+            draws = runner.round_draws(cfg.seed, 0, c, q, rnd, cfg.batch_size, state0.mu.device)
+            st = round_fn(st, *draws, *masks, params)[0]
+        return _mi_gaps(torch, st, params, cfg.method_kwargs, picks)
+
+
+def _mesh_fused_turns(torch, big, scale, dev, smi: str) -> dict:
+    """The fused session and the fused cohort of ``MESH_QB`` as mesh programs
+    (``make_sharded_session`` / ``make_sharded_cohort``) on a NCCL mesh of
+    one over scale100k, ``MESH_QB`` sessions of ``scale.n_rounds`` rounds,
+    in graphed, eager, eager, graphed turns on one mesh: picks and curves
+    equal to eager (else MI ties on the per-round path's state); each
+    turn's synchronized ms; each program's captures, launches per replay
+    and held MiB.  Returns the programs' launches per replay."""
+    from ital_tpu_torch import runner
+    from ital_tpu_torch.models import gp as gp_mod
+    from ital_tpu_torch.parallel import make_mesh, sharded
+    from ital_tpu_torch.select.base import StrategyParams
+
+    plan = _mesh_plan(big, MESH_QB, SEED + 31)
+    b, n, kw = scale.batch_size, big.n, scale.method_kwargs
+    opts = dict(strategy=scale.method, batch_size=b, n_rounds=scale.n_rounds, **kw)
+    with make_mesh(1, device=dev) as mesh:
+        known = _known_programs()
+        state0 = gp_mod.gp_init(torch.from_numpy(big.x).to(dev), scale.gp.length_scale,
+                                scale.gp.var, scale.gp.noise, scale.cap,
+                                corpus_dtype=scale.gp.corpus_dtype or None)
+        params = StrategyParams.create(dev, label_prob=scale.user.label_prob,
+                                       mistake_prob=scale.user.mistake_prob)
+        relevant = torch.from_numpy(np.stack([big.relevance[:, c] for _, c, _ in plan])).to(dev)
+        pad = torch.zeros(n, dtype=torch.bool, device=dev)
+        exclude = torch.stack([sharded.make_masks(n, n, q, dev)[1] for *_, q in plan])
+        set_query = sharded.make_sharded_set_query(mesh)
+        session = sharded.make_sharded_session(mesh, **opts)
+        cohort = sharded.make_sharded_cohort(mesh, **opts)
+
+        def queried():
+            return [set_query(gp_mod.gp_session_copy(state0), q) for *_, q in plan]
+
+        def run_sessions(mode):
+            out = {"aps": [], "picks": [], "ms": []}
+            with _graphed_or_eager(mode):
+                for k, (rep, c, q) in enumerate(plan[:FUSED_SESSIONS]):
+                    st = set_query(gp_mod.gp_session_copy(state0), q)
+                    draws = [runner.round_draws(scale.seed, rep, c, q, r, b, dev)
+                             for r in range(scale.n_rounds)]
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    _, aps, picks = session(st, draws, relevant[k], pad, exclude[k], params,
+                                            picks=True)
+                    torch.cuda.synchronize()
+                    out["ms"].append((time.perf_counter() - t0) * 1e3)
+                    out["aps"].append(aps.tolist())
+                    out["picks"].append(picks.tolist())
+            return out
+
+        def run_cohort(mode):
+            with _graphed_or_eager(mode):
+                st = gp_mod.stack_states(queried())
+                draws = [runner._cohort_draws(scale, plan, r, dev) for r in range(scale.n_rounds)]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, aps, picks = cohort(st, draws, relevant, pad, exclude, params, picks=True)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            return {"aps": aps.tolist(), "picks": picks.transpose(0, 1).tolist(), "ms": [ms]}
+
+        for what, run in (("fused session", run_sessions), (f"fused cohort of {MESH_QB}",
+                                                             run_cohort)):
+            turns = _mesh_turns(torch, run, f"mesh {what}")
+            eager = turns[1]
+            check(turns[2]["picks"] == eager["picks"], f"mesh {what}: the eager turns agree")
+            for t in (turns[0], turns[3]):
+                for k, (gk, ek) in enumerate(zip(t["picks"], eager["picks"])):
+                    r = next((r for r in range(len(gk)) if gk[r] != ek[r]), len(gk))
+                    if r < len(gk):
+                        gaps = _fused_gaps(torch, mesh, state0, scale, plan[k], params,
+                                           (relevant[k], pad, exclude[k]), gk[r], r)
+                        print(f"mesh {what} session {k}: round {r} graphed {gk[r]} eager {ek[r]};"
+                              f" MI gaps on the per-round state {gaps}")
+                        check(all(0 <= g <= MI_TIE_ATOL for g in gaps),
+                              f"mesh {what}: graphed and eager picks differ only by MI ties")
+                    check(np.abs(np.asarray(t["aps"][k][:r]) - np.asarray(eager["aps"][k][:r]))
+                          .max(initial=0.0) <= 1e-6, f"mesh {what}: curves agree with eager")
+            for t in turns:
+                print(f"mesh {what} {t['mode']} (scale100k, {scale.n_rounds} rounds): ms "
+                      f"{_ms(t['ms'])} a call; captures {t['captures']} [{smi}]")
+        progs = _phase_programs(known)
+        _print_programs(progs, known, "mesh fused", smi)
+        return _mesh_launches(progs, "scale100k fused")
+
+
+def _mesh_ring_cohort(torch, ds, dev, smi: str) -> dict:
+    """EMOC's mesh cohort selection of ``MESH_QB`` sessions as one stacked
+    program (the ring's blocks shared by the sessions) against
+    ``MESH_QB`` single mesh selections, each graphed and eager in turns, on
+    a NCCL mesh of one over the 25 000-row harness corpus: equal picks (else
+    EMOC ties on the session's state); synchronized ms and the programs'
+    launches per replay."""
+    from ital_tpu_torch.models import gp as gp_mod
+    from ital_tpu_torch.parallel import make_mesh, sharded
+    from ital_tpu_torch.select.base import StrategyParams
+    from ital_tpu_torch.utils.config import load_config
+
+    base = load_config(str(HARNESS_CONFIG), RING_OVERRIDES)
+    plan = _mesh_plan(ds, MESH_QB, SEED + 37)
+    n, b = ds.n, base.batch_size
+    with make_mesh(1, device=dev) as mesh:
+        known = _known_programs()
+        state0 = gp_mod.gp_init(torch.from_numpy(ds.x).to(dev), base.gp.length_scale,
+                                base.gp.var, base.gp.noise, base.cap)
+        set_query = sharded.make_sharded_set_query(mesh)
+        states = [set_query(gp_mod.gp_session_copy(state0), q) for *_, q in plan]
+        params = StrategyParams.create(dev, label_prob=base.user.label_prob,
+                                       mistake_prob=base.user.mistake_prob)
+        pad = torch.zeros(n, dtype=torch.bool, device=dev)
+        stacked = sharded.make_sharded_cohort_select(mesh, strategy="emoc", batch_size=b)
+        single = sharded.make_sharded_select(mesh, strategy="emoc", batch_size=b)
+        forms = {
+            "one stacked program": lambda: stacked(states, [None] * len(states), pad, params,
+                                                   n_real=n),
+            f"{len(states)} single programs": lambda: torch.stack(
+                [single(s, None, pad, params, n_real=n) for s in states])}
+        picks = {}
+        for what, fn in forms.items():
+            def run(mode, fn=fn):
+                with _graphed_or_eager(mode):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = fn()
+                    torch.cuda.synchronize()
+                return {"picks": out.tolist(), "ms": [(time.perf_counter() - t0) * 1e3]}
+
+            turns = _mesh_turns(torch, run, f"mesh ring cohort, {what}")
+            picks[what] = [t["picks"] for t in turns]
+            print(f"mesh ring cohort emoc ({n} x {ds.x.shape[1]}, K = {len(states)}), {what}: "
+                  + "; ".join(f"{t['mode']} {t['ms'][0]:.3f} ms" for t in turns) + f" [{smi}]")
+        progs = _phase_programs(known)
+        _print_programs(progs, known, "mesh ring cohort", smi)
+        launches = _mesh_launches(progs, "emoc cohort")
+    # _ring_gaps scores on a mesh of its own: after this one is closed.
+    want = picks[f"{len(states)} single programs"][1]
+    for what, runs in picks.items():
+        for got in runs:
+            for k, (g, w) in enumerate(zip(got, want)):
+                if g != w:
+                    with _uncounted():
+                        gaps = _ring_gaps(torch, "emoc", states[k], params, g)
+                    print(f"mesh ring cohort {what} session {k}: {g}, eager single {w}; "
+                          f"relative gaps {gaps}")
+                    check(all(x <= EMOC_TIE_RTOL for x in gaps),
+                          "mesh ring cohort: picks differ only by EMOC ties")
+    return launches
+
+
+def _mesh_service_turns(torch, svc, cfg, queries, user, smi: str) -> dict:
+    """On the mesh service (a world of one, NCCL): ``GET /batch`` and
+    ``/feedback``, each graphed and eager in turns, and a ``/batch_select``
+    of ``COHORT_K`` sessions of two user models as one program against one
+    per user model (the split the service made before), each graphed and
+    eager in turns: equal picks (else MI ties on the session's state), means
+    within ``GRAPH_MU_ATOL``; synchronized ms; the device's busy share of a
+    replayed fetch and of an eager one (``torch.profiler``).  Returns the
+    programs' launches per replay."""
+    known = _known_programs()
+    models = ({"label_prob": cfg.user.label_prob, "mistake_prob": cfg.user.mistake_prob},
+              {"label_prob": MIXED_LABEL_PROB, "mistake_prob": MIXED_MISTAKE_PROB})
+    sids = []
+    for j, (q, _) in enumerate(queries):
+        sids.append(svc.create_session(**models[j % 2]))
+        svc.set_query(sids[-1], q)
+    sess = {sid: svc._entry(sid)[0] for sid in sids}
+    saved = {sid: s.generator.get_state() for sid, s in sess.items()}
+    kw = dict(cfg.method_kwargs)
+
+    def timed(mode, fn):
+        with _graphed_or_eager(mode):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+        return out, [(time.perf_counter() - t0) * 1e3]
+
+    def batch_select(groups):
+        def run(mode):
+            for sid, s in sess.items():
+                s.generator.set_state(saved[sid])
+            out, ms = timed(mode, lambda: {k: v for g in groups
+                                           for k, v in svc.next_batch_many(g, SERVE_K).items()})
+            return {"picks": [out[s] for s in sids], "ms": ms}
+        return run
+
+    forms = {"one program": [sids], "one program per user model": [sids[0::2], sids[1::2]]}
+    runs = {}
+    for what, groups in forms.items():
+        runs[what] = _mesh_turns(torch, batch_select(groups), f"mesh /batch_select, {what}")
+        print(f"mesh serve /batch_select of {len(sids)} (two user models), {what}: "
+              + "; ".join(f"{t['mode']} {t['ms'][0]:.3f} ms" for t in runs[what]) + f" [{smi}]")
+    want = runs["one program"][1]["picks"]
+    for what, turns in runs.items():
+        for t in turns:
+            for j, (g, w) in enumerate(zip(t["picks"], want)):
+                if g != w:
+                    with _uncounted():
+                        gaps = _tie_gaps(sess[sids[j]], g, kw)
+                    print(f"mesh /batch_select {what} {t['mode']} session {j}: {g}, eager one "
+                          f"program {w}; refined-MI gaps {gaps}")
+                    check(all(abs(x) <= MI_TIE_ATOL for x in gaps),
+                          "mesh /batch_select: picks differ only by MI ties")
+
+    first = sess[sids[0]]
+
+    def fetch(mode):
+        first.generator.set_state(saved[sids[0]])
+        out, ms = timed(mode, lambda: svc.next_batch(sids[0], SERVE_K))
+        return {"picks": out, "ms": ms}
+
+    fetches = _mesh_turns(torch, fetch, "mesh GET /batch")
+    check(all(t["picks"] == fetches[1]["picks"] for t in fetches),
+          f"mesh GET /batch: graphed picks equal eager ({[t['picks'] for t in fetches]})")
+    fb_sids = [svc.create_session() for _ in GRAPH_TURNS]
+    for sid in fb_sids:
+        svc.set_query(sid, queries[0][0])
+    answers = user(fetches[1]["picks"], queries[0][1])
+    order = iter(fb_sids)
+
+    def feedback(mode):
+        sid = next(order)
+        _, ms = timed(mode, lambda: svc.feedback(sid, answers))
+        with _uncounted():
+            return {"mu": svc._world.run(_mesh_scores, sid), "ms": ms}
+
+    fbs = _mesh_turns(torch, feedback, "mesh /feedback")
+    err = max(float(np.abs(t["mu"] - fbs[1]["mu"]).max()) for t in fbs)
+    check(err <= GRAPH_MU_ATOL, f"mesh /feedback: graphed mu within {GRAPH_MU_ATOL} of eager "
+                                f"({err})")
+    for what, turns in (("GET /batch", fetches), ("/feedback", fbs)):
+        print(f"mesh serve {what}: " + "; ".join(f"{t['mode']} {t['ms'][0]:.3f} ms"
+                                                 for t in turns) + f" [{smi}]")
+    busy = {}
+    for mode in ("graphed", "eager"):
+        with _graphed_or_eager(mode):
+            busy[mode] = _device_profile(torch, lambda: first.fetch_unlabelled(SERVE_K))
+    print("mesh serve fetch device busy share (torch.profiler, 3 fetches): " + "; ".join(
+        f"{m} {'not measured' if b is None else f'{b * 100:.1f} %'}, {ops:.0f} device "
+        f"operations a fetch" for m, (b, ops) in busy.items()) + f" [{smi}]")
+    progs = _phase_programs(known)
+    _print_programs(progs, known, "mesh serve", smi)
+    return _mesh_launches(progs, "production serve")
+
+
+def mesh_phase(torch, ds, big, cfg, dev, smi: str) -> dict:
     """Phase 10: the mesh's fused and cohort programs and the mesh service;
-    returns the mesh path's launches by route and the kernel's times at the
-    stacked shard shapes."""
+    returns the mesh path's launches by route, the kernel's times at the
+    stacked shard shapes and the mesh programs' launches per replay."""
     from ital_tpu_torch import runner
     from ital_tpu_torch.ops import rbf_hopper
     from ital_tpu_torch.utils.config import load_config
@@ -2166,6 +2538,8 @@ def mesh_phase(torch, big, cfg, dev, smi: str) -> dict:
     for mode, change in (("query_batch+fused", {"query_batch": MESH_QB, "fused_sessions": True}),
                          ("fused", {"fused_sessions": True})):
         _mesh_vs_single(torch, big, scale, dev, mode, change, smi)
+    per_replay = _mesh_fused_turns(torch, big, scale, dev, smi)
+    per_replay.update(_mesh_ring_cohort(torch, ds, dev, smi))
     if torch.cuda.device_count() >= 2:
         with _uncounted():
             two = runner.run_experiment(dataclasses.replace(
@@ -2177,10 +2551,11 @@ def mesh_phase(torch, big, cfg, dev, smi: str) -> dict:
               f"[{smi}]")
     else:
         print(f"mesh: a world of 2 on NCCL did not run ({torch.cuda.device_count()} card)")
-    _mesh_service(torch, big, cfg, dev, smi)
+    per_replay.update(_mesh_service(torch, big, cfg, dev, smi))
     check(rbf_hopper.LAUNCHES > 0, "the kernel launched on the mesh programs")
     print(f"mesh phase: {time.perf_counter() - t_phase:.1f} s; launches {rbf_hopper.LAUNCHES}")
-    return {"launches": dict(rbf_hopper.ROUTE_LAUNCHES), "shapes": shapes}
+    return {"launches": dict(rbf_hopper.ROUTE_LAUNCHES), "shapes": shapes,
+            "per_replay": per_replay}
 
 
 @contextlib.contextmanager
@@ -3339,7 +3714,7 @@ def main() -> int:
     cohort, rise25 = cohort_phase(torch, ds, cfg, torch.device("cuda"), smi)
     clock("cohort")
     shard = sharded_phase(torch, ds, cfg, torch.device("cuda"), smi, rise25)
-    mesh = mesh_phase(torch, shard["big"], cfg, torch.device("cuda"), smi)
+    mesh = mesh_phase(torch, ds, shard["big"], cfg, torch.device("cuda"), smi)
     large = bigcap_phase(torch, shard["big"], torch.device("cuda"), smi)
     clock("sharded, mesh and large cap")
     graphed = graphs_phase(torch, ds, cfg, torch.device("cuda"), smi)
@@ -3388,6 +3763,8 @@ def main() -> int:
         # The blocks the strategies' programs launch, and each program's
         # launches per replay (fetch, /batch_select of 8, fused cohort).
         "shapes_strategies": strategies["shapes"],
+        # Each mesh program's launches per replay at its shapes (phases 9-10).
+        "launches_per_replay_mesh": {**shard["per_replay"], **mesh["per_replay"]},
         "launches_per_replay_strategies": {
             name: {**r["launches"], "fused_cohort": r["fused"]["launches"]}
             for name, r in strategies["by_strategy"].items()},

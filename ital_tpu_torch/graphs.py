@@ -49,6 +49,26 @@ K tensors after the checks.  Such programs hold their stacks for as long as
 they live, so together they keep at most :data:`STACK_BYTES` of static
 buffers: capturing one more first releases the least recently used.
 
+A program on a corpus mesh (``run(..., mesh=mesh)``, the reference's
+``jax.jit(shard_map(...))``) calls ``torch.distributed`` collectives on the
+mesh's group inside its body, and on the card its graph holds them.  Every
+rank runs the same body on its shard, and every rank must capture, replay
+and release the same programs in the same order: a rank that warms up and
+captures (which runs the collectives) while its peer replays deadlocks both.
+So a mesh program's choices depend only on the calls the ranks make alike:
+its key holds the mesh, it holds the tensors it shares (no other tensor can
+come to their addresses while it lives, so no rank finds it by a dead
+tensor's address while another captures anew), the garbage collector never
+releases it, and its stacks count against :data:`STACK_BYTES` with its own
+mesh's programs only.  :func:`release_mesh` (``Mesh.close``) releases a
+mesh's programs before its communicator goes, so no graph outlives it.  The
+warm-up before a capture runs the collectives once, which sets up any
+communicator that starts lazily (the ring's point-to-point pairs).  A check
+of a mesh program (:func:`check_after`) reads values every rank holds alike,
+so it fails on every rank alike; the exception it raises is marked
+(:func:`uniform_failure`), which tells a mesh service that the ranks are
+still in step.
+
 On the CPU, and on the card inside :func:`eager` (the counterpart of
 ``jax.disable_jit``), a call runs its body eagerly on the caller's tensors.
 On the card a capture or replay error raises; nothing falls back to the
@@ -69,7 +89,7 @@ import torch
 
 from ital_tpu_torch.ops import rbf_hopper
 
-# (name, static, device, inputs' layouts, shared tensors' addresses, precision) -> Program
+# (name, static, device, inputs' layouts, shared tensors' addresses, precision, mesh) -> Program
 _PROGRAMS: dict = {}
 _LOCK = threading.RLock()  # every program's capture, copy-in, replay and copy-out
 _POOL: list = []  # the one memory pool of every program, made at the first capture
@@ -115,12 +135,15 @@ class Program:
     last_used: int = 0
     stacks: bool = False  # holds a stack of sessions' buffers (a list input)
     done: Any = None  # CUDA event after the last call's copy-out
+    mesh: Optional[int] = None  # the uid of the mesh whose collectives it holds
+    pinned: tuple = ()  # a mesh program's shared tensors, held while it lives
 
     def release(self) -> None:
         """Drop the graph and the static buffers, once the last call is done."""
         if self.done is not None:
             self.done.synchronize()
         self.graph, self.inputs, self.outputs, self.checks = None, {}, (), []
+        self.pinned = ()
 
 
 @contextlib.contextmanager
@@ -158,9 +181,25 @@ def check_after(value: torch.Tensor, check: Callable[[torch.Tensor], None]) -> N
     ``value`` to the host cannot run inside a graph."""
     pending = getattr(_LOCAL, "pending", None)
     if pending is None:
-        check(value)
+        _checked(check, value)
     else:
         pending.append((value, check))
+
+
+def _checked(check: Callable[[torch.Tensor], None], value: torch.Tensor) -> None:
+    """``check(value)``; an exception it raises is marked as a check's."""
+    try:
+        check(value)
+    except Exception as exc:
+        exc.ital_check_failed = True
+        raise
+
+
+def uniform_failure(exc: BaseException) -> bool:
+    """Whether ``exc`` was raised by a check (:func:`check_after`): on a mesh
+    a check reads values every rank holds alike, so every rank raised it at
+    the same point, after the program's collectives and before any write."""
+    return bool(getattr(exc, "ital_check_failed", False))
 
 
 def _graphed(device: torch.device) -> bool:
@@ -202,7 +241,7 @@ def _stacked(v) -> torch.Tensor:
     return buf
 
 
-def _signature(name, static, inputs, shared, device) -> tuple:
+def _signature(name, static, inputs, shared, device, mesh) -> tuple:
     def spec(v):
         if v is None or isinstance(v, int):
             return type(v).__name__
@@ -213,7 +252,8 @@ def _signature(name, static, inputs, shared, device) -> tuple:
     return (name, static, device, tuple((k, spec(v)) for k, v in inputs.items()),
             tuple((k, v.data_ptr(), tuple(v.shape), v.stride(), v.dtype)
                   for k, v in shared.items()),
-            torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision())
+            torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision(),
+            None if mesh is None else ("mesh", mesh.uid))
 
 
 def _device_of(inputs: dict) -> torch.device:
@@ -260,11 +300,23 @@ def _write_back(inputs: dict, buffers: dict, writes: tuple) -> None:
 def _release_dead() -> None:
     """Release the programs whose shared tensors (their corpus) are gone: no
     live tensor can match their key but one that lands at the same address,
-    and until then they only hold memory."""
+    and until then they only hold memory.  A mesh program holds its shared
+    tensors and goes with its mesh (:func:`release_mesh`)."""
     for key, prog in list(_PROGRAMS.items()):
-        if any(ref() is None for ref in prog.shared):
+        if prog.mesh is None and any(ref() is None for ref in prog.shared):
             del _PROGRAMS[key]
             prog.release()
+
+
+def release_mesh(mesh) -> None:
+    """Release every program of ``mesh`` (each rank its own), before its
+    process group is destroyed: no graph may outlive the communicator it
+    holds, and a later mesh captures its programs anew."""
+    with _LOCK:
+        for key, prog in list(_PROGRAMS.items()):
+            if prog.mesh == mesh.uid:
+                del _PROGRAMS[key]
+                prog.release()
 
 
 def _input_bytes(inputs: dict) -> int:
@@ -274,10 +326,13 @@ def _input_bytes(inputs: dict) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _release_stacks(need: int) -> None:
+def _release_stacks(need: int, mesh: Optional[int]) -> None:
     """Release the least recently used programs that stack sessions until
-    their static buffers and ``need`` bytes more fit in :data:`STACK_BYTES`."""
-    held = sorted((p for p in _PROGRAMS.values() if p.stacks), key=lambda p: p.last_used)
+    their static buffers and ``need`` bytes more fit in :data:`STACK_BYTES`:
+    those of the mesh of uid ``mesh`` (``None``: the single-device ones), so
+    that every rank of a mesh releases the same programs."""
+    held = sorted((p for p in _PROGRAMS.values() if p.stacks and p.mesh == mesh),
+                  key=lambda p: p.last_used)
     total = need + sum(p.static_bytes for p in held)
     for prog in held:
         if total <= STACK_BYTES:
@@ -288,7 +343,7 @@ def _release_stacks(need: int) -> None:
 
 
 def run(name: str, body: Callable[..., tuple], inputs: dict, *, shared: Optional[dict] = None,
-        static: tuple = (), writes: tuple = ()) -> tuple:
+        static: tuple = (), writes: tuple = (), mesh=None) -> tuple:
     """``body(**shared, **inputs)``, a tuple of tensors, through its program.
 
     ``inputs``: tensors on one device (CUDA or CPU), ``None``, host ints
@@ -298,10 +353,11 @@ def run(name: str, body: Callable[..., tuple], inputs: dict, *, shared: Optional
     are, keyed by their address (the corpus); ``static``: the hashable
     options ``body`` closes over; ``writes``: the inputs the body writes in
     place, copied back after a replay (a list input slice by slice, also
-    when the body runs eagerly).  Returns the outputs, as tensors of the
-    caller's own.  The body's :func:`check_after` checks run after each
-    replay, before any write is copied back: one that raises leaves the
-    caller's tensors as they were.
+    when the body runs eagerly); ``mesh``: the corpus mesh whose collectives
+    the body calls (every rank calls ``run`` alike).  Returns the outputs, as
+    tensors of the caller's own.  The body's :func:`check_after` checks run
+    after each replay, before any write is copied back: one that raises
+    leaves the caller's tensors as they were.
     """
     shared = shared or {}
     device = _device_of(inputs)
@@ -310,16 +366,19 @@ def run(name: str, body: Callable[..., tuple], inputs: dict, *, shared: Optional
         out = body(**shared, **args)
         _write_back(inputs, args, writes)
         return out
-    key = _signature(name, static, inputs, shared, device)
+    key = _signature(name, static, inputs, shared, device, mesh)
+    uid = None if mesh is None else mesh.uid
     with _LOCK:
         prog = _PROGRAMS.get(key)
         if prog is None:
             _release_dead()
             stacks = any(_is_list(v) for v in inputs.values())
             if stacks:
-                _release_stacks(_input_bytes(inputs))
+                _release_stacks(_input_bytes(inputs), uid)
             prog = _capture(name, body, inputs, shared, device)
-            prog.key, prog.stacks = key, stacks
+            prog.key, prog.stacks, prog.mesh = key, stacks, uid
+            if mesh is not None:
+                prog.pinned = tuple(shared.values())
             _PROGRAMS[key] = prog
             _CAPTURES[0] += 1
         if not prog.shared or any(ref() is None for ref in prog.shared):
@@ -333,7 +392,7 @@ def run(name: str, body: Callable[..., tuple], inputs: dict, *, shared: Optional
         prog.last_used = next(_USES)
         rbf_hopper.add_launches(prog.launches)
         for value, check in prog.checks:
-            check(value)
+            _checked(check, value)
         _write_back(inputs, prog.inputs, writes)
         out = tuple(o.clone() for o in prog.outputs)
         if device.type == "cuda":

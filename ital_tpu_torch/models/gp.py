@@ -411,7 +411,7 @@ def gp_refit(state: GPState, *, gather: Optional[GatherFn] = None) -> GPState:
     return state
 
 
-def gp_fit_stacked(st: StackedGPState) -> StackedGPState:
+def gp_fit_stacked(st: StackedGPState, *, gather: Optional[GatherFn] = None) -> StackedGPState:
     """:func:`gp_refit` of K sessions at once, each with its own
     hyperparameters, in place on ``st`` (the reference's ``jax.vmap`` of
     ``gp_fit``): the RBF blocks through
@@ -419,10 +419,11 @@ def gp_fit_stacked(st: StackedGPState) -> StackedGPState:
     hyperparameter group and block), one batched Cholesky and batched
     triangular solves.  A labeled block that is not positive definite
     raises before anything is written or, inside a program's capture, once
-    the program has run.  Returns ``st``."""
+    the program has run.  ``gather`` fetches the labeled rows (the sharded
+    path's collective gather).  Returns ``st``."""
     h, groups = st.hyper, st.hyper_groups
     active = st.active
-    xl = st.x[st.idx]  # (K, cap, D)
+    xl = _rows(st, st.idx, gather)  # (K, cap, D)
     k_ll = rbf_sessions(xl, xl, h.length_scale, h.var, groups)
     l = chol_ops.padded_cholesky(k_ll, active, h.noise)
     k_l_all = rbf_sessions(xl, st.x, h.length_scale, h.var, groups, b2=st.x2)  # (K, cap, N)

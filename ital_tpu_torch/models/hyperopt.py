@@ -332,6 +332,8 @@ def relearn_stacked(
     st: gp_mod.StackedGPState,
     *,
     center: Optional[torch.Tensor] = None,
+    gather: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    agree: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     steps: int = 50,
     lr: float = 0.05,
     learn_noise: bool = True,
@@ -345,19 +347,25 @@ def relearn_stacked(
     replaced by new (K,) tensors and every session becomes a hyperparameter
     group of its own, decided without reading the values back.  ``center``:
     the prior's (3,) center (length_scale, var, noise), default each
-    session's current values.  A step of a cohort program's body (the
-    reference's ``lax.cond(do_learn, _relearn_hyperparams)`` under
-    ``jax.vmap``); raises as :func:`relearn` once the program has run."""
+    session's current values.  ``gather`` fetches the labeled rows (a
+    mesh's collective gather), ``agree`` maps the (K, 3) learned
+    log-parameters to the ones every rank goes on with (a mesh's broadcast
+    of rank 0's).  A step of a cohort program's body (the reference's
+    ``lax.cond(do_learn, _relearn_hyperparams)`` under ``jax.vmap``);
+    raises as :func:`relearn` once the program has run."""
     theta0 = _log_theta(st.hyper)
     theta_c = None if center is None else torch.log(center.detach().to(torch.float32))
-    theta = fit_hyperparams_stacked(st.x[st.idx], st.y, st.active, theta0, steps=steps, lr=lr,
+    xl = st.x[st.idx] if gather is None else gather(st.idx)
+    theta = fit_hyperparams_stacked(xl, st.y, st.active, theta0, steps=steps, lr=lr,
                                     learn_noise=learn_noise, prior_strength=prior_strength,
                                     theta_c=theta_c, noise_floor=noise_floor)
+    if agree is not None:
+        theta = agree(theta)
     hyper = _unpack(theta, st.mu.dtype)
     if not learn_noise:
         hyper.noise = st.hyper.noise
     st.hyper, st.hyper_groups = hyper, [[k] for k in range(st.k)]
-    gp_mod.gp_fit_stacked(st)
+    gp_mod.gp_fit_stacked(st, gather=gather)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -25,13 +25,13 @@ from ital_tpu_torch.parallel.sharded import (  # noqa: F401
     make_sharded_cohort_update,
     make_sharded_density,
     make_sharded_fit,
+    make_sharded_relearn,
     make_sharded_round,
     make_sharded_select,
     make_sharded_session,
     make_sharded_set_query,
     make_sharded_update,
     pad_to_devices,
-    relearn,
     save_sharded_session,
     shard_cohort_state,
     shard_state,

@@ -24,12 +24,21 @@ or next collective of rank 0 fails instead of waiting, and rank 0 raises
 :class:`~ital_tpu_torch.parallel.launch.RankFailed` with that traceback;
 every later command then fails at once.  Callers validate what they can
 before a command (unknown sessions, capacities, options), so a stopped
-mesh means a fault, not a bad request.
+mesh means a fault, not a bad request.  The one exception is a program's
+check (``graphs.check_after``, a block that is not positive definite):
+it reads values every rank holds alike, so every rank raises it at the
+same point and no rank's session changes; the command then fails on rank 0
+with that exception and the mesh goes on.
+
+A session's calls run the mesh's programs (:mod:`ital_tpu_torch.graphs`),
+found again by signature and mesh on every call; closing the mesh releases
+them on every rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import shutil
 import tempfile
@@ -42,6 +51,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ital_tpu_torch import graphs
 from ital_tpu_torch.models import gp as gp_mod
 from ital_tpu_torch.models.hyperopt import fit_hyperparams
 from ital_tpu_torch.models.session import check_method_kwargs, feedback_block
@@ -157,7 +167,8 @@ class ShardedRetrieval:
         return sh.gather_mu(self.mesh, self.state.mu)[: self.n_real].cpu().numpy()
 
     def ranked(self, k: int, exclude_labeled: bool = True) -> tuple[np.ndarray, np.ndarray]:
-        """The top ``k`` real rows by posterior mean and their means.
+        """The top ``k`` real rows by posterior mean and their means, as one
+        program (the reference's ``_jit_rank``).
 
         Each rank takes a stable top-k of its real rows (labeled ones at
         -inf where excluded) and one gather of (key, index, mean) triples
@@ -168,23 +179,15 @@ class ShardedRetrieval:
         """
         st = self.state
         n_loc = st.x.shape[0]
-        lo = self.mesh.rank * n_loc
-        real = max(0, min(n_loc, self.n_real - lo))
-        key = st.mu
-        if exclude_labeled:
-            key = torch.where(sh.local_slot_mask(self.mesh, st, extra_forbid=torch.zeros(
-                (), dtype=torch.bool, device=self.device)), -torch.inf, key)
+        real = max(0, min(n_loc, self.n_real - self.mesh.rank * n_loc))
         k = min(int(k), self.n_real)
-        vals, idx = top_k_stable(key[:real], min(k, real))
-        f64 = torch.float64
-        trip = torch.full((k, 3), -torch.inf, dtype=f64, device=self.device)
-        trip[:, 1] = float(self.pad_forbid.shape[0])  # after every real index
-        trip[: idx.shape[0]] = torch.stack(
-            [vals.to(f64), (idx + lo).to(f64), st.mu[idx].to(f64)], -1)
-        trip = sh.all_gather_cat(self.mesh, trip)
-        trip = trip[torch.argsort(trip[:, 1], stable=True)]
-        trip = trip[torch.argsort(trip[:, 0], descending=True, stable=True)][:k]
-        return trip[:, 1].to(torch.int64).cpu().numpy(), trip[:, 2].cpu().numpy()
+        idx, mu = sh._program(
+            self.mesh, "sharded_rank", functools.partial(
+                _rank_body, k=k, real=real, exclude_labeled=bool(exclude_labeled),
+                n_pad=int(self.pad_forbid.shape[0])),
+            {"count": st.count, "idx": st.idx, "valid": st.valid, "mu": st.mu}, {"x": st.x},
+            static=(k, real, bool(exclude_labeled)))
+        return idx.cpu().numpy(), mu.cpu().numpy()
 
     def top_k(self, k: int, exclude_labeled: bool = True) -> np.ndarray:
         """Top-k retrieval by posterior mean; ties go to the lower index."""
@@ -202,8 +205,9 @@ class ShardedRetrieval:
         return st.idx[st.active & (st.y < 0)].cpu().numpy()
 
     def labeled_rows(self) -> torch.Tensor:
-        """The (cap, D) rows of the labeled slots, gathered (one sum)."""
-        return sh.gather_rows(self.mesh, self.state.x, self.state.idx)
+        """The (cap, D) rows of the labeled slots, gathered (one sum), as one
+        program."""
+        return sh.labeled_rows(self.mesh, self.state)
 
     def refit(self, values) -> None:
         """Set the hyperparameters to ``values`` (length scale, variance,
@@ -212,7 +216,7 @@ class ShardedRetrieval:
         dt, dev = self.state.mu.dtype, self.device
         ls, var, noise = (torch.tensor(float(v), dtype=dt, device=dev) for v in values)
         hyper = gp_mod.GPHyper(length_scale=ls, var=var, noise=noise)
-        # gp_fit rebinds the posterior fields of the copy it is given.
+        # The program refits the session's own buffers, with the new values.
         self.state = sh.make_sharded_fit(self.mesh)(dataclasses.replace(self.state, hyper=hyper))
 
     def fit_hyperparams(self, rows: torch.Tensor, **kwargs) -> tuple:
@@ -241,6 +245,27 @@ class ShardedRetrieval:
             vals = box[0]
         self.refit(vals)
         return dict(zip(("length_scale", "var", "noise"), vals))
+
+
+def _rank_body(x, *, mesh, k, real, exclude_labeled, n_pad, count, idx, valid, mu) -> tuple:
+    """:meth:`ShardedRetrieval.ranked` as a program's body: (k,) global
+    indices and their means."""
+    st = gp_mod.GPState(x=x, idx=idx, y=None, valid=valid, count=count, l=None, beta=None,
+                        v=None, mu=mu, sig2=None, hyper=None)
+    lo = mesh.rank * x.shape[0]
+    key = mu
+    if exclude_labeled:
+        key = torch.where(sh.local_slot_mask(mesh, st, extra_forbid=torch.zeros(
+            (), dtype=torch.bool, device=mu.device)), -torch.inf, key)
+    vals, top = top_k_stable(key[:real], min(k, real))
+    f64 = torch.float64
+    trip = torch.full((k, 3), -torch.inf, dtype=f64, device=mu.device)
+    trip[:, 1].fill_(float(n_pad))  # after every real index
+    trip[: top.shape[0]] = torch.stack([vals.to(f64), (top + lo).to(f64), mu[top].to(f64)], -1)
+    trip = sh.all_gather_cat(mesh, trip)
+    trip = trip[torch.argsort(trip[:, 1], stable=True)]
+    trip = trip[torch.argsort(trip[:, 0], descending=True, stable=True)][:k]
+    return trip[:, 1].to(torch.int64), trip[:, 2]
 
 
 # ---------------------------------------------------------------------------
@@ -275,10 +300,26 @@ def _context(mesh: Mesh, shard: np.ndarray, n_real: int, n_pad: int,
     return MeshContext(mesh=mesh, x=x.contiguous(), n_real=n_real, n_pad=n_pad)
 
 
-def _status(mesh: Mesh) -> None:
+def _command(fn: Callable[..., Any], ctx: MeshContext, args: tuple) -> tuple:
+    """``(fn(ctx, *args), None)``, or ``(None, exc)`` where a check raised
+    ``exc`` (``graphs.uniform_failure``: every rank raises it alike, after
+    the program's collectives and before its writes); anything else
+    raises."""
+    try:
+        return fn(ctx, *args), None
+    except Exception as exc:
+        if not graphs.uniform_failure(exc):
+            raise
+        return None, exc
+
+
+def _status(mesh: Mesh, failed: bool) -> None:
     """The collective that closes every command: it fails on rank 0 when a
-    worker has stopped."""
-    sh.psum(mesh, torch.zeros(1, device=mesh.device))
+    worker has stopped, and raises on any rank unless every rank's command
+    either ran or failed the same check."""
+    n = int(sh.psum(mesh, torch.full((1,), float(failed), device=mesh.device)).item())
+    if n != (mesh.size if failed else 0):
+        raise RuntimeError(f"{n} of {mesh.size} ranks failed a check: the ranks are out of step")
 
 
 def _worker_main(rank: int, n_ranks: int, device_type: str, threads: int, work_dir: str,
@@ -299,8 +340,7 @@ def _worker_main(rank: int, n_ranks: int, device_type: str, threads: int, work_d
             if box[0] is None:
                 break
             fn, args = box[0]
-            fn(ctx, *args)
-            _status(mesh)
+            _status(mesh, _command(fn, ctx, args)[1] is not None)
     except BaseException:
         with open(os.path.join(work_dir, f"rank{rank}.err"), "w") as fh:
             fh.write(f"{time.monotonic()!r}\n{traceback.format_exc()}")
@@ -354,7 +394,10 @@ class MeshWorld:
         """``fn(ctx, *args)`` on every rank, in order with every other
         command; returns rank 0's value.  On a mesh of more than one, a
         failure on any rank stops the mesh and raises (``RankFailed`` with
-        the traceback of the rank that failed first)."""
+        the traceback of the rank that failed first), but for a check that
+        failed on every rank alike (a program's ``graphs.check_after``, which
+        leaves every rank's session as it was): that raises its exception
+        and the mesh goes on."""
         with self.lock:
             if self._failure is not None:
                 raise RankFailed(f"the mesh has stopped: {self._failure}")
@@ -362,14 +405,16 @@ class MeshWorld:
                 return fn(self.ctx, *args)
             try:
                 dist.broadcast_object_list([(fn, args)], src=0, group=self.mesh.group)
-                out = fn(self.ctx, *args)
-                _status(self.mesh)
-                return out
+                out, failed = _command(fn, self.ctx, args)
+                _status(self.mesh, failed is not None)
             except BaseException as exc:
                 first = self._fail(exc)
                 if first is not None:
                     raise RankFailed(first) from exc
                 raise
+            if failed is not None:
+                raise failed
+            return out
 
     def _fail(self, exc: BaseException) -> Optional[str]:
         """Stop the mesh after a failed command; returns the message naming

@@ -11,12 +11,15 @@ group's store is a file in a temporary directory, so no network is needed.
 A :class:`Mesh` owns the default process group it initialised and destroys
 it in :meth:`Mesh.close`; :func:`make_mesh` refuses to start while any
 default group is initialised, so it never reuses or replaces one that
-something else (or a mesh not yet closed) holds.
+something else (or a mesh not yet closed) holds.  Each mesh has a uid of its
+own in its process, which keys its compiled programs
+(:mod:`ital_tpu_torch.graphs`); closing it releases them first.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 import shutil
 import tempfile
@@ -25,7 +28,10 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from ital_tpu_torch import graphs
+
 CORPUS_AXIS = "data"
+_UIDS = itertools.count()
 
 
 @dataclasses.dataclass
@@ -38,9 +44,12 @@ class Mesh:
     device: torch.device
     backend: str
     _store_dir: Optional[str] = None  # removed on close (a mesh started in-process)
+    uid: int = dataclasses.field(default_factory=lambda: next(_UIDS))
 
     def close(self) -> None:
-        """Destroy the mesh's process group (every rank closes its own)."""
+        """Release the mesh's programs and destroy its process group (every
+        rank closes its own)."""
+        graphs.release_mesh(self)
         if dist.is_initialized():
             dist.destroy_process_group()
         if self._store_dir is not None:

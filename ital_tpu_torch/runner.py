@@ -204,8 +204,8 @@ class _SessionOps:
 
     ``masks(c, q) -> (relevant, sel_forbid, exclude)``;
     ``step(state, draws, masks, timer) -> (state, ap, recalls)``, one
-    round timed in the "select" and "update" spans; ``gather`` fetches
-    corpus rows by index (``None``: index the state's corpus);
+    round timed in the "select" and "update" spans; ``set_query(state, q)
+    -> state`` resets a session's copy to its query;
     ``save``/``load`` write and read a round checkpoint; ``log`` holds extra
     JSONL fields.  ``layout`` lays a session out for ``step`` after
     ``gp_set_query`` and after a load, ``refit`` refits its posterior for
@@ -217,7 +217,7 @@ class _SessionOps:
 
     masks: Callable
     step: Callable
-    gather: Optional[Callable]
+    set_query: Callable
     save: Callable
     load: Callable
     log: Dict[str, Any]
@@ -272,7 +272,8 @@ def _serial_ops(cfg, dataset, params, select_kwargs, dev) -> _SessionOps:
                                              params)
         return state, ap, recalls
 
-    return _SessionOps(masks=masks, step=step, gather=None, save=ckpt.save_session,
+    return _SessionOps(masks=masks, step=step, set_query=gp_mod.gp_set_query,
+                       save=ckpt.save_session,
                        load=ckpt.load_session, log={}, refit=gp_mod.gp_fit,
                        relearn=_relearn_hyperparams)
 
@@ -315,7 +316,7 @@ def _run_session(cfg, state0, ops, rep, c, q, timer, logger) -> list[float]:
     """
     dev = state0.mu.device
     masks = ops.masks(c, q)
-    state = gp_mod.gp_set_query(gp_mod.gp_session_copy(state0), q, gather=ops.gather)
+    state = ops.set_query(gp_mod.gp_session_copy(state0), q)
     curve: list[float] = []
     start_round = 0
     ckpt_path = None
@@ -460,30 +461,32 @@ def _sharded_run(mesh, cfg, dataset) -> Dict[str, Any]:
     make_round = bigcap.make_bigcap_round if big else sh.make_sharded_round
     round_fn = make_round(mesh, strategy=cfg.method, batch_size=cfg.batch_size,
                           recall_ks=RECALL_KS, **options)
-    gather = lambda gidx: sh.gather_rows(mesh, state0.x, gidx)  # noqa: E731
-    refit = lambda state: gp_mod.gp_fit(state, gather=gather)  # noqa: E731
+    refit = sh.make_sharded_fit(mesh)
 
     def masks(c, q):
         relevant = torch.from_numpy(np.ascontiguousarray(relevance[:, c])).to(dev)
         return (relevant, *sh.make_masks(n_pad, n_real, q, dev))
 
     def step(state, draws, session_masks, timer):
-        state, _, ap, recalls = round_fn(state, *draws, *session_masks, params, timer=timer)
+        state, _, ap, recalls = round_fn(state, *draws, *session_masks, params, timer=timer,
+                                         n_real=n_real)
         return state, ap, recalls
 
     # Every session keeps state0's corpus shard: the labeled rows come from it.
     ops = _SessionOps(
-        masks=masks, step=step, gather=gather,
+        masks=masks, step=step, set_query=sh.make_sharded_set_query(mesh),
         save=lambda path, state, extra: sh.save_sharded_session(mesh, path, state, extra),
         load=lambda path, state: sh.load_sharded_session(mesh, path, state),
         log={"sharded": mesh.size},
         refit=refit,
-        relearn=functools.partial(_relearn_on_mesh, gather=gather, refit=refit),
+        relearn=lambda state, cfg: sh.make_sharded_relearn(
+            mesh, LearnConfig.from_gp(cfg.gp))(state),
     )
     if big:
         # set_query and a load leave l replicated: take this rank's block-row.
         # The refit is the distributed one, and a round already refits.
         refit = bigcap.make_bigcap_fit(mesh)
+        gather = lambda gidx: sh.gather_rows(mesh, state0.x, gidx)  # noqa: E731
         ops = dataclasses.replace(
             ops, layout=lambda state: bigcap.shard_state_bigcap(state, mesh, corpus_sharded=True),
             refit=refit, drift_refit=False,
@@ -505,7 +508,7 @@ def _sharded_fused_run(mesh, cfg, dataset, plan, state0, params, options, releva
     make_sharded_cohort`) runs all its rounds with no host read between
     them, from the draws :func:`round_draws` gives the single-device run, so
     the curves are that run's.  Rows carry ``sharded``; a cohort's result
-    also ``fused``, as the reference's."""
+    also ``fused``, as the reference's; the result carries ``picks``."""
     from ital_tpu_torch.parallel import sharded as sh
 
     dev = mesh.device
@@ -525,12 +528,15 @@ def _sharded_fused_run(mesh, cfg, dataset, plan, state0, params, options, releva
         if size == 1:
             draws = [round_draws(cfg.seed, *chunk[0], rnd, cfg.batch_size, dev)
                      for rnd in range(cfg.n_rounds)]
-            _, aps = program(states[0], draws, relevant[0], pad, exclude[0], params)
-            aps = aps[None]
+            _, aps, picks = program(states[0], draws, relevant[0], pad, exclude[0], params,
+                                    picks=True)
+            aps, picks = aps[None], picks[None]
         else:
             draws = [_cohort_draws(cfg, chunk, rnd, dev) for rnd in range(cfg.n_rounds)]
-            _, aps = program(gp_mod.stack_states(states), draws, relevant, pad, exclude, params)
-        return aps.cpu().numpy(), None  # the one host read of the chunk
+            _, aps, picks = program(gp_mod.stack_states(states), draws, relevant, pad, exclude,
+                                    params, picks=True)
+            picks = picks.transpose(0, 1)
+        return aps.cpu().numpy(), picks.cpu().numpy()  # the one host read of the chunk
 
     res = _run_fused(cfg, dataset, plan, dev, run_chunk, log={"sharded": mesh.size})
     res["fused"] = True
@@ -793,10 +799,10 @@ def _relearn_hyperparams(state: gp_mod.GPState, cfg: ExperimentConfig) -> gp_mod
 
 def _relearn_on_mesh(state: gp_mod.GPState, cfg: ExperimentConfig, *, gather: Callable,
                      refit: Callable) -> gp_mod.GPState:
-    """:func:`_relearn_hyperparams` on a mesh: every rank learns from the
-    labeled rows gathered by ``gather`` (the collective row gather) alike,
-    the ascent alone a program, then refits with ``refit`` (the mesh's, or
-    the large-cap path's distributed one)."""
+    """:func:`_relearn_hyperparams` on the large-cap mesh: every rank learns
+    from the labeled rows gathered by ``gather`` (the collective row gather)
+    alike, the ascent alone a program, then refits with ``refit`` (the
+    large-cap path's distributed one)."""
     state.hyper = fit_hyperparams(gather(state.idx), state.y, state.active, state.hyper,
                                   **_learn_kwargs(cfg, state))
     return refit(state)

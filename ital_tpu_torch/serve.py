@@ -390,30 +390,20 @@ class RetrievalService:
         """A compatible, locked group's selection: one stacked selection
         program of the group's sessions, each drawing from its own
         generator, with its own user model where they differ (the
-        reference's ``params_b``); on a mesh one sharded cohort selection
-        per user model, which the mesh's stack shares."""
-        if self._world is not None:
-            return self._mesh_select_cohort_locked(entries, k)
+        reference's ``params_b``); on a mesh one command, whose program is
+        the sharded cohort selection of the whole group."""
         group = _by_hyper_group(entries)
         sessions = [s for _, s, _ in group]
-        name = sessions[0].strategy_name
-        params = (sessions[0].params if len({s.params_key for s in sessions}) == 1
-                  else StrategyParams.stack([s.params for s in sessions]))
-        rows = get_stacked_strategy(name)(
-            [s.state for s in sessions], k, [s.generator for s in sessions], params,
-            **filter_method_kwargs(name, sessions[0].method_kwargs)).tolist()
-        return {sid: [int(i) for i in row] for (sid, _, _), row in zip(group, rows)}
-
-    def _mesh_select_cohort_locked(self, entries, k: int) -> Dict[str, list]:
-        by_params: Dict[tuple, list] = {}
-        for e in entries:
-            by_params.setdefault(e[1].params_key, []).append(e)
-        out: Dict[str, list] = {}
-        for group in by_params.values():
+        if self._world is not None:
             rows = self._world.run(_mesh_cohort_select, [sid for sid, _, _ in group], k,
-                                   [s.generator.get_state() for _, s, _ in group])
-            out.update({sid: [int(i) for i in row] for (sid, _, _), row in zip(group, rows)})
-        return out
+                                   [s.generator.get_state() for s in sessions])
+        else:
+            name = sessions[0].strategy_name
+            rows = get_stacked_strategy(name)(
+                [s.state for s in sessions], k, [s.generator for s in sessions],
+                _group_params(sessions),
+                **filter_method_kwargs(name, sessions[0].method_kwargs)).tolist()
+        return {sid: [int(i) for i in row] for (sid, _, _), row in zip(group, rows)}
 
     def feedback(self, sid: str, labels: Dict[str, int]) -> dict:
         sess, lock = self._entry(sid)
@@ -466,8 +456,7 @@ class RetrievalService:
         """One stacked GP update of locked sessions ``(sid, session, idx, y)``
         with feedback blocks of one width, written back into each session's
         own buffers once the whole update has succeeded."""
-        if self._world is None:
-            group = _by_hyper_group(group)
+        group = _by_hyper_group(group)
         idx = np.stack([i for _, _, i, _ in group])
         y = np.stack([y for _, _, _, y in group])
         if self._world is not None:
@@ -581,6 +570,15 @@ def _restore_into(sess, sid: str, state, extra) -> None:
         sess._density_ls = ("restored", sid)
 
 
+def _group_params(sessions) -> StrategyParams:
+    """A cohort's user models: the one they share, else each session's own
+    as (K,) fields (:meth:`StrategyParams.stack`, the reference's
+    ``params_b``)."""
+    if len({s.params_key for s in sessions}) == 1:
+        return sessions[0].params
+    return StrategyParams.stack([s.params for s in sessions])
+
+
 def _by_hyper_group(entries: list) -> list:
     """Locked group entries ``(sid, session, ...)`` in the order that lays
     their sessions out by hyperparameter group, larger groups first
@@ -617,15 +615,17 @@ def _mesh_select(ctx, sid: str, k: int, generator_state) -> list:
 
 
 def _mesh_cohort_select(ctx, sids: list, k: int, generator_states) -> list:
+    """One sharded cohort selection program of the sessions ``sids``, each
+    with its own generator and user model; the program stacks their own
+    buffers inside."""
     sessions = [ctx.sessions[sid] for sid in sids]
     for sess, g in zip(sessions, generator_states):
         sess.generator.set_state(g)
     first = sessions[0]
     select = sh.make_sharded_cohort_select(ctx.mesh, strategy=first.strategy_name, batch_size=k,
                                            **first.selection_options())
-    batches = select(gp_mod.stack_states([s.state for s in sessions]),
-                     [s.generator for s in sessions], first.pad_forbid, first.params,
-                     n_real=ctx.n_real)
+    batches = select([s.state for s in sessions], [s.generator for s in sessions],
+                     first.pad_forbid, _group_params(sessions), n_real=ctx.n_real)
     return batches.tolist()
 
 
@@ -634,16 +634,14 @@ def _mesh_absorb(ctx, sid: str, idx: np.ndarray, y: np.ndarray) -> None:
 
 
 def _mesh_cohort_update(ctx, sids: list, idx: np.ndarray, y: np.ndarray) -> None:
-    """One sharded stacked update of the sessions ``sids`` with (K, b)
-    feedback blocks, written back into each session's own buffers once it
-    succeeded."""
+    """One sharded stacked update program of the sessions ``sids`` with
+    (K, b) feedback blocks, written back into each session's own buffers
+    once it and its checks have run."""
     states = [ctx.sessions[sid].state for sid in sids]
     dev = states[0].mu.device
-    st = gp_mod.stack_states(states)
-    sh.make_sharded_cohort_update(ctx.mesh)(st, torch.as_tensor(idx, device=dev),
+    sh.make_sharded_cohort_update(ctx.mesh)(states, torch.as_tensor(idx, device=dev),
                                             torch.as_tensor(y, device=dev),
                                             torch.as_tensor(y != 0, device=dev))
-    gp_mod.unstack_into(st, states)
 
 
 def _mesh_ranking(ctx, sid: str, k: int) -> tuple:
