@@ -176,11 +176,28 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    they do.  Its round-1 snapshot must load into the single-device
    ``load_session`` on the CPU with a (cap, cap) ``l``, and a copy resumed
    from it (uncounted) must give the uninterrupted curve.  The launch
-   count is reset before the bigcap run and must grow in every refit of
-   the "update" span.  Select and update ms and the device memory peak of
-   both runs, the refit's split (kernel blocks, Cholesky, beta, whitening,
-   the rest; CUDA events) and its kernels by device time
+   count is reset before the bigcap run; each round's absorption is one
+   program (``bigcap_absorb``: the user, the labels, the distributed refit
+   and AP, one CUDA graph with the collectives inside), replayed every
+   round and launching the kernel's two blocks at each replay.  Select and
+   update ms and the device memory peak of both runs, the refit's split
+   (kernel blocks, Cholesky, beta, whitening, the rest, the whole refit as
+   its program and eagerly; CUDA events) and its kernels by device time
    (``torch.profiler``) are printed with the card's name and power limit.
+   Then the programs beside ``graphs.eager()`` (uncounted), in graphed,
+   eager, eager, graphed turns: the runner's large-cap session (the
+   checkpointing run is the first graphed turn), and on one NCCL mesh of
+   one a session of the large-cap round with ``BIGCAP_FITS`` distributed
+   refits (``bigcap_fit``) of its last state.  Graphed picks equal eager
+   (else MI ties on the eager state), ``mu`` and AP within
+   ``GRAPH_MU_ATOL`` while they agree, the refits' ``mu`` too, and the
+   second graphed turn on the mesh captures nothing.  Each turn's select,
+   update and refit ms, the device's busy share of three rounds, three
+   refits and a whole run graphed and eager (``torch.profiler``), each
+   program's captures, launches per replay, static buffers and pool
+   growth, and the device memory an eager refit, round and session start
+   allocate above what was held before them are printed with the card's
+   name and power limit.
 
 12. graphs: the round's compiled programs as captured CUDA graphs
    (``ital_tpu_torch.graphs``) beside their eager runs
@@ -247,8 +264,8 @@ the main paths in all, per route and per path, its bound, its time and the
 plain version's, and its times at the 100 000-row shapes, at the mesh
 cohort's stacked shard shapes, at the large-cap refit's shapes and at the
 ascent's (64, 64, 512) block with its launches per ``/learn``, at the
-strategies' blocks, and each mesh and strategy program's launches per
-replay); the
+strategies' blocks, and each mesh, large-cap and strategy program's
+launches per replay); the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -346,6 +363,7 @@ MIXED_LABEL_PROB, MIXED_MISTAKE_PROB = 0.95, 0.02
 BIGCAP_OVERRIDES = SCALE_OVERRIDES + (
     "GP.cap=1024", "GP.chol2d_threshold=1024", "METHOD.pool_size=4096", "METHOD.n_qmc=32",
     "METHOD.refine_top=64", "METHOD.refine_n_qmc=512")
+BIGCAP_FITS = 3  # distributed refits timed a turn
 # Phase 12: the captured programs beside their eager runs.  The production
 # session's 10 rounds in turns graphed, eager, eager, graphed; entry's round
 # step at its example size (__graft_entry__._make_state: 2048 x 64, ls 6, cap
@@ -1808,7 +1826,13 @@ def sharded_phase(torch, ds, cfg, dev, smi: str, rise25: dict) -> dict:
               f"{r['first_round_ms']:.1f} ms; device memory peak {r['peak_mib']:.1f} MiB [{smi}]")
     print(f"sharded scale100k: first round whose picks differ, per session: {res['apart']} of "
           f"{scale.n_rounds}; launches {rbf_hopper.LAUNCHES}")
-    per_replay = _mesh_round_turns(torch, big, scale, dev, smi)
+    per_replay = _mesh_round_turns(
+        torch, big, scale, dev, smi, "mesh round", "scale100k round", SEED + 29,
+        lambda mesh: sharded.make_sharded_round(mesh, strategy=scale.method,
+                                                batch_size=scale.batch_size,
+                                                **scale.method_kwargs),
+        lambda params: lambda before, picks: _mi_gaps(torch, before, params,
+                                                      scale.method_kwargs, picks))
 
     base = load_config(str(HARNESS_CONFIG), RING_OVERRIDES)
     for method in RING_METHODS:
@@ -2181,24 +2205,52 @@ def _ms(values) -> str:
     return f"{np.median(values):.3f} (min {min(values):.3f}, max {max(values):.3f})"
 
 
-def _mesh_round_turns(torch, big, scale, dev, smi: str) -> dict:
-    """scale100k's per-round select and update as mesh programs on a NCCL
-    mesh of one, one session of ``scale.n_rounds`` rounds in graphed, eager,
-    eager, graphed turns on one mesh: picks equal round by round (else MI
-    ties on the eager state), AP and ``mu`` within ``GRAPH_MU_ATOL`` while
-    they agree; synchronized select and update ms of every turn; each
-    program's captures, launches per replay and held MiB.  Returns the
-    programs' launches per replay."""
+def _held_to_eager(turns: list, tie_gaps, what: str) -> None:
+    """Hold the graphed turns of a session (``_mesh_turns``' first and last)
+    to the first eager turn: picks equal round by round, else
+    ``tie_gaps(before, picks)`` (the eager state the round selected from,
+    the graphed picks) all within ``MI_TIE_ATOL`` and the histories part
+    there; AP and ``mu`` within ``GRAPH_MU_ATOL`` while they agree."""
+    eager = turns[1]
+    check(turns[2]["picks"] == eager["picks"], f"{what}: the eager turns agree")
+    for t in (turns[0], turns[3]):
+        for r, (gp, ep) in enumerate(zip(t["picks"], eager["picks"])):
+            if gp != ep:
+                with _uncounted():
+                    gaps = tie_gaps(eager["before"][r], gp)
+                print(f"{what}: round {r} graphed {gp} eager {ep}; MI gaps on the eager state "
+                      f"{gaps} (tie atol {MI_TIE_ATOL})")
+                check(all(abs(g) <= MI_TIE_ATOL for g in gaps),
+                      f"{what}: graphed and eager picks differ only by MI ties")
+                break
+            err = float((t["mu"][r] - eager["mu"][r]).abs().max())
+            check(err <= GRAPH_MU_ATOL and abs(t["ap"][r] - eager["ap"][r]) <= 1e-6,
+                  f"{what} round {r}: graphed mu and AP within {GRAPH_MU_ATOL} of eager ({err})")
+
+
+def _mesh_round_turns(torch, big, scale, dev, smi: str, what: str, key: str, seed: int,
+                      make_round, tie_gaps, layout=None, refit=None, after=None) -> dict:
+    """A per-round mesh session on scale100k (a NCCL mesh of one) in
+    graphed, eager, eager, graphed turns on one mesh: ``make_round(mesh)``
+    gives the round, ``layout(state, mesh)`` lays out the state after
+    ``gp_set_query``, ``tie_gaps(params)`` the tie check of
+    ``_held_to_eager``.  ``refit(mesh)``, where given, is refit
+    ``BIGCAP_FITS`` times on a copy of each turn's last state, its ``mu``
+    held to eager where the picks agree.  Prints each turn's synchronized
+    select, update (and refit) ms and each program's captures, launches per
+    replay and static MiB; ``after(start, one_round, fit, last)`` runs on
+    the mesh before it closes.  Returns the programs' launches per replay,
+    keyed ``key``."""
     from ital_tpu_torch import runner
     from ital_tpu_torch.models import gp as gp_mod
     from ital_tpu_torch.parallel import make_mesh, sharded
     from ital_tpu_torch.select.base import StrategyParams
     from ital_tpu_torch.utils.logging import Timer
 
-    rng = np.random.default_rng(SEED + 29)
+    rng = np.random.default_rng(seed)
     cls = int(rng.choice(big.classes))
     q = int(big.queries_for_class(cls, rng, 1)[0])
-    b, kw = scale.batch_size, scale.method_kwargs
+    b = scale.batch_size
     with make_mesh(1, device=dev) as mesh:
         known = _known_programs()
         # A world of one's shard is the whole corpus.
@@ -2209,47 +2261,62 @@ def _mesh_round_turns(torch, big, scale, dev, smi: str) -> dict:
                                        mistake_prob=scale.user.mistake_prob)
         relevant = torch.from_numpy(np.ascontiguousarray(big.relevance[:, cls])).to(dev)
         sel_forbid, exclude = sharded.make_masks(big.n, big.n, q, dev)
-        round_fn = sharded.make_sharded_round(mesh, strategy=scale.method, batch_size=b, **kw)
+        round_fn = make_round(mesh)
         set_query = sharded.make_sharded_set_query(mesh)
+        fit = refit(mesh) if refit is not None else None
+
+        def start():
+            st = set_query(gp_mod.gp_session_copy(state0), q)
+            return st if layout is None else layout(st, mesh)
+
+        def one_round(st, r, timer=None):
+            draws = runner.round_draws(scale.seed, 0, cls, q, r, b, dev)
+            return round_fn(st, *draws, relevant, sel_forbid, exclude, params, timer=timer,
+                            n_real=big.n)
 
         def session(mode):
-            timer, out = Timer(dev), {"picks": [], "ap": [], "mu": [], "before": []}
+            timer = Timer(dev)
+            out = {"picks": [], "ap": [], "mu": [], "before": [], "fit_ms": []}
             with _graphed_or_eager(mode):
-                st = set_query(gp_mod.gp_session_copy(state0), q)
+                st = start()
                 for r in range(scale.n_rounds):
-                    out["before"].append(gp_mod.gp_session_copy(st))
-                    draws = runner.round_draws(scale.seed, 0, cls, q, r, b, dev)
-                    st, batch, ap, _ = round_fn(st, *draws, relevant, sel_forbid, exclude, params,
-                                                timer=timer, n_real=big.n)
+                    if mode == "eager":  # the states the ties are read on
+                        out["before"].append(gp_mod.gp_session_copy(st))
+                    st, batch, ap, _ = one_round(st, r, timer)
                     out["picks"].append(batch.tolist())
                     out["ap"].append(float(ap))
                     out["mu"].append(st.mu.clone())
-            out.update({f"{s}_ms": [v * 1e3 for v in timer.values[s]] for s in ("select", "update")})
+                if fit is not None:
+                    copy = gp_mod.gp_session_copy(st)
+                    for _ in range(BIGCAP_FITS):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        fit(copy)
+                        torch.cuda.synchronize()
+                        out["fit_ms"].append((time.perf_counter() - t0) * 1e3)
+                    out["fit_mu"] = copy.mu.clone()
+            out.update({f"{k}_ms": [v * 1e3 for v in timer.values[k]]
+                        for k in ("select", "update")})
+            out["last"] = st
             return out
 
-        turns = _mesh_turns(torch, session, "mesh round")
-        eager = turns[1]
-        check(turns[2]["picks"] == eager["picks"], "mesh round: the eager turns agree")
-        for t in (turns[0], turns[3]):
-            for r, (gp, ep) in enumerate(zip(t["picks"], eager["picks"])):
-                if gp != ep:
-                    with _uncounted():
-                        gaps = _mi_gaps(torch, eager["before"][r], params, kw, gp)
-                    print(f"mesh round: round {r} graphed {gp} eager {ep}; MI gaps on the eager "
-                          f"state {gaps}")
-                    check(all(0 <= g <= MI_TIE_ATOL for g in gaps),
-                          "mesh round: graphed and eager picks differ only by MI ties")
-                    break
-                err = float((t["mu"][r] - eager["mu"][r]).abs().max())
-                check(err <= GRAPH_MU_ATOL and abs(t["ap"][r] - eager["ap"][r]) <= 1e-6,
-                      f"mesh round {r}: graphed mu and AP within {GRAPH_MU_ATOL} of eager ({err})")
+        turns = _mesh_turns(torch, session, what)
+        _held_to_eager(turns, tie_gaps(params), what)
+        if fit is not None and turns[0]["picks"] == turns[1]["picks"] == turns[3]["picks"]:
+            errs = [float((t["fit_mu"] - turns[1]["fit_mu"]).abs().max()) for t in turns]
+            check(max(errs) <= GRAPH_MU_ATOL, f"{what} refit: graphed mu within "
+                                              f"{GRAPH_MU_ATOL} of eager ({errs})")
         for t in turns:
-            print(f"mesh round {t['mode']} (scale100k, {big.n} x {big.x.shape[1]}, world of 1 on "
-                  f"NCCL): select ms {_ms(t['select_ms'])}; update ms {_ms(t['update_ms'])}; "
-                  f"captures {t['captures']}; picks {t['picks']} [{smi}]")
+            refit_ms = f" refit ms {_ms(t['fit_ms'])};" if t["fit_ms"] else ""
+            print(f"{what} {t['mode']} (scale100k, cap {scale.cap}, {big.n} x {big.x.shape[1]}, "
+                  f"world of 1 on NCCL): select ms {_ms(t['select_ms'])}; update ms "
+                  f"{_ms(t['update_ms'])};{refit_ms} captures {t['captures']}; picks "
+                  f"{t['picks']} [{smi}]")
+        if after is not None:
+            after(start, one_round, fit, turns[3]["last"])
         progs = _phase_programs(known)
-        _print_programs(progs, known, "mesh round", smi)
-        return _mesh_launches(progs, "scale100k round")
+        _print_programs(progs, known, what, smi)
+        return _mesh_launches(progs, key)
 
 
 def _mesh_plan(big, k: int, seed: int) -> list:
@@ -2560,10 +2627,13 @@ def mesh_phase(torch, ds, big, cfg, dev, smi: str) -> dict:
 
 @contextlib.contextmanager
 def _record_rounds(record: list, *, keep_states: bool):
-    """Append ``{"picks", "mu"}`` (the posterior mean after the round) for
-    each round of the sharded and the large-cap per-round paths, and with
+    """Append ``{"picks", "mu", "state", "programs"}`` (the posterior mean
+    after the round, the state itself, and the mesh programs' replays and
+    launches per replay so far by name) for each round of the sharded and
+    the large-cap per-round paths, and with
     ``keep_states`` ``"before"``: a host copy of the session buffers the
     round selected from (off the card, so the run's memory peak is its own)."""
+    from ital_tpu_torch import graphs
     from ital_tpu_torch.models import gp as gp_mod
     from ital_tpu_torch.parallel import bigcap, sharded
 
@@ -2578,7 +2648,9 @@ def _record_rounds(record: list, *, keep_states: bool):
                 before = gp_mod.gp_session_copy(state, "cpu") if keep_states else None
                 out = round_fn(state, *a, **kw)
                 record.append({"picks": out[1].tolist(), "mu": out[0].mu.clone(),
-                               "before": before})
+                               "before": before, "state": out[0], "programs": {
+                                   p.name: (p.replays, sum(p.launches.values()))
+                                   for p in graphs.programs() if p.mesh is not None}})
                 return out
 
             return watched
@@ -2591,32 +2663,6 @@ def _record_rounds(record: list, *, keep_states: bool):
     finally:
         for (mod, name), make in orig.items():
             setattr(mod, name, make)
-
-
-@contextlib.contextmanager
-def _record_fits(record: list):
-    """Append ``(kernel launches, state)`` for each distributed refit."""
-    from ital_tpu_torch.ops import rbf_hopper
-    from ital_tpu_torch.parallel import bigcap
-
-    orig = bigcap.make_bigcap_fit
-
-    def made(mesh):
-        fit = orig(mesh)
-
-        def watched(state):
-            before = rbf_hopper.LAUNCHES
-            state = fit(state)
-            record.append((rbf_hopper.LAUNCHES - before, state))
-            return state
-
-        return watched
-
-    bigcap.make_bigcap_fit = made
-    try:
-        yield
-    finally:
-        bigcap.make_bigcap_fit = orig
 
 
 @contextlib.contextmanager
@@ -2644,7 +2690,9 @@ def _refit_split(torch, state, smi: str) -> dict:
     """The distributed refit of ``state`` (a NCCL mesh of one card), step by
     step in CUDA-event times: the kernel's two blocks, the Cholesky, the
     forward solve for beta, the whitening, the rest (mu, sig2), and the
-    whole fit.  Uncounted."""
+    whole fit as its program (``bigcap_fit``) and eagerly.  Uncounted."""
+    from ital_tpu_torch import graphs
+    from ital_tpu_torch.models import gp as gp_mod
     from ital_tpu_torch.ops.kernels import rbf_kernel
     from ital_tpu_torch.parallel import bigcap, chol2d, make_mesh, sharded
 
@@ -2659,6 +2707,12 @@ def _refit_split(torch, state, smi: str) -> dict:
         y = torch.where(active, state.y, 0.0)[:, None]
         beta = chol2d.solve2d_local(mesh, l, y)[:, 0]
         fit = bigcap.make_bigcap_fit(mesh)
+        copy = gp_mod.gp_session_copy(state)
+
+        def eager_fit():
+            with graphs.eager():
+                fit(copy)
+
         steps = {
             "blocks": lambda: (rbf_kernel(xl, xl, h.length_scale, h.var),
                                rbf_kernel(xl, state.x, h.length_scale, h.var, b2=state.x2)),
@@ -2667,13 +2721,15 @@ def _refit_split(torch, state, smi: str) -> dict:
             # with the copy of K that whiten2d_local takes (the fit whitens in place)
             "whitening": lambda: chol2d.whiten2d_local(mesh, l, k_cols),
             "rest": lambda: (v.T @ beta, torch.clamp(h.var - (v * v).sum(0), min=1e-8)),
-            "fit": lambda: fit(dataclasses.replace(state)),
+            "fit": lambda: fit(copy),
+            "fit eager": eager_fit,
         }
         times = _time_turns_ms(torch, list(steps.values()), launches=5, runs=3, warmup=1)
         out = {name: ms for name, (ms, _) in zip(steps, times)}
         print("bigcap refit split, event ms per call: " + ", ".join(
             f"{name} {ms:.3f} (spread {spread:.3f})" for name, (ms, spread) in zip(steps, times))
-            + f"; the steps sum to {sum(t for k, t in out.items() if k != 'fit'):.3f} [{smi}]")
+            + f"; the steps sum to "
+            f"{sum(t for k, t in out.items() if not k.startswith('fit')):.3f} [{smi}]")
         if state.mu.device.type == "cuda":
             out["kernels_ms"] = _fit_kernels(torch, steps["fit"], out["fit"], smi)
     return out
@@ -2703,9 +2759,125 @@ def _fit_kernels(torch, fit, fit_ms: float, smi: str) -> dict:
     return top
 
 
+def _refined_gaps(params, kw: dict):
+    """``_held_to_eager``'s tie check for the large-cap path: the refined-MI
+    gaps (``_tie_gaps``) of the graphed picks on the eager state, on the
+    card or a host copy of its buffers."""
+    import types
+
+    from ital_tpu_torch.models import gp as gp_mod
+
+    def gaps(before, picks):
+        sess = types.SimpleNamespace(state=gp_mod.gp_session_copy(before, before.x.device),
+                                     params=params)
+        return _tie_gaps(sess, picks, kw)
+
+    return gaps
+
+
+def _bigcap_turns(torch, big, scale, dev, smi: str) -> dict:
+    """The large-cap round (``sharded_select`` and ``bigcap_absorb``) and the
+    distributed refit (``bigcap_fit``) as mesh programs beside
+    ``graphs.eager()`` (``_mesh_round_turns``); then the device's busy share
+    of three rounds and three refits graphed and eager (``torch.profiler``)
+    and an eager call's temporaries.  Returns the programs' launches per
+    replay."""
+    from ital_tpu_torch import runner
+    from ital_tpu_torch.models import gp as gp_mod
+    from ital_tpu_torch.parallel import bigcap
+
+    def after(start, one_round, fit, last):
+        shares = {}
+        for mode in ("graphed", "eager"):
+            with _graphed_or_eager(mode):
+                copies = [gp_mod.gp_session_copy(last) for _ in range(4)]
+                rounds = iter(copies)
+                shares[mode] = (
+                    _busy_share(torch, lambda: one_round(next(rounds), scale.n_rounds)),
+                    _busy_share(torch, lambda: fit(copies[-1])))
+            del copies, rounds
+        print("bigcap busy share (profiler, 3 calls back to back): " + "; ".join(
+            f"{mode} round {_share(r)}, refit {_share(f)}" for mode, (r, f) in shares.items())
+            + f" [{smi}]")
+        # What a capture keeps in the graph pool: the body's temporaries,
+        # read as an eager call's peak above the memory held before it.
+        with _graphed_or_eager("eager"):
+            copy = gp_mod.gp_session_copy(last)
+            temps = {"refit": _temporaries_mib(torch, lambda: fit(copy)),
+                     "round": _temporaries_mib(torch, lambda: one_round(copy, scale.n_rounds)),
+                     "set_query": _temporaries_mib(torch, start)}
+            del copy
+        print("bigcap temporaries, an eager call's peak above the memory held before it: "
+              + ", ".join(f"{k} {v:.1f} MiB" for k, v in temps.items())
+              + f" (one (cap, N) f32 block is {scale.cap * big.n * 4 / 2**20:.1f} MiB) [{smi}]")
+
+    kw = scale.method_kwargs
+    return _mesh_round_turns(
+        torch, big, scale, dev, smi, "bigcap round", "bigcap", SEED + 31,
+        lambda mesh: bigcap.make_bigcap_round(mesh, strategy=scale.method,
+                                              batch_size=scale.batch_size,
+                                              recall_ks=runner.RECALL_KS, **kw),
+        lambda params: _refined_gaps(params, kw),
+        layout=lambda st, mesh: bigcap.shard_state_bigcap(st, mesh, corpus_sharded=True),
+        refit=bigcap.make_bigcap_fit, after=after)
+
+
+def _temporaries_mib(torch, fn) -> float:
+    """MiB of device memory ``fn()`` allocates at its peak beyond what was
+    held before it, its result included."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - held) / 2**20
+
+
+def _share(value: Optional[float]) -> str:
+    return "not measured" if value is None else f"{value * 100:.1f} %"
+
+
+def _bigcap_runner_turns(torch, big, scale, first: dict, first_rounds: list, smi: str) -> None:
+    """The runner's large-cap session (``scale``, no checkpoints) in graphed,
+    eager, eager, graphed turns, the first graphed turn ``first`` (the
+    checkpointing run, whose rounds ``first_rounds`` recorded): picks equal
+    (else MI ties on the eager state), the curves while they agree; then
+    the device's busy share of one graphed and one eager run."""
+    from ital_tpu_torch import runner
+    from ital_tpu_torch.select.base import StrategyParams
+
+    dev = first_rounds[0]["mu"].device
+    params = StrategyParams.create(dev, label_prob=scale.user.label_prob,
+                                   mistake_prob=scale.user.mistake_prob)
+    turns = [{"mode": "graphed", "res": first, "rounds": first_rounds}]
+    for mode in GRAPH_TURNS[1:]:
+        rounds = []
+        with _graphed_or_eager(mode), _record_rounds(rounds, keep_states=mode == "eager"):
+            res = runner.run_experiment(scale, big, device=dev)
+        turns.append({"mode": mode, "res": res, "rounds": rounds})
+    held = [{"picks": [r["picks"] for r in t["rounds"]], "mu": [r["mu"] for r in t["rounds"]],
+             "ap": [float(a) for a in t["res"]["ap"].ravel()],
+             "before": [r["before"] for r in t["rounds"]]} for t in turns]
+    _held_to_eager(held, _refined_gaps(params, scale.method_kwargs), "bigcap runner")
+    shares = {}
+    for mode in ("graphed", "eager"):
+        with _graphed_or_eager(mode):
+            shares[mode] = _busy_share(torch, lambda: runner.run_experiment(scale, big,
+                                                                             device=dev), calls=1)
+    for t in turns:
+        r = t["res"]
+        print(f"bigcap runner {t['mode']}: MAP {[round(float(m), 6) for m in r['map']]}; select "
+              f"{r['select_ms']:.3f} ms mean, {r['select_ms_steady']:.3f} steady; update "
+              f"{r['update_ms']:.3f} ms mean, {r['update_ms_steady']:.3f} steady; first round "
+              f"{r['first_round_ms']:.1f} ms [{smi}]")
+    print("bigcap runner busy share of a whole run (profiler): " + "; ".join(
+        f"{mode} {_share(v)}" for mode, v in shares.items()) + f" [{smi}]")
+
+
 def bigcap_phase(torch, big, dev, smi: str) -> dict:
-    """Phase 11: the large-cap per-round mesh (the distributed refit);
-    returns its launches by route and the kernel's times at its shapes."""
+    """Phase 11: the large-cap per-round mesh (the distributed refit, its
+    programs graphed beside eager); returns its launches by route, the
+    kernel's times at its shapes and the programs' launches per replay."""
     from ital_tpu_torch import runner
     from ital_tpu_torch.models import gp as gp_mod
     from ital_tpu_torch.ops import rbf_hopper
@@ -2730,7 +2902,7 @@ def bigcap_phase(torch, big, dev, smi: str) -> dict:
     for path in (ck, resume_dir):
         shutil.rmtree(path, ignore_errors=True)
     torch.cuda.synchronize()
-    res, rounds, fits = {}, {"bigcap": [], "replicated": []}, []
+    res, rounds = {}, {"bigcap": [], "replicated": []}
     _reset_counts()  # the large-cap path's count starts here
     for run in ("bigcap", "replicated"):
         cfg = (dataclasses.replace(scale, checkpoint_dir=str(ck)) if run == "bigcap" else
@@ -2738,22 +2910,27 @@ def bigcap_phase(torch, big, dev, smi: str) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
+        before = rbf_hopper.LAUNCHES
         with (_uncounted() if run == "replicated" else contextlib.nullcontext()), \
                 _record_rounds(rounds[run], keep_states=run == "replicated"), \
-                (_record_fits(fits) if run == "bigcap" else contextlib.nullcontext()), \
                 _keep_snapshot(1, resume_dir):
             res[run] = runner.run_experiment(cfg, big, device=dev)
         torch.cuda.synchronize()
         res[run]["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
         res[run]["held_mib"] = held / 2**20
-    launches = dict(rbf_hopper.ROUTE_LAUNCHES)
+        res[run]["launches"] = rbf_hopper.LAUNCHES - before
+    launches = dict(rbf_hopper.ROUTE_LAUNCHES)  # the path's count ends with its run
     big_res, rep = res["bigcap"], res["replicated"]
     check(big_res.get("chol2d") is True and big_res["mesh_devices"] == 1,
           "the bigcap run took the distributed refit on a mesh of one card")
     check("chol2d" not in rep, "chol2d_threshold = 0 keeps the replicated factor")
-    check(len(fits) == scale.n_rounds and all(k > 0 for k, _ in fits),
-          f"the kernel launched in every refit of the update span: {[k for k, _ in fits]}")
-    last = fits[-1][1]
+    # The refit is inside the round's absorb program: its two blocks are the
+    # launches the capture recorded, counted at every replay.
+    absorb = rounds["bigcap"][-1]["programs"].get("bigcap_absorb")
+    check(absorb == (scale.n_rounds, 2) and big_res["launches"] > 0,
+          f"one bigcap_absorb program, replayed every round, launching the kernel's two "
+          f"blocks (replays, launches per replay): {absorb}")
+    last = rounds["bigcap"][-1]["state"]
     check(tuple(last.l.shape) == (cap // big_res["mesh_devices"], cap),
           f"one rank's l is (cap / p, cap): {tuple(last.l.shape)}")
 
@@ -2781,6 +2958,7 @@ def bigcap_phase(torch, big, dev, smi: str) -> dict:
         check(all(abs(g) <= MI_TIE_ATOL for g in gaps), "bigcap picks differ only by MI ties")
     check(np.abs(big_res["ap"][:, :r] - rep["ap"][:, :r]).max(initial=0.0) <= 1e-6,
           "bigcap AP curve agrees with the replicated one while the picks do")
+    del rounds["replicated"]
 
     # The round-1 snapshot is single-device: it loads on the CPU.  A copy of
     # the session resumed from it (uncounted) gives the uninterrupted curve.
@@ -2812,8 +2990,11 @@ def bigcap_phase(torch, big, dev, smi: str) -> dict:
               f"device memory peak {out['peak_mib']:.1f} MiB, {out['peak_mib'] - out['held_mib']:.1f}"
               f" MiB above the {out['held_mib']:.1f} MiB held before the run [{smi}]")
     split = _refit_split(torch, last, smi)
+    del last
+    _bigcap_runner_turns(torch, big, scale, big_res, rounds.pop("bigcap"), smi)
+    per_replay = _bigcap_turns(torch, big, scale, dev, smi)
     print(f"bigcap phase: {time.perf_counter() - t_phase:.1f} s; launches {sum(launches.values())}")
-    return {"launches": launches, "shapes": shapes, "split": split}
+    return {"launches": launches, "shapes": shapes, "split": split, "per_replay": per_replay}
 
 
 def emoc_replay_phase(torch, ds, replay) -> None:
@@ -3763,8 +3944,10 @@ def main() -> int:
         # The blocks the strategies' programs launch, and each program's
         # launches per replay (fetch, /batch_select of 8, fused cohort).
         "shapes_strategies": strategies["shapes"],
-        # Each mesh program's launches per replay at its shapes (phases 9-10).
+        # Each mesh program's launches per replay at its shapes (phases 9-10),
+        # and the large-cap programs' (phase 11: the refit's two blocks).
         "launches_per_replay_mesh": {**shard["per_replay"], **mesh["per_replay"]},
+        "launches_per_replay_bigcap": large["per_replay"],
         "launches_per_replay_strategies": {
             name: {**r["launches"], "fused_cohort": r["fused"]["launches"]}
             for name, r in strategies["by_strategy"].items()},

@@ -62,10 +62,11 @@ def rbf_kernel_plain(
     return var * torch.exp(-d2 / (2.0 * length_scale**2))
 
 
-def _rbf_forward(a, b, length_scale, var, a2, b2) -> torch.Tensor:
+def _rbf_forward(a, b, length_scale, var, a2, b2, out=None) -> torch.Tensor:
     if a.device.type == "cpu" and b.device.type == "cpu":
-        return rbf_kernel_plain(a, b, length_scale, var, a2=a2, b2=b2)
-    return rbf_hopper.rbf_tile(a, b, length_scale, var, a2=a2, b2=b2)
+        k = rbf_kernel_plain(a, b, length_scale, var, a2=a2, b2=b2)
+        return k if out is None else out.copy_(k)
+    return rbf_hopper.rbf_tile(a, b, length_scale, var, a2=a2, b2=b2, out=out)
 
 
 def _requires_grad(v) -> bool:
@@ -120,6 +121,7 @@ def rbf_kernel(
     *,
     a2: Optional[torch.Tensor] = None,
     b2: Optional[torch.Tensor] = None,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """RBF kernel block (M, N); the noise term is not included.
 
@@ -127,10 +129,15 @@ def rbf_kernel(
     (float32 output), which needs contiguous f32 or bf16 inputs.  Where
     ``length_scale`` or ``var`` requires grad, the call goes through
     :class:`RBFHyperGrad`, so the gradient reaches them on either device.
+    ``out``: an (M, N) tensor the block is written into and returned, so
+    that no second block is allocated (on the card contiguous f32, which
+    the kernel writes directly); not with a gradient.
     """
     if _requires_grad(length_scale) or _requires_grad(var):
+        if out is not None:
+            raise ValueError("rbf_kernel writes no out= block where it differentiates")
         return RBFHyperGrad.apply(a, b, length_scale, var, a2, b2)
-    return _rbf_forward(a, b, length_scale, var, a2, b2)
+    return _rbf_forward(a, b, length_scale, var, a2, b2, out)
 
 
 # The reference routes between its Pallas kernel and XLA by TPU-measured

@@ -193,6 +193,7 @@ def rbf_tile(
     *,
     a2: Optional[torch.Tensor] = None,
     b2: Optional[torch.Tensor] = None,
+    out: Optional[torch.Tensor] = None,
     _route: Optional[str] = None,
 ) -> torch.Tensor:
     """(M, N) float32 ``var * exp(-||a_i - b_j||^2 / (2 ls^2))`` on the card.
@@ -200,6 +201,8 @@ def rbf_tile(
     ``a`` (M, D) and ``b`` (N, D): contiguous CUDA tensors of one dtype,
     float32 or bfloat16.  ``a2``/``b2``: optional float32 squared row norms;
     where absent the kernel computes them in f32 from the stored values.
+    ``out``: a contiguous float32 (M, N) tensor on the same device, its
+    base 16-byte aligned, to write the block into (default: a new one).
     ``_route`` forces a route (see :func:`choose_route`), for timing.
     """
     if a.dtype not in _DTYPE_CODE or b.dtype != a.dtype:
@@ -218,11 +221,21 @@ def rbf_tile(
     n = b.shape[0]
     a2 = _check_norms(a2, m, a.device, "a2")
     b2 = _check_norms(b2, n, a.device, "b2")
+    # The wgmma route stores pairs (float2) from out's base, and
+    # choose_route sees only a's and b's pointers: refuse an unaligned out.
+    if out is not None and (tuple(out.shape) != (m, n) or out.dtype != torch.float32
+                            or out.device != a.device or not out.is_contiguous()
+                            or out.data_ptr() % 16):
+        raise ValueError(
+            f"out must be a contiguous, 16-byte-aligned float32 ({m}, {n}) tensor on "
+            f"{a.device}, got {out.dtype} {tuple(out.shape)} on {out.device} at offset "
+            f"{out.data_ptr() % 16} of 16")
     if a.device.type != "cuda" or b.device != a.device:
         raise ValueError(
             f"rbf_tile needs a and b on one CUDA device, got {a.device} and {b.device}"
         )
-    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    if out is None:
+        out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if m == 0 or n == 0:
         return out
     if d == 0:

@@ -31,6 +31,12 @@ The reference writes a broadcast as ``psum(where(me == j, a, 0))``; a
 are identity rows (``ops.chol._identity_pad``), so solves against a right-hand
 side that is zero on them stay zero there.  Every rank must make the same
 calls in the same order.
+
+The bodies read nothing to the host, so the factories run them as programs
+of the mesh (the reference's ``jax.jit(shard_map(...))``): on the card one
+CUDA graph per rank with its broadcasts, gathers and sums inside.  A panel
+that is not positive definite raises on every rank once the program has
+run (its flags are replicated).
 """
 
 from __future__ import annotations
@@ -38,6 +44,9 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from ital_tpu_torch import graphs
+from ital_tpu_torch.ops import chol as chol_ops
+from ital_tpu_torch.parallel import sharded as sh
 from ital_tpu_torch.parallel.mesh import Mesh
 from ital_tpu_torch.parallel.sharded import all_gather_cat, psum
 
@@ -69,19 +78,26 @@ def chol2d_local(mesh: Mesh, a: torch.Tensor, active: torch.Tensor, noise) -> to
     """This rank's (cb, cap) block-row of the lower factor of ``a + noise I``
     restricted to ``active`` (identity elsewhere), from its (cb, cap)
     block-row ``a`` of the symmetric kernel matrix; ``active`` (cap,) is
-    replicated."""
+    replicated.  A diagonal block that is not positive definite raises
+    ``torch.linalg.LinAlgError`` on every rank once the panels are done (or,
+    inside a program, once it has run)."""
     cb, cap = a.shape
     if cb * mesh.size != cap:
         raise ValueError(f"a ({cb}, {cap}) block-row is not cap / {mesh.size} rows")
     me = mesh.rank
     a = _identity_pad_local(mesh, a, active, noise)
     l = torch.zeros_like(a)
+    infos = []
+    # The branches on ``me`` pick what a rank computes, never which
+    # collectives it calls: every rank issues one broadcast from rank j and
+    # one all-gather for panel j, in panel order.
     for j in range(mesh.size):
         c0, c1 = j * cb, (j + 1) * cb
         # Only the owner's diagonal block of its block-row is read: it alone
         # crosses (the reference sums the whole row; the values are the same).
         ajj = _broadcast_from(mesh, a[:, c0:c1] if me == j else a.new_empty((cb, cb)), j)
-        ljj = torch.linalg.cholesky(ajj)  # replicated
+        ljj, info = torch.linalg.cholesky_ex(ajj)  # replicated
+        infos.append(info)
         if me > j:
             lij = torch.linalg.solve_triangular(ljj.mT, a[:, c0:c1], upper=True, left=False)
         elif me == j:
@@ -96,6 +112,9 @@ def chol2d_local(mesh: Mesh, a: torch.Tensor, active: torch.Tensor, noise) -> to
             # The trailing update A -= L_:j L_:j^T on the columns right of
             # the panel; columns at or left of it are never read again.
             a[:, c1:] -= lij @ panel[c1:].T
+    # The flags are replicated: every rank raises alike, after the panels'
+    # collectives (graphs.uniform_failure marks it so).
+    graphs.check_after(torch.stack(infos), chol_ops.check_cholesky_info)
     return l
 
 
@@ -148,7 +167,8 @@ def _whiten_(mesh: Mesh, l: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         # (cb, cap) x (cap, n_loc) product of zeros.
         if c0:
             v[c0:c1].addmm_(lj[:, :c0], v[:c0], alpha=-1.0)
-        v[c0:c1] = torch.linalg.solve_triangular(lj[:, c0:c1], v[c0:c1], upper=False)
+        # Solved into its own rows: no (cb, n_loc) block is allocated.
+        torch.linalg.solve_triangular(lj[:, c0:c1], v[c0:c1], upper=False, out=v[c0:c1])
     return v
 
 
@@ -174,25 +194,62 @@ def _check_divisible(cap: int, mesh: Mesh) -> None:
         )
 
 
+def _scalar(value, like: torch.Tensor) -> torch.Tensor:
+    """A number as a 0-d tensor of ``like``'s dtype and device, made by a
+    fill (a program's inputs are tensors); a tensor as it is."""
+    if isinstance(value, torch.Tensor):
+        return value
+    return torch.full((), float(value), dtype=like.dtype, device=like.device)
+
+
+def _cholesky_body(*, mesh, k_rows, active, noise) -> tuple:
+    return (chol2d_local(mesh, k_rows, active, noise),)
+
+
+def _cho_solve_body(*, mesh, l, b) -> tuple:
+    return (solve2d_local(mesh, l, solve2d_local(mesh, l, b), trans=True),)
+
+
+def _whiten_body(*, mesh, l, k_cols) -> tuple:
+    return (whiten2d_local(mesh, l, k_cols),)
+
+
 def make_sharded_cholesky(mesh: Mesh):
     """``(k_rows (cb, cap) this rank's block-row, active (cap,), noise) ->
-    this rank's (cb, cap) block-row of L``."""
+    this rank's (cb, cap) block-row of L``, as one program of the mesh."""
 
     def cholesky(k_rows: torch.Tensor, active: torch.Tensor, noise) -> torch.Tensor:
         _check_divisible(active.shape[0], mesh)
-        return chol2d_local(mesh, k_rows, active, noise)
+        (l,) = sh._program(mesh, "chol2d_cholesky", _cholesky_body,
+                           {"k_rows": k_rows, "active": active,
+                            "noise": _scalar(noise, k_rows)}, {})
+        return l
 
     return cholesky
 
 
 def make_sharded_cho_solve(mesh: Mesh):
-    """``(L's block-row, b (cap, r) replicated) -> K_ll^-1 b`` replicated."""
-    return lambda l, b: solve2d_local(mesh, l, solve2d_local(mesh, l, b), trans=True)
+    """``(L's block-row, b (cap, r) replicated) -> K_ll^-1 b`` replicated, as
+    one program of the mesh."""
+
+    def cho_solve(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        _check_divisible(b.shape[0], mesh)
+        (x,) = sh._program(mesh, "chol2d_cho_solve", _cho_solve_body, {"l": l, "b": b}, {})
+        return x
+
+    return cho_solve
 
 
 def make_sharded_whiten(mesh: Mesh):
-    """``(L's block-row, K's (cap, N/p) columns) -> V's (cap, N/p) columns``."""
-    return lambda l, k_cols: whiten2d_local(mesh, l, k_cols)
+    """``(L's block-row, K's (cap, N/p) columns) -> V's (cap, N/p) columns``,
+    as one program of the mesh; ``K`` is left as it was."""
+
+    def whiten(l: torch.Tensor, k_cols: torch.Tensor) -> torch.Tensor:
+        _check_divisible(k_cols.shape[0], mesh)
+        (v,) = sh._program(mesh, "chol2d_whiten", _whiten_body, {"l": l, "k_cols": k_cols}, {})
+        return v
+
+    return whiten
 
 
 def shard_rows(a: torch.Tensor, mesh: Mesh) -> torch.Tensor:

@@ -483,14 +483,15 @@ def _sharded_run(mesh, cfg, dataset) -> Dict[str, Any]:
             mesh, LearnConfig.from_gp(cfg.gp))(state),
     )
     if big:
-        # set_query and a load leave l replicated: take this rank's block-row.
-        # The refit is the distributed one, and a round already refits.
+        # set_query and a load leave l replicated: take this rank's block-row,
+        # row-major as the programs captured it.  The refit is the
+        # distributed one (a program), and a round already refits.
         refit = bigcap.make_bigcap_fit(mesh)
-        gather = lambda gidx: sh.gather_rows(mesh, state0.x, gidx)  # noqa: E731
         ops = dataclasses.replace(
             ops, layout=lambda state: bigcap.shard_state_bigcap(state, mesh, corpus_sharded=True),
             refit=refit, drift_refit=False,
-            relearn=functools.partial(_relearn_on_mesh, gather=gather, refit=refit))
+            relearn=functools.partial(_relearn_on_mesh, rows=functools.partial(
+                sh.labeled_rows, mesh), refit=refit))
     res = _run_sessions(cfg, dataset, state0, ops, plan, dev,
                         profile_dir=cfg.profile_dir if rank0 else None,
                         log_jsonl=cfg.log_jsonl if rank0 else None)
@@ -797,13 +798,14 @@ def _relearn_hyperparams(state: gp_mod.GPState, cfg: ExperimentConfig) -> gp_mod
     return state
 
 
-def _relearn_on_mesh(state: gp_mod.GPState, cfg: ExperimentConfig, *, gather: Callable,
+def _relearn_on_mesh(state: gp_mod.GPState, cfg: ExperimentConfig, *, rows: Callable,
                      refit: Callable) -> gp_mod.GPState:
-    """:func:`_relearn_hyperparams` on the large-cap mesh: every rank learns
-    from the labeled rows gathered by ``gather`` (the collective row gather)
-    alike, the ascent alone a program, then refits with ``refit`` (the
-    large-cap path's distributed one)."""
-    state.hyper = fit_hyperparams(gather(state.idx), state.y, state.active, state.hyper,
+    """:func:`_relearn_hyperparams` on the large-cap mesh (the reference's
+    ``_relearn_hyperparams`` with ``refit=bigcap_refit``): every rank learns
+    alike from the labeled rows ``rows(state)`` gathers (a program of the
+    mesh), the ascent a program of its own, then refits with ``refit`` (the
+    large-cap path's distributed refit, a program of the mesh)."""
+    state.hyper = fit_hyperparams(rows(state), state.y, state.active, state.hyper,
                                   **_learn_kwargs(cfg, state))
     return refit(state)
 

@@ -20,10 +20,18 @@ A fault-finding check for multi-rank NCCL meshes, which ``chip_smoke.py``
 3. ``chip_smoke.py``'s phase 11: ``configs/scale100k.ini`` with cap 1024 at
    ``GP.chol2d_threshold = 1024`` and ITAL's production options, cut to 1
    class x 3 rounds, through the runner's per-round mesh of N ranks (the
-   distributed refit, ``parallel/bigcap.py``) beside ``mesh_devices = 0``:
-   the picks that differ, the largest gap between the posterior means after
-   each round, the refit's time per round, and each rank's ``l`` shape,
-   which must be (1024 / N, 1024).
+   distributed refit, ``parallel/bigcap.py``: each round a selection and an
+   absorption program per rank with their collectives inside), graphed and
+   then under ``graphs.eager()``, beside ``mesh_devices = 0``, whose picks
+   and means are read after each of its absorb programs returns.  Each mesh
+   run's picks must equal the single-device run's up to MI ties (the
+   refined-MI gap at the first parting, on the single-device state, within
+   1e-5) and every rank's ``l`` must be (1024 / N, 1024) after every round.
+   Prints the largest gap between the posterior means after each round,
+   each rank's synchronized round ms graphed and eager, and the
+   distributed refit (``bigcap_fit``) of the last state timed on each rank
+   in graphed, eager, eager, graphed turns of three calls, its graphed mean
+   within 1e-6 of the eager one.
 
 Prints the card's name and power limit, and exits non-zero on any error.
 With ``--device cpu`` it runs on gloo processes at 3000 x 128 rows.
@@ -32,6 +40,7 @@ With ``--device cpu`` it runs on gloo processes at 3000 x 128 rows.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import subprocess
 import sys
@@ -51,50 +60,76 @@ BIGCAP = ("EXPERIMENT.max_classes=1", "EXPERIMENT.n_rounds=3", "GP.cap=1024",
           "METHOD.refine_top=64", "METHOD.refine_n_qmc=512")
 
 
+TURNS = ("graphed", "eager", "eager", "graphed")
+FIT_CALLS = 3
+MI_TIE_ATOL = 1e-5
+GRAPH_MU_ATOL = 1e-6
+
+
+def _mode(mode: str):
+    from ital_tpu_torch import graphs
+
+    return graphs.eager() if mode == "eager" else contextlib.nullcontext()
+
+
 def _bigcap_rank(mesh, cfg, dataset):
-    """One rank of the runner's per-round mesh with its distributed refits
-    timed (device synchronized) and its rounds' picks and gathered means
-    kept; returns rank 0's result with every rank's records."""
+    """One rank of the runner's per-round large-cap mesh, run graphed, then
+    under ``graphs.eager()``: each round's picks, gathered mean, ``l`` shape
+    and synchronized ms.  Then the distributed refit of the graphed run's
+    last state, on copies of it, in graphed, eager, eager, graphed turns.
+    Returns rank 0's results with every rank's times and shapes."""
     import torch.distributed as dist
 
     from ital_tpu_torch import runner
+    from ital_tpu_torch.models import gp as gp_mod
     from ital_tpu_torch.parallel import bigcap, sharded
 
-    fits, rounds = [], []
-    make_fit, make_round = bigcap.make_bigcap_fit, bigcap.make_bigcap_round
-
-    def timed_fit(m):
-        fit = make_fit(m)
-
-        def run(state):
-            _sync(m.device)
-            t = time.perf_counter()
-            state = fit(state)
-            _sync(m.device)
-            fits.append({"ms": (time.perf_counter() - t) * 1e3, "l": tuple(state.l.shape)})
-            return state
-
-        return run
+    rounds, res, last = {}, {}, {}
+    make_round = bigcap.make_bigcap_round
 
     def kept_round(*args, **kwargs):
         round_fn = make_round(*args, **kwargs)
+        key = mode  # the run that made it
 
         def run(state, *a, **kw):
+            _sync(mesh.device)
+            t = time.perf_counter()
             out = round_fn(state, *a, **kw)
-            rounds.append({"picks": out[1].tolist(),
+            _sync(mesh.device)
+            ms = (time.perf_counter() - t) * 1e3
+            rounds[key].append({"ms": ms, "picks": out[1].tolist(), "l": tuple(out[0].l.shape),
                            "mu": sharded.all_gather_cat(mesh, out[0].mu).cpu().numpy()})
+            last[key] = out[0]
             return out
 
         return run
 
-    bigcap.make_bigcap_fit, bigcap.make_bigcap_round = timed_fit, kept_round
+    bigcap.make_bigcap_round = kept_round
     try:
-        res = runner._sharded_run(mesh, cfg, dataset)
+        for mode in ("graphed", "eager"):
+            rounds[mode] = []
+            with _mode(mode):
+                res[mode] = runner._sharded_run(mesh, cfg, dataset)
     finally:
-        bigcap.make_bigcap_fit, bigcap.make_bigcap_round = make_fit, make_round
+        bigcap.make_bigcap_round = make_round
+    fit = bigcap.make_bigcap_fit(mesh)
+    fits, mus = {"graphed": [], "eager": []}, {}
+    for mode in TURNS:
+        with _mode(mode):
+            for _ in range(FIT_CALLS):
+                state = gp_mod.gp_session_copy(last["graphed"])
+                _sync(mesh.device)
+                t = time.perf_counter()
+                fit(state)
+                _sync(mesh.device)
+                fits[mode].append((time.perf_counter() - t) * 1e3)
+            mus[mode] = sharded.all_gather_cat(mesh, state.mu).cpu().numpy()
+    mine = {"fits": fits, "rounds": {m: [(r["ms"], r["l"]) for r in rs]
+                                     for m, rs in rounds.items()}}
     every = [None] * mesh.size
-    dist.all_gather_object(every, fits, group=mesh.group)
-    return {"res": res, "fits": every, "rounds": rounds}
+    dist.all_gather_object(every, mine, group=mesh.group)
+    return {"res": res, "rounds": rounds, "ranks": every,
+            "fit_gap": float(np.abs(mus["graphed"] - mus["eager"]).max())}
 
 
 def _sync(dev):
@@ -102,53 +137,95 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
+def _held_to_single(what: str, rounds: list, single: list, cfg, dev) -> None:
+    """A mesh run's picks against the single-device run's: equal, or at the
+    first round where they part an MI tie on the single-device state the
+    round selected from (``chip_smoke._tie_gaps``, step by step)."""
+    import types
+
+    from chip_smoke import _tie_gaps
+    from ital_tpu_torch.models import gp as gp_mod
+    from ital_tpu_torch.select.base import StrategyParams
+
+    n = single[0]["mu"].shape[0]
+    gaps = [float(np.abs(a["mu"][:n] - b["mu"]).max()) for a, b in zip(rounds, single)]
+    part = next((r for r, (a, b) in enumerate(zip(rounds, single)) if a["picks"] != b["picks"]),
+                None)
+    print(f"bigcap {what}: picks {[r['picks'] for r in rounds]}; first round whose picks "
+          f"differ from the single device's {part}; max |mu mesh - mu single| per round {gaps}")
+    if part is None:
+        return
+    params = StrategyParams.create(dev, label_prob=cfg.user.label_prob,
+                                   mistake_prob=cfg.user.mistake_prob)
+    sess = types.SimpleNamespace(state=gp_mod.gp_session_copy(single[part]["before"], dev),
+                                 params=params)
+    tie = _tie_gaps(sess, rounds[part]["picks"], cfg.method_kwargs)
+    print(f"bigcap {what} round {part}: refined-MI gaps of its picks on the single-device "
+          f"state {tie} (tie atol {MI_TIE_ATOL})")
+    if not all(abs(g) <= MI_TIE_ATOL for g in tie):
+        raise SystemExit(f"bigcap {what}: the picks differ from the single device's beyond MI "
+                         f"ties")
+
+
 def bigcap_step(big_cfg, big, dev, ranks: int, tag: str) -> None:
-    """Step 3: the large-cap per-round mesh of ``ranks`` beside
-    ``mesh_devices = 0``."""
+    """Step 3: the large-cap per-round mesh of ``ranks``, graphed and eager,
+    beside ``mesh_devices = 0``."""
     from ital_tpu_torch import runner
     from ital_tpu_torch.models import gp as gp_mod
     from ital_tpu_torch.parallel.launch import launch
 
-    single_mu, single_picks = [], []
-    orig_update = gp_mod.gp_update
+    single = []
+    absorb = runner.absorb_step
 
-    def kept_update(state, idx, *a, **kw):
-        state = orig_update(state, idx, *a, **kw)
-        single_picks.append(idx.tolist())
-        single_mu.append(state.mu.cpu().numpy().copy())  # the update writes mu in place
-        return state
+    def kept_absorb(state, batch, *a, **kw):
+        # Around the program, never inside it: the host reads come after it
+        # returns.  The state before it is the one the round selected from.
+        before = gp_mod.gp_session_copy(state, "cpu")
+        out = absorb(state, batch, *a, **kw)
+        single.append({"picks": batch.tolist(), "mu": out[0].mu.cpu().numpy().copy(),
+                       "before": before})
+        return out
 
-    gp_mod.gp_update = kept_update
+    runner.absorb_step = kept_absorb
     try:
         t0 = time.perf_counter()
-        single = runner.run_experiment(dataclasses.replace(big_cfg, mesh_devices=0), big,
-                                       device=dev)
-        print(f"bigcap mesh_devices=0: MAP {[round(float(m), 6) for m in single['map']]}; "
-              f"update {single['update_ms']:.3f} ms mean; run {time.perf_counter() - t0:.1f} s "
+        res = runner.run_experiment(dataclasses.replace(big_cfg, mesh_devices=0), big,
+                                    device=dev)
+        print(f"bigcap mesh_devices=0: MAP {[round(float(m), 6) for m in res['map']]}; "
+              f"update {res['update_ms']:.3f} ms mean; run {time.perf_counter() - t0:.1f} s "
               f"{tag}")
     finally:
-        gp_mod.gp_update = orig_update
+        runner.absorb_step = absorb
+    if len(single) != big_cfg.n_rounds:
+        raise SystemExit(f"the single-device run absorbed {len(single)} rounds, not "
+                         f"{big_cfg.n_rounds}")
     t0 = time.perf_counter()
     out = launch(ranks, _bigcap_rank, dataclasses.replace(big_cfg, mesh_devices=ranks), big,
                  device=dev)
-    res = out["res"]
-    print(f"bigcap mesh_devices={ranks}: chol2d {res.get('chol2d')}; MAP "
-          f"{[round(float(m), 6) for m in res['map']]}; select {res['select_ms']:.3f} ms mean, "
-          f"update {res['update_ms']:.3f} ms mean; run {time.perf_counter() - t0:.1f} s {tag}")
-    if res.get("chol2d") is not True or res["mesh_devices"] != ranks:
-        raise SystemExit(f"the mesh of {ranks} did not take the distributed refit")
-    n = single_mu[0].shape[0]
-    differ = [r for r, (a, b) in enumerate(zip(out["rounds"], single_picks))
-              if a["picks"] != b]
-    gaps = [float(np.abs(a["mu"][:n] - b).max()) for a, b in zip(out["rounds"], single_mu)]
-    print(f"bigcap: rounds whose picks differ {differ} of {len(single_picks)}; max |mu mesh - "
-          f"mu single| per round {gaps}")
-    for rank, fits in enumerate(out["fits"]):
-        print(f"bigcap rank {rank}: l {sorted({f['l'] for f in fits})}; refit ms per round "
-              f"{[round(f['ms'], 3) for f in fits]} {tag}")
+    for mode, res in out["res"].items():
+        print(f"bigcap mesh_devices={ranks} {mode}: chol2d {res.get('chol2d')}; MAP "
+              f"{[round(float(m), 6) for m in res['map']]}; select {res['select_ms']:.3f} ms "
+              f"mean, update {res['update_ms']:.3f} ms mean (rank 0) {tag}")
+        if res.get("chol2d") is not True or res["mesh_devices"] != ranks:
+            raise SystemExit(f"the mesh of {ranks} did not take the distributed refit")
+        _held_to_single(f"mesh of {ranks} {mode}", out["rounds"][mode], single, big_cfg, dev)
+    picks = {m: [r["picks"] for r in rs] for m, rs in out["rounds"].items()}
+    print(f"bigcap mesh of {ranks}: graphed and eager runs {time.perf_counter() - t0:.1f} s; "
+          f"graphed picks equal eager: {picks['graphed'] == picks['eager']}")
     want = (big_cfg.cap // ranks, big_cfg.cap)
-    if any(f["l"] != want for fits in out["fits"] for f in fits):
-        raise SystemExit(f"a rank's l is not {want}")
+    for rank, mine in enumerate(out["ranks"]):
+        for mode, rs in mine["rounds"].items():
+            print(f"bigcap rank {rank} {mode}: round ms {[round(ms, 3) for ms, _ in rs]}; l "
+                  f"{sorted({l for _, l in rs})} {tag}")
+            if len(rs) != big_cfg.n_rounds or any(l != want for _, l in rs):
+                raise SystemExit(f"rank {rank}'s l is not {want} after every round")
+        print(f"bigcap rank {rank} refit (bigcap_fit) ms per call: " + "; ".join(
+            f"{mode} {[round(ms, 3) for ms in mine['fits'][mode]]}" for mode in mine["fits"])
+            + f" {tag}")
+    print(f"bigcap refit: max |mu graphed - mu eager| {out['fit_gap']:.3e} (atol "
+          f"{GRAPH_MU_ATOL})")
+    if out["fit_gap"] > GRAPH_MU_ATOL:
+        raise SystemExit("the graphed refit's mean is not the eager one's")
 
 
 def main(argv=None) -> int:

@@ -70,9 +70,10 @@ def _dataset():
 # -- the reference's side, in the parent ----------------------------------------
 
 
-def _jax_side(p):
-    """The reference's fit and rounds at mesh size ``p``, their draws and
-    the states they start from, as NumPy arrays."""
+def _jax_side(p, cases=None):
+    """The reference's fit and rounds at mesh size ``p`` (the round cases
+    ``cases``, default :func:`_round_cases`), their draws and the states
+    they start from, as NumPy arrays."""
     import jax
     import jax.numpy as jnp
 
@@ -115,7 +116,7 @@ def _jax_side(p):
     out["fit"] = {f: np.asarray(getattr(fitted, f)) for f in ("mu", "sig2", "beta", "l")}
 
     key = jax.random.PRNGKey(11)
-    for name, (strategy, opts) in _round_cases(p).items():
+    for name, (strategy, opts) in (_round_cases(p) if cases is None else cases).items():
         cap, b, n_rounds = ((PANEL_CAP, PANEL_B, PANEL_ROUNDS) if name == "panels"
                             else (CAP, B, ROUNDS))
         fn = make_bigcap_round(mesh, strategy=strategy, batch_size=b, recall_ks=(10,), **opts)

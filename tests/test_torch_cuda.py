@@ -202,6 +202,28 @@ def test_cuda_blockwise_reduce_abs_kpost_matches_plain(dtype, weighted):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", ["wgmma", "tile"])
+def test_cuda_kernel_writes_into_out(route):
+    """``out=`` (the large-cap refit forms its cross block in ``v``'s own
+    buffer): the kernel writes the given buffer, the values of a new block,
+    one launch; ``rbf_kernel`` passes it through."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    a, b, kw, ls = _inputs((64, 2500, 512), "b2", torch.float32)
+    want = rbf_hopper.rbf_tile(a, b, ls, 0.8, _route=route, **kw)
+    out = torch.full((64, 2500), float("nan"), device="cuda")
+    before = rbf_hopper.LAUNCHES
+    got = rbf_hopper.rbf_tile(a, b, ls, 0.8, out=out, _route=route, **kw)
+    torch.cuda.synchronize()
+    assert got is out and rbf_hopper.LAUNCHES == before + 1
+    assert torch.equal(out, want)
+    again = torch.empty_like(out)
+    assert rbf_kernel(a, b, ls, 0.8, out=again, **kw) is again
+    assert float((again - rbf_kernel_plain(a, b, ls, 0.8, **kw)).abs().max()) <= _atol(
+        torch.float32, 0.8)
+
+
+@pytest.mark.cuda
 def test_cuda_empty_output_launches_nothing():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")

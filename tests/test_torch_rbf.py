@@ -89,6 +89,17 @@ def test_cpu_tensors_take_the_plain_version(rng):
     assert rbf_hopper.LAUNCHES == before
 
 
+def test_cpu_block_written_into_out(rng):
+    """``out=`` takes the block in place, the values of a new block."""
+    a, b = (torch.from_numpy(t) for t in _pair(rng))
+    out = torch.full((a.shape[0], b.shape[0]), float("nan"))
+    got = rbf_kernel(a, b, 1.3, 0.7, b2=(b * b).sum(-1), out=out)
+    assert got is out
+    assert torch.equal(out, rbf_kernel(a, b, 1.3, 0.7, b2=(b * b).sum(-1)))
+    with pytest.raises(ValueError, match="differentiates"):
+        rbf_kernel(a, b, torch.tensor(1.3, requires_grad=True), 0.7, out=out)
+
+
 @pytest.mark.parametrize("case,exc,match", [
     ("f64", TypeError, "float32 or bfloat16"),
     ("mixed_dtype", TypeError, "float32 or bfloat16"),
@@ -98,6 +109,9 @@ def test_cpu_tensors_take_the_plain_version(rng):
     ("norm_shape", ValueError, "a2"),
     ("norm_dtype", ValueError, "b2"),
     ("cpu", ValueError, "CUDA device"),
+    ("out_shape", ValueError, "out must be"),
+    ("out_layout", ValueError, "out must be"),
+    ("out_misaligned", ValueError, "16-byte-aligned"),
 ])
 def test_wrapper_rejects_what_the_kernel_does_not_take(case, exc, match):
     a = torch.zeros(8, 4)
@@ -117,6 +131,12 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case, exc, match):
         kw["a2"] = torch.zeros(7)
     elif case == "norm_dtype":
         kw["b2"] = torch.zeros(5, dtype=torch.float64)
+    elif case == "out_shape":
+        kw["out"] = torch.zeros(8, 4)
+    elif case == "out_layout":
+        kw["out"] = torch.zeros(5, 8).T
+    elif case == "out_misaligned":
+        kw["out"] = torch.zeros(8 * 5 + 1)[1:].view(8, 5)  # 4 bytes past an aligned base
     before = rbf_hopper.LAUNCHES
     with pytest.raises(exc, match=match):
         rbf_hopper.rbf_tile(a, b, 1.0, 1.0, **kw)
