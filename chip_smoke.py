@@ -21,8 +21,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    per-launch times of both routes (each forced) and the plain version, as
    runs of 50 launches between two CUDA events taken in turns (median of 5
    runs each, after warm-up), and each route's device time per launch from
-   ``torch.profiler``.  The picked route must not be slower than the
-   tile kernel beyond the runs' spread.
+   ``torch.profiler`` (the mean over the kernel records it kept, which late
+   in a long process are fewer than the launches).  The picked route must
+   not be slower than the tile kernel beyond the runs' spread, and no event
+   or device time may lie more than 3 % under its bound, here and at every
+   later phase's shapes.
 4. session: the production configuration (``configs/mirflickr_production.ini``)
    on the 25 000 x 512 MIRFLICKR surrogate: ``update_query`` and 10 rounds of
    fetch / simulated user / update / AP through ``ActiveRetrieval``.  The
@@ -101,7 +104,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 9. sharded: the corpus-sharded path (``ital_tpu_torch.parallel``).  A mesh of
    one card must run on NCCL.  The kernel at the two whole-corpus shapes the
    100 000-row path adds, (64, 100000, 512) and (4, 100000, 512) f32, against
-   its plain version and its bound.  Then ``configs/scale100k.ini``
+   its plain version, the tile route forced and its bound.  Then ``configs/scale100k.ini``
    (``corpus100k``, 100 000 x 512, ITAL, cap 64; depth cut to 1 class x 3
    rounds) through the runner with ``mesh_devices = 8``, which clamps to the
    card (a world of one on NCCL), beside the same configuration with
@@ -259,13 +262,42 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    with the card's name and power limit.  The launch count is reset before
    the phase's programs.
 
+15. 1M rows: the JAX package's largest scale (``scripts/scale1m.py``,
+   ``scripts/serve_throughput.py``'s ``corpus1m``), on ``corpus100k``'s
+   generator at 1 000 000 x 512, built once on the host (its seconds
+   printed) and stored in bfloat16, with the production [GP]/[USER]/[METHOD]
+   at cap 64.  First the kernel at the path's 1M-row blocks: ``gp_fit``'s
+   (64, N, 512) b2 in bf16 and f32, the update's (4, N, 512) b2 in bf16,
+   the full scan's (N, 3, 512) a2 in bf16 and f32 and the pool's
+   (4096, 3, 512) cross block, each against its plain version (within
+   ``BF16_ATOL`` or ``F32_ATOL`` x var) and against the route the router
+   did not pick, forced, with event ms, profiler device us and its bound.
+   Then one ``ActiveRetrieval`` over the bfloat16 corpus (rounded on the
+   card, held bit-equal to the host's rounding; its norms f32 sums of the
+   stored values): ``update_query`` and ``SCALE1M_ROUNDS`` graphed rounds
+   of fetch, simulated user, update and AP (the path's count; the kernel
+   must launch in every step), then fetches timed on the last state; init
+   + query seconds, fetch, update and round ms, the device memory the
+   session took and each program's static buffers, pool growth and launches
+   per replay.  The round-``SCALE1M_MID`` state copied to the CPU must pick
+   the card's batch up to MI ties and reach its posterior mean within
+   ``CPU_MU_ATOL`` after the same update.  Last, the server over the same
+   bfloat16 corpus over HTTP: ``SCALE1M_K`` sessions and
+   ``SCALE1M_SERVE_ROUNDS`` rounds of ``/batch_select`` and
+   ``/batch_feedback`` of all of them (the path's count); the second round
+   captures nothing (the two stacked programs held within
+   ``graphs.STACK_BYTES``), every request that forms RBF blocks launches
+   the kernel, and the device memory each cohort request adds per session
+   is held to the server's budget and printed beside the 25 000/100 000-row
+   fit; host ms per request kind with the card's name and power limit.
+
 The second-to-last line is a JSON object describing the kernel (launches on
 the main paths in all, per route and per path, its bound, its time and the
 plain version's, and its times at the 100 000-row shapes, at the mesh
 cohort's stacked shard shapes, at the large-cap refit's shapes and at the
 ascent's (64, 64, 512) block with its launches per ``/learn``, at the
-strategies' blocks, and each mesh, large-cap and strategy program's
-launches per replay); the
+strategies' blocks and at the 1M-row blocks, and each mesh, large-cap,
+strategy and 1M-row program's launches per replay); the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -375,6 +407,19 @@ GRAPH_MU_ATOL = 1e-6
 ROUND_STEPS = 5
 ENTRY_SHAPE = {"n": 2048, "d": 64, "cap": 64, "ls": 6.0, "query": 7}
 GRAPH_HARNESS_OVERRIDES = ("EXPERIMENT.max_classes=2", "EXPERIMENT.n_rounds=5")
+# Phase 15: the JAX package's largest scale (scripts/scale1m.py and
+# scripts/serve_throughput.py's corpus1m): corpus100k's generator at 1M x 512,
+# stored in bfloat16, the production [GP]/[USER]/[METHOD] at cap 64.
+SCALE1M_N = 1_000_000
+SCALE1M_DTYPE = "bfloat16"
+SCALE1M_ROUNDS = 3
+SCALE1M_MID = 2  # the round whose state the CPU replays
+SCALE1M_FETCHES = 5  # fetches timed on the last state (uncounted)
+SCALE1M_K = 8  # sessions of the server's cohort
+SCALE1M_SERVE_ROUNDS = 2
+# ITAL's select budget fitted at 25 000 and 100 000 rows (phases 8-9): (cap, N)
+# copies and fixed bytes a session, held at 1M rows.
+SELECT_FIT = (1.07, 89.0 * 2**20)
 # Phase 13: /learn's programs and a fused learning cohort of 4 x 6 rounds.
 LEARN_GRAPH_RTOL = 1e-6  # learned values and gradients, graphed vs eager on the card
 LEARN_TIMED = 3  # re-learns timed per turn
@@ -469,7 +514,9 @@ def _time_turns_ms(torch, fns, launches: int = 50, runs: int = 5,
 
 def _device_us(torch, fn, launches: int = 20) -> float:
     """Device time per launch of the RBF kernels that ``fn`` launches, from
-    ``torch.profiler``'s CUDA activity (kernels named ``rbf_*``)."""
+    ``torch.profiler``'s CUDA activity (kernels named ``rbf_*``): their
+    total over the kernel records the profiler kept, so records it drops
+    late in a long process lower neither the sum's share nor the mean."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -478,11 +525,23 @@ def _device_us(torch, fn, launches: int = 20) -> float:
         for _ in range(launches):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
+    total, kept = 0.0, 0
     for evt in prof.key_averages():
         if "rbf_" in evt.key:
             total += getattr(evt, "device_time_total", 0.0) or evt.cuda_time_total
-    return total / launches
+            kept += evt.count
+    check(kept > 0, f"the profiler kept no RBF kernel record of {launches} launches")
+    if kept != launches:
+        print(f"profiler: kept {kept} RBF kernel records of {launches} launches")
+    return total / kept
+
+
+def _check_bound(what: str, ms: float, dev_us: float, bound_ms: float) -> None:
+    """A kernel cannot beat its bound: an event time or a profiler reading
+    more than 3 % under it is a faulty measurement, not a fast kernel."""
+    for name, t in (("event time", ms), ("device time", dev_us * 1e-3)):
+        check(t >= 0.97 * bound_ms,
+              f"{what}: {name} {t * 1e3:.2f} us is under its bound {bound_ms * 1e3:.2f} us")
 
 
 def kernel_phase(torch, ds) -> dict:
@@ -558,6 +617,7 @@ def kernel_phase(torch, ds) -> dict:
               + "; device us per launch " + ", ".join(f"{r} {u:.2f}" for r, u in dev_us.items()))
         for r, e in errs.items():
             check(e <= tol, f"{name}: {r} route max_abs_err {e} > {tol}")
+            _check_bound(f"{name} {r} route", timed[r][0], dev_us[r], bound)
         check(err <= tol, f"{name}: max_abs_err {err} > {tol}")
         tile_ms, tile_spread = timed["tile"]
         check(ms <= tile_ms + max(spread, tile_spread),
@@ -691,8 +751,9 @@ def _tie_gaps(sess, card_batch, kw) -> list[float]:
     return gaps
 
 
-def cpu_phase(torch, ds, cfg, mid) -> None:
-    """Replay the mid-session round on the CPU's plain path from the same state."""
+def cpu_phase(torch, ds, cfg, mid, corpus_dtype=None, what: str = "cpu") -> None:
+    """Replay the mid-session round on the CPU's plain path from the same state
+    (a corpus of ``corpus_dtype``, as the card's)."""
     from ital_tpu_torch.models import gp as gp_mod
     from ital_tpu_torch.models.session import ActiveRetrieval
 
@@ -700,24 +761,27 @@ def cpu_phase(torch, ds, cfg, mid) -> None:
         ds.x, length_scale=cfg.gp.length_scale, var=cfg.gp.var, noise=cfg.gp.noise,
         cap=CAP, strategy=cfg.method, label_prob=cfg.user.label_prob,
         mistake_prob=cfg.user.mistake_prob, seed=SEED,
-        method_kwargs=cfg.method_kwargs, device="cpu",
+        method_kwargs=cfg.method_kwargs, corpus_dtype=corpus_dtype, device="cpu",
     )
     sess.state = gp_mod.state_from_arrays(mid["arrays"], "cpu")
+    if corpus_dtype:  # the carrier hands a bfloat16 corpus back as float32
+        sess.state.x = sess.state.x.to(getattr(torch, corpus_dtype))
     batch = sess.fetch_unlabelled(cfg.batch_size)
     same = bool(np.array_equal(batch, mid["batch"]))
-    print(f"cpu: batch {batch.tolist()} (card {mid['batch'].tolist()}), equal: {same}")
+    print(f"{what}: batch {batch.tolist()} (card {mid['batch'].tolist()}), equal: {same}")
     if not same:
         # The production pool's low-mean edge saturates MI: many candidates
         # score the same to f32 resolution, and the two devices' last-ulp
         # differences pick different members of a tie.
         gaps = _tie_gaps(sess, mid["batch"], cfg.method_kwargs)
-        print(f"cpu: per-step refined-MI gap, CPU pick minus card pick: {gaps} "
+        print(f"{what}: per-step refined-MI gap, CPU pick minus card pick: {gaps} "
               f"(tie atol {MI_TIE_ATOL})")
-        check(all(abs(g) <= MI_TIE_ATOL for g in gaps), "card and CPU batches differ only by ties")
+        check(all(abs(g) <= MI_TIE_ATOL for g in gaps),
+              f"{what}: card and CPU batches differ only by ties")
     sess.update(mid["feedback"])
     err = float(np.abs(sess.state.mu.numpy() - mid["mu"]).max())
-    print(f"cpu: max |mu_cpu - mu_card| after the update {err:.3e} (atol {CPU_MU_ATOL})")
-    check(err <= CPU_MU_ATOL, f"mu card vs CPU {err} > {CPU_MU_ATOL}")
+    print(f"{what}: max |mu_cpu - mu_card| after the update {err:.3e} (atol {CPU_MU_ATOL})")
+    check(err <= CPU_MU_ATOL, f"{what}: mu card vs CPU {err} > {CPU_MU_ATOL}")
 
 
 def _reset_counts() -> None:
@@ -1919,7 +1983,7 @@ def _big_kernel_times(torch, big, scale, dev, smi: str) -> list:
     n, d = big.x.shape
     return _kernel_shapes(torch, "sharded", [
         (f"{m}x{n}x{d}", x[torch.from_numpy(rng.choice(n, size=m, replace=False)).to(dev)], x,
-         {"b2": x2}) for m in (CAP, 4)], ls, var, smi)
+         {"b2": x2}) for m in (CAP, 4)], ls, var, smi, other_route=True)
 
 
 def _per_session(calls: list, n_sessions: int, rounds: int, cohort: bool) -> list:
@@ -2025,11 +2089,14 @@ def _mesh_kernel_shapes(torch, big, scale, dev, smi: str) -> list:
         (f"({n}, {k * (SERVE_K - 1)}, {d}) a2", x, part, {"a2": x2})], ls, var, smi)
 
 
-def _kernel_shapes(torch, what: str, shapes, ls, var, smi: str) -> list:
-    """Each ``(name, a, b, norms)`` of ``shapes`` through the kernel, f32,
-    against its plain version (error within ``F32_ATOL`` x var, event times
-    in turns, profiler device time) and against its bound.  Uncounted:
-    comparisons, not the path."""
+def _kernel_shapes(torch, what: str, shapes, ls, var, smi: str,
+                   other_route: bool = False) -> list:
+    """Each ``(name, a, b, norms)`` of ``shapes`` through the kernel, f32 or
+    a bf16 corpus, against its plain version (error within ``F32_ATOL`` or
+    ``BF16_ATOL`` x var, event times in turns, profiler device time) and
+    against its bound; with ``other_route``, also the route the router did
+    not pick, forced, in the same turns.  Uncounted: comparisons, not the
+    path."""
     from ital_tpu_torch.ops import rbf_hopper
     from ital_tpu_torch.ops.kernels import rbf_kernel, rbf_kernel_plain
 
@@ -2037,23 +2104,41 @@ def _kernel_shapes(torch, what: str, shapes, ls, var, smi: str) -> list:
     with _uncounted():
         for name, a, b, norms in shapes:
             d = a.shape[1]
-            kern = functools.partial(rbf_kernel, a, b, ls, var, **norms)
-            plain = functools.partial(rbf_kernel_plain, a, b, ls, var, **norms)
-            err = float((kern() - plain()).abs().max())
-            (ms, spread), (plain_ms, plain_spread) = _time_turns_ms(torch, [kern, plain])
-            dev_us = _device_us(torch, kern)
-            bound, bound_by = rbf_bound_ms(a.shape[0], b.shape[0], d, False,
-                                           sum(v.numel() for v in norms.values()), same=a is b)
+            bf16 = a.dtype == torch.bfloat16
+            atol = (BF16_ATOL if bf16 else F32_ATOL) * float(var)
             route = rbf_hopper.choose_route(a.shape[0], b.shape[0], d, a.dtype, a.data_ptr(),
                                             b.data_ptr()).name
-            print(f"kernel: {what} {name}: route {route}; max_abs_err {err:.3e} (atol "
-                  f"{F32_ATOL * float(var):.0e}); per launch ms {ms:.4f} (spread {spread:.4f}), "
+            fns = [functools.partial(rbf_kernel, a, b, ls, var, **norms),
+                   functools.partial(rbf_kernel_plain, a, b, ls, var, **norms)]
+            other = {"wgmma": "tile", "tile": "wgmma"}[route]
+            if other_route and (other == "tile" or rbf_hopper.wgmma_takes(
+                    a.shape[0], b.shape[0], d, a.dtype, a.data_ptr(), b.data_ptr())):
+                fns.append(functools.partial(rbf_hopper.rbf_tile, a, b, ls, var, _route=other,
+                                             **norms))
+            want = fns[1]()
+            errs = [float((fn() - want).abs().max()) for fn in fns[::2]]
+            del want
+            timed = _time_turns_ms(torch, fns)
+            (ms, spread), (plain_ms, plain_spread) = timed[:2]
+            dev_us = _device_us(torch, fns[0])
+            bound, bound_by = rbf_bound_ms(a.shape[0], b.shape[0], d, bf16,
+                                           sum(v.numel() for v in norms.values()), same=a is b)
+            label = "bf16" if bf16 else "f32"
+            forced = (f"; forced {other} route: max_abs_err {errs[1]:.3e}, per launch ms "
+                      f"{timed[2][0]:.4f} (spread {timed[2][1]:.4f})" if len(fns) > 2 else "")
+            print(f"kernel: {what} {name} {label}: route {route}; max_abs_err {errs[0]:.3e} "
+                  f"(atol {atol:.0e}); per launch ms {ms:.4f} (spread {spread:.4f}), "
                   f"plain {plain_ms:.4f} (spread {plain_spread:.4f}); device us {dev_us:.2f}; "
-                  f"bound {bound * 1e3:.2f} us ({bound_by}), {bound / ms * 100:.1f} % of it [{smi}]")
-            check(err <= F32_ATOL * float(var), f"{what} {name}: kernel against plain")
-            out.append({"shape": f"{name} f32", "route": route, "max_abs_err": err, "ms": ms,
-                        "plain_ms": plain_ms, "device_us": dev_us, "bound_ms": bound,
-                        "bound_by": bound_by})
+                  f"bound {bound * 1e3:.2f} us ({bound_by}), {bound / ms * 100:.1f} % of it"
+                  f"{forced} [{smi}]")
+            check(all(e <= atol for e in errs), f"{what} {name} {label}: kernel against plain")
+            _check_bound(f"{what} {name} {label}", ms, dev_us, bound)
+            rec = {"shape": f"{name} {label}", "route": route, "max_abs_err": errs[0], "ms": ms,
+                   "plain_ms": plain_ms, "device_us": dev_us, "bound_ms": bound,
+                   "bound_by": bound_by}
+            if len(fns) > 2:
+                rec.update(other_route=other, other_ms=timed[2][0], other_max_abs_err=errs[1])
+            out.append(rec)
     return out
 
 
@@ -3866,6 +3951,277 @@ def strategies_phase(torch, ds, dev, smi: str) -> dict:
     return {"launches": launches, "shapes": shapes, "by_strategy": out}
 
 
+def _scale_kernel_shapes(torch, big, cfg, dev, smi: str) -> list:
+    """The kernel at the 1M-row path's blocks, on the bfloat16 corpus and on
+    its float32 source: ``gp_fit``'s (cap, N) and the update's (b, N) with
+    b2, the full scan's (N, t) with a2 and the pool's (4096, t) cross block;
+    each against its plain version, the route the router did not pick, and
+    its bound."""
+    x = torch.from_numpy(big.x).to(dev)
+    xb = x.to(torch.bfloat16)
+    x2 = (x * x).sum(-1)
+    xb2 = _f32_norms(torch, xb)
+    rng = np.random.default_rng(SEED + 41)
+    n, d = big.x.shape
+
+    def rows(m):
+        return torch.from_numpy(rng.choice(n, size=m, replace=False)).to(dev)
+
+    fit, upd, part, pool = rows(CAP), rows(cfg.batch_size), rows(cfg.batch_size - 1), rows(4096)
+    t = cfg.batch_size - 1
+    shapes = [(f"gp_fit ({CAP}, {n}, {d}) b2", xb[fit], xb, {"b2": xb2}),
+              (f"update ({cfg.batch_size}, {n}, {d}) b2", xb[upd], xb, {"b2": xb2}),
+              (f"gp_fit ({CAP}, {n}, {d}) b2", x[fit], x, {"b2": x2}),
+              (f"full scan ({n}, {t}, {d}) a2", xb, xb[part], {"a2": xb2}),
+              (f"full scan ({n}, {t}, {d}) a2", x, x[part], {"a2": x2}),
+              (f"pool cross (4096, {t}, {d})", xb[pool], xb[part], {})]
+    ls = torch.tensor(cfg.gp.length_scale, device=dev)
+    var = torch.tensor(cfg.gp.var, device=dev)
+    return _kernel_shapes(torch, "1M", shapes, ls, var, smi, other_route=True)
+
+
+def _f32_norms(torch, x):
+    """A corpus' squared row norms as ``gp_init`` forms them: f32 sums of
+    the stored values."""
+    xf = x.to(torch.float32)
+    return (xf * xf).sum(-1)
+
+
+def _scale_session(torch, big, cfg, dev, smi: str) -> dict:
+    """``ActiveRetrieval`` over the bfloat16 1M-row corpus at the production
+    options: ``update_query`` and ``SCALE1M_ROUNDS`` graphed rounds of fetch,
+    simulated user, update and AP (the path's count), then fetches timed on
+    the last state (uncounted); its programs' static and pool MiB."""
+    from ital_tpu_torch import graphs
+    from ital_tpu_torch.data.user import simulate_feedback
+    from ital_tpu_torch.models import gp as gp_mod
+    from ital_tpu_torch.models.session import ActiveRetrieval
+    from ital_tpu_torch.ops import rbf_hopper
+    from ital_tpu_torch.utils.metrics import average_precision
+
+    rng = np.random.default_rng(SEED + 43)
+    cls = int(rng.choice(big.classes))
+    q = int(big.queries_for_class(cls, rng, 1)[0])
+    relevant = torch.from_numpy(big.relevance[:, cls]).to(dev)
+    exclude = torch.zeros(big.n, dtype=torch.bool, device=dev)
+    exclude[q] = True
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    k = cfg.batch_size
+    known, pool0 = _known_programs(), _pool_mib(torch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+
+    _reset_counts()  # the 1M session's count starts here
+    t0 = time.perf_counter()
+    sess = ActiveRetrieval(
+        big.x, length_scale=cfg.gp.length_scale, var=cfg.gp.var, noise=cfg.gp.noise, cap=CAP,
+        strategy=cfg.method, label_prob=cfg.user.label_prob, mistake_prob=cfg.user.mistake_prob,
+        seed=SEED, method_kwargs=cfg.method_kwargs, corpus_dtype=SCALE1M_DTYPE, device=dev)
+    sess.update_query(q)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    st = sess.state
+    check(st.x.dtype == torch.bfloat16 and st.x2.dtype == torch.float32
+          and st.v.dtype == torch.float32, f"bfloat16 corpus, f32 norms and posterior: "
+          f"{st.x.dtype} {st.x2.dtype} {st.v.dtype}")
+    check(torch.equal(st.x.cpu().view(torch.int16),
+                      torch.from_numpy(big.x).to(torch.bfloat16).view(torch.int16)),
+          "the card's bfloat16 rounding equals the host's bit for bit")
+    check(torch.equal(st.x2, _f32_norms(torch, st.x)), "x2 summed in f32 from the stored values")
+    check(rbf_hopper.LAUNCHES > 0, "kernel launched in update_query at 1M rows")
+    print(f"scale session: query {q} (class {cls}); init + query {init_s:.3f} s (host to "
+          f"device, bfloat16 rounding on the card, norms, gp_set_query); launches "
+          f"{rbf_hopper.LAUNCHES}")
+    rows, aps, mid = [], [], None
+    labeled = {q}
+    for r in range(SCALE1M_ROUNDS):
+        before = rbf_hopper.LAUNCHES
+        snapshot = gp_mod.state_to_arrays(sess.state) if r == SCALE1M_MID else None
+        t0 = time.perf_counter()
+        batch = sess.fetch_unlabelled(k)  # returns host indices: synchronizes
+        t1 = time.perf_counter()
+        check(len(set(batch.tolist())) == k and not set(batch.tolist()) & labeled
+              and bool(((batch >= 0) & (batch < big.n)).all()),
+              f"round {r}: {k} distinct unlabeled indices in range {batch}")
+        y, valid = simulate_feedback(gen, torch.as_tensor(batch, device=dev), relevant,
+                                     sess.params.label_prob, sess.params.mistake_prob)
+        fb = {int(i): (int(yy) if vv else 0)
+              for i, yy, vv in zip(batch.tolist(), y.tolist(), valid.tolist())}
+        t2 = time.perf_counter()
+        sess.update(fb)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        aps.append(float(average_precision(sess.state.mu, relevant, exclude)))
+        t4 = time.perf_counter()
+        check(rbf_hopper.LAUNCHES > before, f"round {r}: kernel launched at 1M rows")
+        labeled |= {i for i, v in fb.items() if v}
+        rows.append({"fetch": (t1 - t0) * 1e3, "update": (t3 - t2) * 1e3,
+                     "round": (t4 - t0) * 1e3})
+        print(f"scale round {r}: batch {batch.tolist()} feedback {list(fb.values())} fetch "
+              f"{rows[-1]['fetch']:.3f} ms, update {rows[-1]['update']:.3f} ms, round "
+              f"{rows[-1]['round']:.3f} ms, AP {aps[-1]:.6f}, launches "
+              f"{rbf_hopper.LAUNCHES - before}")
+        if snapshot is not None:
+            mid = {"arrays": snapshot, "batch": batch, "feedback": fb, "mu": sess.scores()}
+    launches = dict(rbf_hopper.ROUTE_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - held
+    check(st.count == 1 + SCALE1M_ROUNDS * k and all(np.isfinite(aps))
+          and bool(torch.isfinite(st.mu).all() and torch.isfinite(st.sig2).all()),
+          "1M session: count, AP, mu and sig2")
+    with _uncounted():
+        fetches = []
+        for _ in range(SCALE1M_FETCHES):
+            t0 = time.perf_counter()
+            sess.fetch_unlabelled(k)
+            fetches.append((time.perf_counter() - t0) * 1e3)
+    progs = _phase_programs(known)
+    _print_programs(progs, known, "scale session", smi)
+    pool1 = _pool_mib(torch)
+    steady = {kind: float(np.median([row[kind] for row in rows[1:]])) for kind in rows[0]}
+    print(f"scale session: AP curve {[round(a, 6) for a in aps]}; first round (captures) "
+          f"fetch {rows[0]['fetch']:.1f} ms, update {rows[0]['update']:.1f} ms; steady "
+          f"(rounds 2-{SCALE1M_ROUNDS}, medians) fetch {steady['fetch']:.3f} ms, update "
+          f"{steady['update']:.3f} ms, round {steady['round']:.3f} ms; {SCALE1M_FETCHES} "
+          f"fetches on the last state {_ms(fetches)}; device memory the session took "
+          f"(max_memory_allocated above what was held) {peak / 2**20:.1f} MiB; graph pools "
+          f"{pool0} -> {pool1} MiB; launches by route {launches} [{smi}]")
+    return {"launches": launches, "mid": mid,
+            "per_replay": {p.name: sum(p.launches.values()) for p in progs}}
+
+
+def _scale_service(torch, big, cfg, dev, smi: str) -> dict:
+    """The server over the bfloat16 1M-row corpus over HTTP: ``SCALE1M_K``
+    sessions, ``SCALE1M_SERVE_ROUNDS`` rounds of ``/batch_select`` and
+    ``/batch_feedback`` of all of them (the path's count); the second round
+    captures nothing; the device memory each request adds per session, held
+    to the select budget and its fit."""
+    from ital_tpu_torch import graphs, serve
+    from ital_tpu_torch.ops import rbf_hopper
+
+    svc = serve.RetrievalService(
+        big.x, length_scale=cfg.gp.length_scale, var=cfg.gp.var, noise=cfg.gp.noise, cap=CAP,
+        strategy=cfg.method, label_prob=cfg.user.label_prob, mistake_prob=cfg.user.mistake_prob,
+        corpus_name="corpus1m", method_kwargs=cfg.method_kwargs, corpus_dtype=SCALE1M_DTYPE,
+        device=dev)
+    check(svc.x.dtype == torch.bfloat16, f"the service's one corpus copy is {svc.x.dtype}")
+    srv = serve.make_server(svc, port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    times, launches = {}, {}
+    rise = {"batch_select": 0.0, "batch_feedback": 0.0}
+
+    def call(kind, path, body):
+        """One POST; its host time runs until the device is idle again, and
+        a cohort request's device memory above what was held is kept."""
+        req = urllib.request.Request(base + path, data=json.dumps(body).encode(), method="POST",
+                                     headers={"Content-Type": "application/json"})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held, before = torch.cuda.memory_allocated(), rbf_hopper.LAUNCHES
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                payload = json.loads(resp.read())
+        except urllib.error.HTTPError as e:
+            raise RuntimeError(f"POST {path}: HTTP {e.code} {e.read()!r}") from e
+        torch.cuda.synchronize()
+        times.setdefault(kind, []).append((time.perf_counter() - t0) * 1e3)
+        launches.setdefault(kind, []).append(rbf_hopper.LAUNCHES - before)
+        if kind in rise:
+            rise[kind] = max(rise[kind],
+                             (torch.cuda.max_memory_allocated() - held) / SCALE1M_K)
+        return payload
+
+    try:
+        rng = np.random.default_rng(SEED + 47)
+        classes = [int(c) for c in rng.choice(big.classes, SCALE1M_K // 2, replace=False)]
+        queries = [(int(q), c) for c in classes for q in big.queries_for_class(c, rng, 2)]
+        user = _user(rng, big, cfg.user.label_prob, cfg.user.mistake_prob)
+        known = _known_programs()
+        torch.cuda.synchronize()
+        _reset_counts()  # the 1M server's count starts here
+        sids = []
+        for q, _ in queries:
+            sids.append(call("create", "/sessions", {})["session_id"])
+            call("query", f"/sessions/{sids[-1]}/query", {"index": q})
+        labeled = {sid: {q} for sid, (q, _) in zip(sids, queries)}
+        captured = []
+        for r in range(SCALE1M_SERVE_ROUNDS):
+            c0 = graphs.captures()
+            picks = call("batch_select", "/batch_select",
+                         {"session_ids": sids, "k": cfg.batch_size})["batches"]
+            for sid in sids:
+                batch = picks[sid]
+                check(len(set(batch)) == cfg.batch_size and all(0 <= i < big.n for i in batch)
+                      and not set(batch) & labeled[sid],
+                      f"1M serve round {r}: distinct unlabeled indices in range {batch}")
+            answers = {sid: user(picks[sid], c) for sid, (_, c) in zip(sids, queries)}
+            got = call("batch_feedback", "/batch_feedback", {"feedback": answers})["sessions"]
+            want = 1 + (r + 1) * cfg.batch_size
+            check(all(got[sid] == {"labeled": want} for sid in sids), f"round {r}: {got}")
+            for sid, ans in answers.items():
+                labeled[sid] |= {int(i) for i, y in ans.items() if y}
+            captured.append(graphs.captures() - c0)
+        route_launches = dict(rbf_hopper.ROUTE_LAUNCHES)
+        sess, _ = svc._entry(sids[0])
+        check(bool(torch.isfinite(sess.state.mu).all()), "1M serve: mu finite")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    progs = _phase_programs(known)
+    _print_programs(progs, known, "scale serve", smi)
+    held = [p for p in graphs.programs() if p.stacks]
+    print(f"scale serve: captures a round {captured}; programs with stacks held "
+          f"{[(p.name, round(p.static_bytes / 2**20, 2)) for p in held]} MiB, "
+          f"{sum(p.static_bytes for p in held) / 2**20:.2f} MiB of graphs.STACK_BYTES "
+          f"{graphs.STACK_BYTES / 2**20:.0f} MiB; graph pools {_pool_mib(torch)} MiB [{smi}]")
+    check(captured[0] > 0 and captured[-1] == 0,
+          f"1M serve: the second round captures nothing {captured}")
+    for kind in ("query", "batch_select", "batch_feedback"):
+        check(all(n > 0 for n in launches[kind]),
+              f"1M serve {kind}: the kernel launched in every request {launches[kind]}")
+    for kind, ms in times.items():
+        print(f"scale serve {kind}: {len(ms)} requests, host ms {_ms(ms)} (median "
+              f"{np.median(ms):.3f}); kernel launches per request "
+              f"{min(launches[kind])}-{max(launches[kind])} [{smi}]")
+    copies, fixed = SELECT_FIT
+    fit = copies * CAP * big.n * 4 + fixed
+    print(f"scale serve: ITAL's select fit at {big.n} rows, {copies} copies + "
+          f"{fixed / 2**20:.1f} MiB: {fit / 2**20:.2f} MiB a session; measured "
+          f"{rise['batch_select'] / 2**20:.2f} MiB ({(rise['batch_select'] - fixed) / (CAP * big.n * 4):.3f} "
+          f"copies above the fixed term); update {rise['batch_feedback'] / (CAP * big.n * 4):.3f} "
+          f"copies [{smi}]")
+    _check_budget(rise, CAP, big.n)
+    return {"launches": route_launches,
+            "per_replay": {p.name: sum(p.launches.values()) for p in progs}}
+
+
+def scale_phase(torch, dev, smi: str) -> dict:
+    """Phase 15: the session and the cohort server over a 1M x 512 bfloat16
+    corpus; returns the paths' launches, the kernel's 1M shapes and the
+    programs' launches per replay."""
+    from ital_tpu_torch.data.datasets import corpus100k
+    from ital_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    cfg = load_config(str(CONFIG))
+    t0 = time.perf_counter()
+    big = corpus100k(n=SCALE1M_N, dim=512)
+    print(f"scale: corpus100k(n={big.n}, dim={big.x.shape[1]}) built on the host in "
+          f"{time.perf_counter() - t0:.1f} s")
+    shapes = _scale_kernel_shapes(torch, big, cfg, dev, smi)
+    session = _scale_session(torch, big, cfg, dev, smi)
+    t0 = time.perf_counter()
+    cpu_phase(torch, big, cfg, session.pop("mid"), corpus_dtype=SCALE1M_DTYPE, what="cpu 1M")
+    print(f"scale: the CPU replay at {big.n} rows took {time.perf_counter() - t0:.1f} s")
+    served = _scale_service(torch, big, cfg, dev, smi)
+    print(f"scale phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"session": session, "serving": served, "shapes": shapes}
+
+
 def main() -> int:
     import torch
 
@@ -3904,6 +4260,8 @@ def main() -> int:
     clock("learn")
     strategies = strategies_phase(torch, ds, torch.device("cuda"), smi)
     clock("strategies")
+    scale = scale_phase(torch, torch.device("cuda"), smi)
+    clock("1M rows")
     # At 512 features every RBF call of the paths takes the tensor-core route
     # (the router's rule, PERF.md); the tile kernel serves narrower or
     # unaligned features and is held against the plain version in phase 3.
@@ -3911,7 +4269,8 @@ def main() -> int:
              "sharded": {"launches": shard["launches"]}, "mesh": {"launches": mesh["launches"]},
              "bigcap": {"launches": large["launches"]}, "graphs": graphed,
              "learn": {"launches": learn["launches"]},
-             "strategies": {"launches": strategies["launches"]}}
+             "strategies": {"launches": strategies["launches"]},
+             "scale_session": scale["session"], "scale_serving": scale["serving"]}
     by_route = {r: sum(p["launches"][r] for p in paths.values()) for r in sess["launches"]}
     check(by_route["wgmma"] > 0, f"the tensor-core route launched on the main path: {by_route}")
     check(all(sum(p["launches"].values()) > 0 for p in paths.values()),
@@ -3951,6 +4310,12 @@ def main() -> int:
         "launches_per_replay_strategies": {
             name: {**r["launches"], "fused_cohort": r["fused"]["launches"]}
             for name, r in strategies["by_strategy"].items()},
+        # Phase 15: the 1M-row bfloat16 path's blocks, and its programs'
+        # launches per replay (the session's fetch and update, the server's
+        # stacked selection and update of 8).
+        "shapes_1m": scale["shapes"],
+        "launches_per_replay_1m": {**scale["session"]["per_replay"],
+                                   **scale["serving"]["per_replay"]},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -156,6 +156,8 @@ void launch(const void* a, const void* b, const void* a2, const void* b2,
   const float* fvar = static_cast<const float*>(var);
   float* fout = static_cast<float*>(out);
   const dim3 block(kThreads);
+  // These grids are mirrored by ops/rbf_hopper.py::launch_grid, which refuses
+  // a launch past CUDA's limits before it is made: change the two together.
   if (M <= 16) {
     const dim3 grid((N + 63) / 64, (M + 15) / 16);
     rbf_tile_kernel<T, 16, 64, 1, 4><<<grid, block, 0, stream>>>(

@@ -559,7 +559,9 @@ int launch(const void* a, const void* b, const float* a2, const float* b2, const
   const int tiles_m = (M + L::kBM - 1) / L::kBM;
   const int tiles_n = (N + kBN - 1) / kBN;
   // The smaller operand's tiles vary fastest: the larger operand streams from
-  // device memory once while the smaller one stays in L2.
+  // device memory once while the smaller one stays in L2.  This grid is
+  // mirrored by ops/rbf_hopper.py::launch_grid, which refuses a launch past
+  // CUDA's limits before it is made: change the two together.
   const int m_fast = M < N ? 1 : 0;
   const dim3 grid(m_fast ? tiles_m : tiles_n, m_fast ? tiles_n : tiles_m);
   kernel<<<grid, (WGM * WGN + 1) * kWG, L::kSmemBytes, stream>>>(

@@ -104,8 +104,11 @@ _GRAPH_DEVICES = ("cuda",)
 # cap 64 a session's copy is 6.3 MiB at 25 000 x 512 and 25.2 MiB at
 # 100 000 (chip_smoke.py phases 8-9); the 16 programs of phase 8's mixed
 # serving traffic hold 68 copies, 430 MiB at 25 000 rows, so the default
-# of 4 GiB keeps all of them up to 100 000 rows (1.7 GiB) and 16 session
-# copies at 1M rows.
+# of 4 GiB keeps all of them up to 100 000 rows (1.7 GiB).  At 1M rows a
+# /batch_select of 8 and a /batch_feedback of 8 hold 2018.11 MiB each,
+# 4036.22 MiB together, and their second round captured nothing (phase
+# 15, H100 80GB HBM3 at 700 W); a third program of 8 sessions at 1M rows
+# releases one of them.
 STACK_BYTES = 4 << 30
 
 

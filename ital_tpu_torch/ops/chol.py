@@ -67,10 +67,27 @@ def padded_cholesky(
 
 def tri_solve(l: torch.Tensor, b: torch.Tensor, *, trans: bool = False) -> torch.Tensor:
     """Solve ``L x = b`` (or ``L^T x = b``) with ``L`` lower triangular
-    (leading dims broadcast)."""
+    (leading dims broadcast).  On the card a right-hand side wider than
+    ``L`` (a factor's corpus-wide rows) is solved from the right
+    (:func:`solve_from_right`): cuBLAS's left-side solve falls off a cliff
+    there.  On the CPU, where LAPACK has none, the left-side solve stays."""
     if trans:
         return torch.linalg.solve_triangular(l.mT, b, upper=True)
+    if b.is_cuda and b.shape[-1] > l.shape[-1]:
+        return solve_from_right(l, b)
     return torch.linalg.solve_triangular(l, b, upper=False)
+
+
+def solve_from_right(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``L^-1 b`` as the right-side solve ``x^T L^T = b^T`` on ``b``'s
+    transpose, which is ``b``'s own row-major buffer; the result is
+    row-major too.  On an H100 cuBLAS took 9729 ms for the left-side solve
+    of a (4, 1M) right-hand side and 0.162 ms for this one
+    (``scripts/wide_solve_torch.py``, PERF.md).  The values are the
+    left-side solve's bit for bit at the update's 4 rows, but not past 8
+    rows in f32 on the CPU, where they would move picks at MI ties off the
+    reference's."""
+    return torch.linalg.solve_triangular(l.mT, b.mT, upper=True, left=False).mT
 
 
 def cho_solve(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -52,6 +52,9 @@ WGMMA_MIN_OUTPUT = 1 << 20
 # The tensor-core tile's short side: a call with a side this narrow gets one
 # 64-row slab on that side.
 WGMMA_SLAB_ROWS = 64
+# CUDA's limits on a launch's grid (x, y) and on the kernels' int extents.
+MAX_GRID = (2**31 - 1, 65535)
+MAX_EXTENT = 2**31 - 1
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _lib: Optional[ctypes.CDLL] = None
@@ -142,6 +145,41 @@ def choose_route(m: int, n: int, d: int, dtype: torch.dtype, a_ptr: int, b_ptr: 
     transposed = n <= WGMMA_SLAB_ROWS < m
     rows = n if transposed else m
     return Route("wgmma", 1 if rows <= WGMMA_SLAB_ROWS else 0, transposed)
+
+
+def launch_grid(route: Route, m: int, n: int) -> tuple[int, int]:
+    """The (x, y) grid of ``route``'s launch for an (M, N) block, as the
+    sources compute it (``csrc/rbf_wgmma.cu::launch``: 128-wide column
+    tiles, 128- or 64-row tiles, the smaller side's tiles along x;
+    ``csrc/rbf_tile.cu::launch``: 64 x 64 tiles, or 16-wide ones on a side
+    of at most 16).  Each source notes beside its grid that the two change
+    together."""
+    cdiv = lambda a, b: -(-a // b)
+    if route.name == "wgmma":
+        if route.transposed:
+            m, n = n, m
+        tiles_m, tiles_n = cdiv(m, 128 if route.variant == 0 else WGMMA_SLAB_ROWS), cdiv(n, 128)
+        return (tiles_m, tiles_n) if m < n else (tiles_n, tiles_m)
+    if m <= 16:
+        return cdiv(n, 64), cdiv(m, 16)
+    if n <= 16:
+        return cdiv(n, 16), cdiv(m, 64)
+    return cdiv(n, 64), cdiv(m, 64)
+
+
+def check_launch(route: Route, m: int, n: int, d: int) -> None:
+    """Raise ``ValueError`` before a launch of ``route`` that CUDA would
+    refuse or the kernels would index wrongly: an extent past int32, or a
+    grid past CUDA's limits (the tile kernel's grid.y reaches 65535 at
+    4.19M rows, the tensor-core route's at 8.39M)."""
+    if max(m, n, d) > MAX_EXTENT:
+        raise ValueError(f"rbf_tile: ({m}, {n}, {d}) has an extent past the kernels' int32 "
+                         f"({MAX_EXTENT})")
+    grid = launch_grid(route, m, n)
+    if any(g > limit for g, limit in zip(grid, MAX_GRID)):
+        raise ValueError(
+            f"rbf_tile: the {route.name} route's grid {grid} for ({m}, {n}, {d}) exceeds "
+            f"CUDA's launch limits {MAX_GRID}: split the block along its rows")
 
 
 def _library() -> ctypes.CDLL:
@@ -243,6 +281,7 @@ def rbf_tile(
     ls_t, ls_v = _scalar_arg(length_scale, a.device, "length_scale")
     var_t, var_v = _scalar_arg(var, a.device, "var")
     route = choose_route(m, n, d, a.dtype, a.data_ptr(), b.data_ptr(), force=_route)
+    check_launch(route, m, n, d)
     lib = _library()
     args = (
         a.data_ptr(), b.data_ptr(),

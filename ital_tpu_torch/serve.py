@@ -120,7 +120,9 @@ from ital_tpu_torch.utils import checkpoint as ckpt
 # selection at the production settings (cap 64, pool 4096; phases 8 and 9)
 # added 95.55 MiB a session at 25 000 rows and 115.13 MiB at 100 000, which
 # fit 1.07 copies + 89.0 MiB (the MI scan over the session's pool); an
-# update 1.26 and 1.24 copies.  Rounded up.
+# update 1.26 and 1.24 copies.  Rounded up.  At 1M rows over a bfloat16
+# corpus (phase 15) a selection added 281.16-289.21 MiB a session, under
+# the fit's 350.23 and this entry's 401.18; an update 1.24-1.25 copies.
 SELECT_BUDGET = {"ital": (1.25, 96 << 20)}
 # Each other strategy's selection at the harness's settings, cap 64 and
 # 25 000 rows (chip_smoke.py phase 14): the measured rise plus 15 %,

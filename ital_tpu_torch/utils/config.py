@@ -22,8 +22,9 @@ class GPConfig:
     noise: float = 0.1
     cap: int = 64  # labeled-slot capacity; 0 = auto (1 + n_rounds * batch_size)
     # The remaining keys mirror the reference's [GP] section so its configs
-    # load unchanged; the port's session reads matmul_precision and
-    # corpus_dtype, the others belong to parts not yet ported.
+    # load unchanged: the session reads matmul_precision and corpus_dtype,
+    # the runner chol2d_threshold (the mesh's large-cap path), the learn_*
+    # keys (the re-learn every learn_every rounds) and refit_every.
     chol2d_threshold: int = 1024
     learn_every: int = 0
     learn_steps: int = 50

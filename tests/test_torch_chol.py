@@ -149,3 +149,32 @@ def test_padded_cholesky_ex_reports_without_raising():
     assert info.tolist() == [2, 0]
     with pytest.raises(torch.linalg.LinAlgError, match=r"Batch element 0.*order 2"):
         tchol.padded_cholesky(k, active, 0.0)
+
+
+@pytest.mark.parametrize("dtype,atol", [(np.float32, 1e-5), (np.float64, 1e-12)])
+@pytest.mark.parametrize("batch", [(), (3,)], ids=["one", "batched"])
+@pytest.mark.parametrize("m", [4, 64], ids=["update", "fit"])
+def test_wide_solve_matches_jax(rng, dtype, atol, batch, m):
+    """``solve_from_right`` (``tri_solve``'s form on the card for a
+    right-hand side wider than its factor: the update's (b, N) rows, the
+    fit's (cap, N)) solves ``L x = b`` as the reference's ``tri_solve``, in
+    ``b``'s row-major layout; at the update's 4 rows it gives the left-side
+    solve's values bit for bit.  On the CPU ``tri_solve`` keeps the
+    left-side solve.  Batched factors broadcast."""
+    ks = [_spd(rng, m, dtype) for _ in range(int(np.prod(batch)))]
+    l = np.stack([np.linalg.cholesky(k) for k in ks]).reshape(*batch, m, m).astype(dtype)
+    b = rng.normal(size=(*batch, m, 500)).astype(dtype)
+    with jax.enable_x64(dtype == np.float64):
+        jl, jb = jnp.asarray(l.reshape(-1, m, m)), jnp.asarray(b.reshape(-1, m, 500))
+        want = np.stack([np.asarray(jchol.tri_solve(jl[i], jb[i]))
+                         for i in range(jl.shape[0])]).reshape(b.shape)
+    tl, tb = torch.from_numpy(l), torch.from_numpy(b)
+    got = tchol.solve_from_right(tl, tb)
+    assert got.is_contiguous()
+    np.testing.assert_allclose(got.numpy(), want, atol=atol)
+    left = torch.linalg.solve_triangular(tl, tb, upper=False)
+    assert torch.equal(tchol.tri_solve(tl, tb), left)
+    if m == 4:
+        assert torch.equal(got, left)
+    np.testing.assert_allclose(got.numpy(), left.numpy(), atol=atol)
+    np.testing.assert_allclose((tl @ got).numpy(), b, atol=atol * 10)
