@@ -290,6 +290,23 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the kernel, and the device memory each cohort request adds per session
    is held to the server's budget and printed beside the 25 000/100 000-row
    fit; host ms per request kind with the card's name and power limit.
+   Between the session and the server, one ``ital_regression`` fetch on
+   the session's last state (its (K, t, N) solves through ``tri_solve``),
+   uncounted, graphed / eager / eager / graphed: picks equal, host ms and
+   launches per replay.
+
+16. records: the reference's records at reduced depth, on the 25 000 x 512
+   surrogate.  The method comparison's run function
+   (``scripts/method_comparison_torch.py``) for ITAL at the production
+   options and for ``random``, seed 0, 14 sessions in fused cohorts of 7,
+   10 rounds: each final MAP must lie within the per-seed finals of its
+   reference record (``results/mirflickr_methods_italpool.json``,
+   ``results/mirflickr_methods.json``) and ITAL's above random's; both
+   curves are printed beside the records' means.  Then the drift study
+   (``scripts/drift_study_torch.py``) at cap 256 for 60 rounds with the
+   noisy user: at rounds 20, 40 and 60 the appended posterior mean within
+   ``DRIFT_MU_ATOL`` of the f64 oracle's and the oracle's top 100 kept to
+   ``DRIFT_MIN_OVERLAP``.  The launch count is reset before the phase.
 
 The second-to-last line is a JSON object describing the kernel (launches on
 the main paths in all, per route and per path, its bound, its time and the
@@ -297,7 +314,8 @@ plain version's, and its times at the 100 000-row shapes, at the mesh
 cohort's stacked shard shapes, at the large-cap refit's shapes and at the
 ascent's (64, 64, 512) block with its launches per ``/learn``, at the
 strategies' blocks and at the 1M-row blocks, and each mesh, large-cap,
-strategy and 1M-row program's launches per replay); the
+strategy and 1M-row program's launches per replay; ``launches_by_path``
+includes ``records``, phase 16's); the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -417,6 +435,7 @@ SCALE1M_MID = 2  # the round whose state the CPU replays
 SCALE1M_FETCHES = 5  # fetches timed on the last state (uncounted)
 SCALE1M_K = 8  # sessions of the server's cohort
 SCALE1M_SERVE_ROUNDS = 2
+SCALE1M_REGRESSION_CALLS = 3  # ital_regression fetches a turn
 # ITAL's select budget fitted at 25 000 and 100 000 rows (phases 8-9): (cap, N)
 # copies and fixed bytes a session, held at 1M rows.
 SELECT_FIT = (1.07, 89.0 * 2**20)
@@ -4077,6 +4096,7 @@ def _scale_session(torch, big, cfg, dev, smi: str) -> dict:
             fetches.append((time.perf_counter() - t0) * 1e3)
     progs = _phase_programs(known)
     _print_programs(progs, known, "scale session", smi)
+    regression = _regression_fetch(torch, sess, k, smi)
     pool1 = _pool_mib(torch)
     steady = {kind: float(np.median([row[kind] for row in rows[1:]])) for kind in rows[0]}
     print(f"scale session: AP curve {[round(a, 6) for a in aps]}; first round (captures) "
@@ -4087,7 +4107,46 @@ def _scale_session(torch, big, cfg, dev, smi: str) -> dict:
           f"(max_memory_allocated above what was held) {peak / 2**20:.1f} MiB; graph pools "
           f"{pool0} -> {pool1} MiB; launches by route {launches} [{smi}]")
     return {"launches": launches, "mid": mid,
-            "per_replay": {p.name: sum(p.launches.values()) for p in progs}}
+            "per_replay": {**{p.name: sum(p.launches.values()) for p in progs},
+                           **regression}}
+
+
+def _regression_fetch(torch, sess, k: int, smi: str) -> dict:
+    """One ``ital_regression`` fetch on the 1M session's last state (its
+    (K, t, N) conditional-variance solves go through ``tri_solve``),
+    uncounted, in graphed / eager / eager / graphed turns of
+    ``SCALE1M_REGRESSION_CALLS`` calls: the graphed picks equal the eager
+    ones; returns its program's launches per replay."""
+    from ital_tpu_torch.select.regression import select_ital_regression
+
+    st, params = sess.state, sess.params
+    known = _known_programs()
+    times, picks, first = {}, {}, None
+    with _uncounted():
+        for mode in GRAPH_TURNS:
+            with _graphed_or_eager(mode):
+                for _ in range(SCALE1M_REGRESSION_CALLS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    batch = select_ital_regression(st, k, None, params)
+                    torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t0) * 1e3
+                    if mode == "graphed" and first is None:
+                        first = ms  # the capture
+                        continue
+                    times.setdefault(mode, []).append(ms)
+                    picks.setdefault(mode, batch.tolist())
+    check(picks["graphed"] == picks["eager"] and len(set(picks["graphed"])) == k,
+          f"1M ital_regression: graphed picks {picks['graphed']} equal eager {picks['eager']}")
+    progs = [p for p in _phase_programs(known) if "regression" in p.name]
+    check(len(progs) == 1, f"one ital_regression program: {[p.name for p in progs]}")
+    per_replay = sum(progs[0].launches.values())
+    print(f"scale ital_regression fetch at {st.x.shape[0]} rows: first {first:.3f} ms (its "
+          f"capture), graphed {_ms(times['graphed'])} (median "
+          f"{np.median(times['graphed']):.3f}), eager {_ms(times['eager'])} (median "
+          f"{np.median(times['eager']):.3f}); launches per replay {per_replay}; picks "
+          f"{picks['graphed']} [{smi}]")
+    return {progs[0].name: per_replay}
 
 
 def _scale_service(torch, big, cfg, dev, smi: str) -> dict:
@@ -4222,6 +4281,73 @@ def scale_phase(torch, dev, smi: str) -> dict:
     return {"session": session, "serving": served, "shapes": shapes}
 
 
+RECORDS_ITAL_KWARGS = "pool_size=4096,n_qmc=32,refine_top=64,refine_n_qmc=512"
+# Each method's reference record: its per-seed final MAPs bound the port's.
+RECORDS_REFERENCE = {"ital": "mirflickr_methods_italpool.json",
+                     "random": "mirflickr_methods.json"}
+RECORDS_SEED = 0
+RECORDS_DRIFT = {"rounds": 60, "every": 20, "cap": 256, "noisy": True}
+DRIFT_MU_ATOL = 1e-3  # ||mu_inc - mu_oracle||_inf at every checkpoint
+DRIFT_MIN_OVERLAP = 0.95  # the oracle's top 100 kept by the appended posterior
+
+
+def records_phase(torch, ds, dev, smi: str) -> dict:
+    """Phase 16: the reference's records at reduced depth.  The method
+    comparison's run function (``scripts/method_comparison_torch.py``) for
+    ITAL at the production options and for ``random`` at seed 0 (14
+    sessions in fused cohorts of 7, 10 rounds), each final MAP inside the
+    per-seed finals of its reference record and ITAL's above random's; then
+    the drift study (``scripts/drift_study_torch.py``) at cap 256 for 60
+    rounds with the noisy user, within ``DRIFT_MU_ATOL`` of the f64 oracle
+    and keeping ``DRIFT_MIN_OVERLAP`` of its top 100 at every checkpoint.
+    Returns the path's launches (both runs)."""
+    from ital_tpu_torch.ops import rbf_hopper
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import drift_study_torch
+    import method_comparison_torch as mct
+
+    t_phase = time.perf_counter()
+    _reset_counts()  # the records' count starts here
+    finals = {}
+    for method, kw in (("ital", RECORDS_ITAL_KWARGS), ("random", "")):
+        args = mct.parser().parse_args(["--methods", method, "--seeds", str(RECORDS_SEED),
+                                        "--ital-kwargs", kw])
+        got = mct.compare(args, device=dev, data=ds, log=lambda line: None)[method]
+        with open(ROOT / "results" / RECORDS_REFERENCE[method]) as fh:
+            ref = json.load(fh)[method]
+        finals[method] = got["map"][-1]
+        lo, hi = min(ref["final_map_by_seed"]), max(ref["final_map_by_seed"])
+        print(f"records {method} seed {RECORDS_SEED} ({got['sessions']} sessions, "
+              f"{got['mode']}, {got['wall_s_per_seed'][0]} s, any captures included): MAP "
+              f"{got['map']}; the reference's mean over seeds {ref['seeds'][0]}-"
+              f"{ref['seeds'][-1]} ({RECORDS_REFERENCE[method]}) {ref['map']}; its per-seed "
+              f"finals {lo}-{hi} [{smi}]")
+        check(lo <= finals[method] <= hi, f"records {method}: final MAP {finals[method]} "
+              f"inside the reference's per-seed finals [{lo}, {hi}]")
+    check(finals["ital"] > finals["random"], f"records: ITAL above random {finals}")
+    drift = drift_study_torch.run(device=dev, data=ds, seed=RECORDS_SEED, log=print,
+                                  **RECORDS_DRIFT)
+    launches = dict(rbf_hopper.ROUTE_LAUNCHES)
+    rows = drift["rows"]
+    check([r["round"] for r in rows] == list(range(RECORDS_DRIFT["every"],
+                                                   RECORDS_DRIFT["rounds"] + 1,
+                                                   RECORDS_DRIFT["every"])),
+          f"drift checkpoints {[r['round'] for r in rows]}")
+    for r in rows:
+        check(r["mu_inf_inc"] <= DRIFT_MU_ATOL and r["top100_overlap_inc"] >= DRIFT_MIN_OVERLAP,
+              f"drift round {r['round']}: ||mu_inc - mu_oracle||_inf {r['mu_inf_inc']:.3e} <= "
+              f"{DRIFT_MU_ATOL}, top-100 overlap {r['top100_overlap_inc']} >= "
+              f"{DRIFT_MIN_OVERLAP}")
+    print(f"records drift (cap {RECORDS_DRIFT['cap']}, {RECORDS_DRIFT['rounds']} rounds, noisy "
+          f"user, {drift['wall_s']} s): mu_inf_inc {[r['mu_inf_inc'] for r in rows]}, "
+          f"sig2_inf_inc {[r['sig2_inf_inc'] for r in rows]}, mu_inf_refit "
+          f"{[r['mu_inf_refit'] for r in rows]}, ap_inc {[r['ap_inc'] for r in rows]}; "
+          f"launches {launches} [{smi}]")
+    print(f"records phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -4262,6 +4388,8 @@ def main() -> int:
     clock("strategies")
     scale = scale_phase(torch, torch.device("cuda"), smi)
     clock("1M rows")
+    records = records_phase(torch, ds, torch.device("cuda"), smi)
+    clock("records")
     # At 512 features every RBF call of the paths takes the tensor-core route
     # (the router's rule, PERF.md); the tile kernel serves narrower or
     # unaligned features and is held against the plain version in phase 3.
@@ -4270,7 +4398,8 @@ def main() -> int:
              "bigcap": {"launches": large["launches"]}, "graphs": graphed,
              "learn": {"launches": learn["launches"]},
              "strategies": {"launches": strategies["launches"]},
-             "scale_session": scale["session"], "scale_serving": scale["serving"]}
+             "scale_session": scale["session"], "scale_serving": scale["serving"],
+             "records": records}
     by_route = {r: sum(p["launches"][r] for p in paths.values()) for r in sess["launches"]}
     check(by_route["wgmma"] > 0, f"the tensor-core route launched on the main path: {by_route}")
     check(all(sum(p["launches"].values()) > 0 for p in paths.values()),

@@ -669,7 +669,7 @@ def _sharded_regression_scores(mesh, st, batch, t, params):
                  - st.v.mT @ vs)
         chol, info = torch.linalg.cholesky_ex(cov_bb)
         graphs.check_after(info, chol_ops.check_cholesky_info)
-        w = torch.linalg.solve_triangular(chol, cross.mT, upper=False)
+        w = chol_ops.tri_solve(chol, cross.mT)
         cond_var = torch.clamp(st.sig2 - (w * w).sum(-2), min=1e-10)
     return 0.5 * torch.log1p(cond_var / per_session(h.noise))
 

@@ -41,7 +41,7 @@ def _ital_regression(st, params, *, batch_size):
             cross = gp_posterior_cov_columns_stacked(st, bsel)  # (K, N, t)
             chol, info = torch.linalg.cholesky_ex(cov_bb)
             graphs.check_after(info, chol_ops.check_cholesky_info)
-            w = torch.linalg.solve_triangular(chol, cross.mT, upper=False)  # (K, t, N)
+            w = chol_ops.tri_solve(chol, cross.mT)  # (K, t, N)
             cond_var = torch.clamp(st.sig2 - (w * w).sum(-2), min=1e-10)
         return 0.5 * torch.log1p(cond_var / noise)
 

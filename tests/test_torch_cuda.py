@@ -480,3 +480,48 @@ def test_cuda_graphed_ascent_equals_eager_at_every_step():
         one = hyperopt.fit_hyperparams(xl[k], y[k], active[k], h0, steps=30)
         want = torch.log(torch.stack([one.length_scale, one.var, one.noise]))
         assert float((stacked[k] - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_stacked_regression_fetch_equals_the_left_side_solve(monkeypatch):
+    """A stacked ``ital_regression`` fetch of 4 sessions over 100 000 rows:
+    its (K, t, N) conditional-variance solves go through ``tri_solve`` (the
+    right-side form on the card) and pick what the direct left-side solve
+    picks, each solve within f32 rounding of the left-side values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ital_tpu_torch.models import gp as gp_mod
+    from ital_tpu_torch.ops import chol as chol_ops
+    from ital_tpu_torch.select.base import StrategyParams, get_stacked_strategy
+
+    x = torch.from_numpy(_synthetic_surrogate("wide", 100_000, 64, 5).x).cuda()
+    states = []
+    for q in (3, 1000, 50_000, 99_000):
+        st = gp_mod.gp_set_query(gp_mod.gp_init(x, 12.0, 1.0, 0.1, 16), q)
+        gp_mod.gp_update(st, torch.tensor([q + 1, q - 2, 77], device="cuda"),
+                         torch.tensor([1.0, -1.0, 1.0], device="cuda"),
+                         torch.ones(3, dtype=torch.bool, device="cuda"))
+        states.append(st)
+    params = StrategyParams.create("cuda")
+    select = get_stacked_strategy("ital_regression")
+    real, gaps = chol_ops.tri_solve, []
+
+    def held(l, b, *, trans=False):
+        out = real(l, b, trans=trans)
+        if not trans and b.shape[-1] == x.shape[0]:
+            left = torch.linalg.solve_triangular(l, b, upper=False)
+            gaps.append(float((out - left).abs().max() / left.abs().max()))
+        return out
+
+    def left_side(l, b, *, trans=False):
+        if trans:
+            return real(l, b, trans=trans)
+        return torch.linalg.solve_triangular(l, b, upper=False)
+
+    with graphs.eager():
+        monkeypatch.setattr(chol_ops, "tri_solve", left_side)
+        want = select(states, 4, [None] * 4, params)
+        monkeypatch.setattr(chol_ops, "tri_solve", held)
+        got = select(states, 4, [None] * 4, params)
+    assert len(gaps) == 3 and max(gaps) <= 1e-5, gaps
+    assert torch.equal(got, want)
