@@ -20,9 +20,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    For each shape: the route the router picks, each route's error, and the
    per-launch times of both routes (each forced) and the plain version, as
    runs of 50 launches between two CUDA events taken in turns (median of 5
-   runs each, after warm-up), and each route's device time per launch from
-   ``torch.profiler`` (the mean over the kernel records it kept, which late
-   in a long process are fewer than the launches).  The picked route must
+   runs each, after warm-up), and each route's device time per launch (the
+   median over 20 launches of two CUDA events around each, a sleep kernel
+   queued ahead so that no launch waits on the host).  The picked route must
    not be slower than the tile kernel beyond the runs' spread, and no event
    or device time may lie more than 3 % under its bound, here and at every
    later phase's shapes.
@@ -271,7 +271,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the full scan's (N, 3, 512) a2 in bf16 and f32 and the pool's
    (4096, 3, 512) cross block, each against its plain version (within
    ``BF16_ATOL`` or ``F32_ATOL`` x var) and against the route the router
-   did not pick, forced, with event ms, profiler device us and its bound.
+   did not pick, forced, with event ms, device us and its bound.
    Then one ``ActiveRetrieval`` over the bfloat16 corpus (rounded on the
    card, held bit-equal to the host's rounding; its norms f32 sums of the
    stored values): ``update_query`` and ``SCALE1M_ROUNDS`` graphed rounds
@@ -308,6 +308,18 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``DRIFT_MU_ATOL`` of the f64 oracle's and the oracle's top 100 kept to
    ``DRIFT_MIN_OVERLAP``.  The launch count is reset before the phase.
 
+17. studies: the selection-config studies (``scripts/pool_refine_torch.py``,
+   ``refine_study_torch.py``, ``pool_sweep_torch.py``,
+   ``randomize_qmc_study_torch.py``, ``batch_size_timing_torch.py``,
+   ``block_sweep_torch.py``) at reduced depth: one timing row of each at
+   25 000 rows on the reference's mid-session state, graphed and eager, with
+   its launches a call; then ``full 128`` at seed 0 (14 sessions in fused
+   cohorts of 7) for ``STUDIES_ROUNDS`` rounds on the reference's user
+   draws (``STUDIES_DRAWS``), its curve printed beside
+   ``results/pool_refine_map_cpu.json``'s, each session's first pick within
+   ``STUDIES_MI_TIE`` of the CPU's maximal MI at the query.  The launch
+   count is reset just before that run and read just after it.
+
 The second-to-last line is a JSON object describing the kernel (launches on
 the main paths in all, per route and per path, its bound, its time and the
 plain version's, and its times at the 100 000-row shapes, at the mesh
@@ -315,7 +327,7 @@ cohort's stacked shard shapes, at the large-cap refit's shapes and at the
 ascent's (64, 64, 512) block with its launches per ``/learn``, at the
 strategies' blocks and at the 1M-row blocks, and each mesh, large-cap,
 strategy and 1M-row program's launches per replay; ``launches_by_path``
-includes ``records``, phase 16's); the
+includes ``records``, phase 16's, and ``studies``, phase 17's); the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -531,33 +543,37 @@ def _time_turns_ms(torch, fns, launches: int = 50, runs: int = 5,
     return [(float(np.median(t)), float(max(t) - min(t))) for t in times]
 
 
-def _device_us(torch, fn, launches: int = 20) -> float:
-    """Device time per launch of the RBF kernels that ``fn`` launches, from
-    ``torch.profiler``'s CUDA activity (kernels named ``rbf_*``): their
-    total over the kernel records the profiler kept, so records it drops
-    late in a long process lower neither the sum's share nor the mean."""
-    from torch.profiler import ProfilerActivity, profile
+SLEEP_CYCLES = 50_000_000  # the sleep kernel queued ahead of a device-time reading (~25 ms)
 
+
+def _device_us(torch, fn, launches: int = 20) -> float:
+    """Device time per launch of the kernel that ``fn`` launches: the median,
+    over ``launches`` launches, of the device-clock time between two CUDA
+    events recorded just before and just after it on the stream.  A sleep
+    kernel queued first keeps the host ahead of the device, so no launch
+    waits on the host and each interval holds the kernel alone.
+
+    ``torch.profiler``'s CUDA records are not used: late in this process it
+    kept 8-17 of 20 kernel records a reading, and once kept all 20 at less
+    than half their length (59.37 us for the mesh cohort's 123 us kernel,
+    under its 63.17 us bound), which failed the bound check on a sound
+    kernel."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(launches):
-            fn()
-        torch.cuda.synchronize()
-    total, kept = 0.0, 0
-    for evt in prof.key_averages():
-        if "rbf_" in evt.key:
-            total += getattr(evt, "device_time_total", 0.0) or evt.cuda_time_total
-            kept += evt.count
-    check(kept > 0, f"the profiler kept no RBF kernel record of {launches} launches")
-    if kept != launches:
-        print(f"profiler: kept {kept} RBF kernel records of {launches} launches")
-    return total / kept
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(launches)]
+    torch.cuda._sleep(SLEEP_CYCLES)
+    for start, end in pairs:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return float(np.median([start.elapsed_time(end) for start, end in pairs])) * 1e3
 
 
 def _check_bound(what: str, ms: float, dev_us: float, bound_ms: float) -> None:
-    """A kernel cannot beat its bound: an event time or a profiler reading
-    more than 3 % under it is a faulty measurement, not a fast kernel."""
+    """A kernel cannot beat its bound: an event time or a device time more
+    than 3 % under it is a faulty measurement, not a fast kernel."""
     for name, t in (("event time", ms), ("device time", dev_us * 1e-3)):
         check(t >= 0.97 * bound_ms,
               f"{what}: {name} {t * 1e3:.2f} us is under its bound {bound_ms * 1e3:.2f} us")
@@ -2112,7 +2128,7 @@ def _kernel_shapes(torch, what: str, shapes, ls, var, smi: str,
                    other_route: bool = False) -> list:
     """Each ``(name, a, b, norms)`` of ``shapes`` through the kernel, f32 or
     a bf16 corpus, against its plain version (error within ``F32_ATOL`` or
-    ``BF16_ATOL`` x var, event times in turns, profiler device time) and
+    ``BF16_ATOL`` x var, event times in turns, device time) and
     against its bound; with ``other_route``, also the route the router did
     not pick, forced, in the same turns.  Uncounted: comparisons, not the
     path."""
@@ -4348,6 +4364,107 @@ def records_phase(torch, ds, dev, smi: str) -> dict:
     return {"launches": launches}
 
 
+STUDIES_DRAWS = ROOT / "results" / "jax_user_draws_mirflickr_s0-7_torch.npz"
+STUDIES_ROUNDS = 3
+STUDIES_MI_TIE = 1e-6  # the first pick's MI below the CPU's maximum at the query
+
+
+def _study_rows(n: int) -> list:
+    """One timing row of each selection-config study over ``n`` rows, the row
+    each script names (its ``SMOKE_ROW``) looked up by tag in its own
+    ``timing_rows``: ``(script: tag, select_ital options)``."""
+    import batch_size_timing_torch as bst
+    import block_sweep_torch as bsw
+    import pool_refine_torch as prt
+    import pool_sweep_torch as pst
+    import randomize_qmc_study_torch as rqt
+    import refine_study_torch as rst
+
+    (m, bs_tag), (config, block) = bst.SMOKE_ROW, bsw.SMOKE_ROW
+    return [
+        (f"pool_refine: {prt.SMOKE_ROW}", dict(prt.timing_rows())[prt.SMOKE_ROW]),
+        (f"refine_study: {rst.SMOKE_ROW}", dict(rst.timing_rows())[rst.SMOKE_ROW]),
+        (f"pool_sweep: {pst.SMOKE_ROW}", dict(pst.timing_rows(n))[pst.SMOKE_ROW]),
+        (f"randomize_qmc_study: {rqt.SMOKE_ROW}", dict(rqt.timing_rows())[rqt.SMOKE_ROW]),
+        (f"batch_size_timing: m{m} {bs_tag}", dict(bst.timing_rows(m))[bs_tag]),
+        (f"block_sweep: {config} {block}", dict(bsw.timing_rows(config))[block]),
+    ]
+
+
+def studies_phase(torch, ds, dev, smi: str) -> dict:
+    """Phase 17: the selection-config studies at reduced depth.  One timing
+    row of each ``scripts/*_torch.py`` study at 25 000 rows on the
+    reference's mid-session state (``study_torch.time_selects``: graphed and
+    eager, its launches a call), then seed 0 of ``pool_refine_torch``'s
+    ``full 128`` (14 sessions in fused cohorts of 7) for ``STUDIES_ROUNDS``
+    rounds on the reference's user draws (``STUDIES_DRAWS``).  The
+    reference's record (``results/pool_refine_map_cpu.json``) keeps no
+    per-seed rounds, and the two packages part at the first greedy step at
+    MI ties (PERF.md), so each session's first pick is held to the CPU's
+    step-0 MI maximum at the query within ``STUDIES_MI_TIE``.  Returns the
+    run's launches: the count is reset just before it and read just after
+    (the timing rows print their own launches a call)."""
+    from ital_tpu_torch import runner
+    from ital_tpu_torch.models import gp as gp_mod
+    from ital_tpu_torch.ops import rbf_hopper
+    from ital_tpu_torch.select.base import StrategyParams
+    from ital_tpu_torch.select.ital import score_candidates_mi
+    from ital_tpu_torch.utils.config import load_config
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import pool_refine_torch as prt
+    import study_torch as st
+
+    t_phase = time.perf_counter()
+    state = st.mid_session_state(ds, dev)
+    for tag, kwargs in _study_rows(ds.n):
+        r = st.time_selects(torch, dev, state, [(tag, kwargs)], log=lambda line: None,
+                            target_s=0.1)[tag]
+        print(f"studies {tag}: {r['ms_per_round']:.3f} ms graphed {r['ms_trials']}, "
+              f"{r['eager_ms_per_round']:.3f} eager, first call {r['first_call_s']:.3f} s, "
+              f"{r['launches_per_call']:g} launches a call [{smi}]")
+        check(r["ms_per_round"] > 0 and r["eager_ms_per_round"] > 0,
+              f"studies {tag}: timed in both modes")
+    del state
+    tag, *full = prt.MAP_CONFIGS[0]
+    mirflickr = str(ROOT / "configs" / "mirflickr.ini")
+    cfg = load_config(mirflickr, (
+        "EXPERIMENT.seed=0", f"EXPERIMENT.n_rounds={STUDIES_ROUNDS}", "EXPERIMENT.query_batch=7",
+        "EXPERIMENT.fused_sessions=true", *(f"METHOD.{kv}" for kv in prt.method_overrides(*full))))
+    needed = st.sessions_needed(lambda s: cfg, [0], ds)
+    t0 = time.perf_counter()
+    with st.user_draws(str(STUDIES_DRAWS), needed):
+        _reset_counts()  # the studies' count starts here
+        res = runner.run_experiment(cfg, ds, device=dev)
+        launches = dict(rbf_hopper.ROUTE_LAUNCHES)
+    with open(ROOT / "results" / "pool_refine_map_cpu.json") as fh:
+        ref = json.load(fh)["map"][tag]
+    print(f"studies {tag} seed 0 on the reference's user draws, {STUDIES_ROUNDS} rounds "
+          f"({len(res['sessions'])} sessions, {time.perf_counter() - t0:.1f} s, captures "
+          f"included): MAP {[round(float(v), 4) for v in res['map']]}; the reference's "
+          f"CPU record, mean over seeds {ref['seeds'][0]}-{ref['seeds'][-1]}: "
+          f"{ref['map'][:STUDIES_ROUNDS]}; launches {launches} [{smi}]")
+    check(np.asarray(res["ap"]).shape == (len(needed), STUDIES_ROUNDS)
+          and np.isfinite(res["ap"]).all(), f"studies {tag}: finite APs")
+    params = StrategyParams.create("cpu", label_prob=cfg.user.label_prob,
+                                   mistake_prob=cfg.user.mistake_prob)
+    x = torch.from_numpy(ds.x)
+    first = np.asarray(res["picks"])[:, 0, 0]
+    gaps = []
+    for (*_, q), pick in zip(needed, first):
+        cpu = gp_mod.gp_set_query(gp_mod.gp_init(x, cfg.gp.length_scale, cfg.gp.var,
+                                                 cfg.gp.noise, cfg.cap), q)
+        mi = score_candidates_mi(cpu, torch.zeros(cfg.batch_size, dtype=torch.long), 0, params)
+        mi[q] = -torch.inf
+        gaps.append(float(mi.max() - mi[int(pick)]))
+    print(f"studies {tag}: first picks {first.tolist()}, their MI below the CPU's step-0 "
+          f"maximum {max(gaps):.3e} at most")
+    check(max(gaps) <= STUDIES_MI_TIE, f"studies {tag}: each first pick within "
+          f"{STUDIES_MI_TIE} of the CPU's maximal MI ({max(gaps):.3e})")
+    print(f"studies phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -4390,6 +4507,8 @@ def main() -> int:
     clock("1M rows")
     records = records_phase(torch, ds, torch.device("cuda"), smi)
     clock("records")
+    studies = studies_phase(torch, ds, torch.device("cuda"), smi)
+    clock("studies")
     # At 512 features every RBF call of the paths takes the tensor-core route
     # (the router's rule, PERF.md); the tile kernel serves narrower or
     # unaligned features and is held against the plain version in phase 3.
@@ -4399,7 +4518,7 @@ def main() -> int:
              "learn": {"launches": learn["launches"]},
              "strategies": {"launches": strategies["launches"]},
              "scale_session": scale["session"], "scale_serving": scale["serving"],
-             "records": records}
+             "records": records, "studies": studies}
     by_route = {r: sum(p["launches"][r] for p in paths.values()) for r in sess["launches"]}
     check(by_route["wgmma"] > 0, f"the tensor-core route launched on the main path: {by_route}")
     check(all(sum(p["launches"].values()) > 0 for p in paths.values()),

@@ -6,7 +6,8 @@ Both packages draw each seed's queries from ``default_rng(seed)``, so seed
 query sessions; the users' and the strategies' draws differ, so the
 comparison is statistical.  For each method both records hold (or the one
 entry of each, as with ``--ref-key map/32+top64@512`` of
-``results/refine_study.json``), over the seeds they share:
+``results/refine_study.json``; ``--port-key`` picks the port's entry the
+same way), over the seeds they share:
 
 * the mean paired delta (port - reference) of the final MAP and of the
   mean MAP over rounds, each with its 95 % t-interval and n (the mean over
@@ -92,9 +93,9 @@ def pair(port: dict, ref: dict) -> dict:
 
 
 def compare(port: dict, ref: dict, *, ref_key: str | None = None,
-            methods: list | None = None) -> dict:
+            methods: list | None = None, port_key: str | None = None) -> dict:
     """Every method's :func:`pair` and the ordering check."""
-    p, r = entries(port), entries(ref, ref_key)
+    p, r = entries(port, port_key), entries(ref, ref_key)
     if methods:
         p = {m: e for m, e in p.items() if m in methods}
         r = r if ref_key else {m: e for m, e in r.items() if m in methods}
@@ -126,6 +127,8 @@ def main(argv=None) -> int:
     ap.add_argument("ref", help="the reference record (or another port record)")
     ap.add_argument("--ref-key", default=None,
                     help="a/b path to the reference's one entry (e.g. map/32+top64@512)")
+    ap.add_argument("--port-key", default=None,
+                    help="a/b path to the port record's one entry (e.g. map/full 128)")
     ap.add_argument("--methods", default="", help="comma-separated methods to pair")
     ap.add_argument("--json", default=None, help="also write the numbers here")
     args = ap.parse_args(argv)
@@ -133,9 +136,10 @@ def main(argv=None) -> int:
         port = json.load(fh)
     with open(args.ref) as fh:
         ref = json.load(fh)
-    out = compare(port, ref, ref_key=args.ref_key,
+    out = compare(port, ref, ref_key=args.ref_key, port_key=args.port_key,
                   methods=[m for m in args.methods.split(",") if m] or None)
-    out.update(port_record=args.port, ref_record=args.ref, ref_key=args.ref_key)
+    out.update(port_record=args.port, ref_record=args.ref, ref_key=args.ref_key,
+               port_key=args.port_key)
     for m, p in out["pairs"].items():
         print(f"{m}: final MAP port {p['port_final_mean']:.4f} ref {p['ref_final_mean']:.4f}, "
               f"paired delta {_fmt(p['final'])}, mean MAP delta {_fmt(p['mean_map'])}, "

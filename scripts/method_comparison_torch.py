@@ -18,7 +18,11 @@ reference's keys per method plus ``device`` and ``power_limit``.  Its
 ``wall_s_per_seed`` on the card includes the capture of the run's programs
 (a fused run captures anew each run); the corpus is built once per process,
 outside it.  Pair a record with the reference's with
-``scripts/compare_records_torch.py``.  Run from the repository root::
+``scripts/compare_records_torch.py``.  ``--user-draws FILE`` feeds the
+reference's simulated-user draws (``scripts/jax_reference.py draws``) through
+the runner's ``round_draws``, so the users of the two records draw alike;
+it refuses a file that lacks a session of the run.  Run from the repository
+root::
 
     python3 scripts/method_comparison_torch.py --methods ital,uncertainty_sampling \\
         --ital-kwargs pool_size=4096,n_qmc=32,refine_top=64,refine_n_qmc=512 --seeds 0-15
@@ -40,7 +44,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "scripts"))
 
-from study_torch import card_fields, open_device, parse_seeds, record_path, write_record  # noqa: E402
+from study_torch import (  # noqa: E402
+    card_fields,
+    draws_for,
+    open_device,
+    parse_seeds,
+    record_path,
+    write_record,
+)
 
 DEFAULT_METHODS = ["ital", "uncertainty_sampling", "random"]
 
@@ -99,6 +110,8 @@ def parser() -> argparse.ArgumentParser:
                     help="comma-separated k=v [GP] overrides of every method "
                          "(suffixes the output filename)")
     ap.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    ap.add_argument("--user-draws", default=None,
+                    help="the reference's user draws (.npz of scripts/jax_reference.py draws)")
     ap.add_argument("--out", default=None,
                     help="output path (default results/<stem>.json)")
     return ap
@@ -188,9 +201,14 @@ def main(argv=None) -> int:
     from ital_tpu_torch.data.datasets import load_dataset
     from ital_tpu_torch.utils.config import load_config
 
-    base = load_config(os.path.join(REPO, "configs", f"{args.dataset}.ini"))
+    ini = os.path.join(REPO, "configs", f"{args.dataset}.ini")
+    base = load_config(ini)
     data = load_dataset(base.dataset, **base.dataset_kwargs)
-    record = compare(args, device=device, data=data, log=lambda s: print(s, flush=True))
+    with draws_for(args.user_draws, ini, parse_seeds(args.seeds), data):
+        record = compare(args, device=device, data=data, log=lambda s: print(s, flush=True))
+    if args.user_draws:
+        for entry in record.values():
+            entry["user_draws"] = os.path.basename(args.user_draws)
     write_record(out, record)
     return 0
 
