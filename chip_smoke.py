@@ -320,6 +320,26 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``STUDIES_MI_TIE`` of the CPU's maximal MI at the query.  The launch
    count is reset just before that run and read just after it.
 
+18. batch 8: the MI scan's default block (``select.ital.mi_block``, sized
+   from its working set) at the largest MI batch.  ``full 128`` and ``full
+   256`` at m = 8 (``scripts/mi_block_torch.py``) on the reference's
+   mid-session state at 25 000 rows, eager then graphed, in one process
+   beside the programs the earlier phases left, with no release by the
+   script: a capture that runs out of device memory releases the
+   single-device programs and captures again (``graphs.run``; the count
+   it released is printed).  The launch count is reset just before and
+   read just after.  Graphed picks equal eager; the blocks of every greedy
+   step, the device-memory peak and the graph pool's growth are printed
+   with the card's name and power limit; each step's pick of the eager run
+   is held, before the graphed runs, to the CPU's MI over the card's top
+   256 candidates and 2048 random rows (``mi_block_torch.REPLAY_TOP``,
+   ``REPLAY_SAMPLE``, as the record's replay) up to ``MI_TIE_ATOL``.  Then two of
+   the QMC study's problems (``scripts/qmc_error_study_torch.py``) at m = 8,
+   n_qmc 256, the four estimators on the card within ``QMC_SMOKE_ATOL`` of
+   the CPU's, and one row of each case of the router A/B
+   (``scripts/pallas_ab_torch.py``) at ``AB_N`` rows through each route,
+   timed graphed and eager and held to plain within ``F32_ATOL`` x var.
+
 The second-to-last line is a JSON object describing the kernel (launches on
 the main paths in all, per route and per path, its bound, its time and the
 plain version's, and its times at the 100 000-row shapes, at the mesh
@@ -327,7 +347,8 @@ cohort's stacked shard shapes, at the large-cap refit's shapes and at the
 ascent's (64, 64, 512) block with its launches per ``/learn``, at the
 strategies' blocks and at the 1M-row blocks, and each mesh, large-cap,
 strategy and 1M-row program's launches per replay; ``launches_by_path``
-includes ``records``, phase 16's, and ``studies``, phase 17's); the
+includes ``records``, phase 16's, ``studies``, phase 17's, and ``batch8``,
+phase 18's); the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -4465,6 +4486,99 @@ def studies_phase(torch, ds, dev, smi: str) -> dict:
     return {"launches": launches}
 
 
+QMC_SMOKE = (8, 256, 2)  # the QMC study's m, n_qmc and problems held card against CPU
+QMC_SMOKE_ATOL = 1e-5
+AB_N = 25_000  # the router A/B's corpus rows
+
+
+def _mib(value: Optional[float]) -> str:
+    return "not measured" if value is None else f"{value:.1f} MiB"
+
+
+def batch8_phase(torch, ds, dev, smi: str) -> dict:
+    """Phase 18: the MI scan's block from its working set, at m = 8.  The
+    full scans ``full 128`` and ``full 256`` (``scripts/mi_block_torch.py``)
+    on the reference's mid-session state at 25 000 rows, eager then graphed
+    (the path's count: reset just before, read just after), each at the
+    blocks ``select.ital.mi_block`` chose, beside the earlier phases'
+    programs: graphed picks equal eager, the device-memory peak, the graph
+    pool's growth and the programs released for room printed; each eager
+    step's pick held, uncounted and before the graphed runs, to the CPU's
+    MI over the card's top 256 candidates and 2048 random rows up to
+    ``MI_TIE_ATOL``; then two of
+    the QMC study's problems at m = 8, n_qmc 256 on the card against the
+    CPU within ``QMC_SMOKE_ATOL``; and one row of each router A/B case at
+    ``AB_N`` rows through each route against plain
+    (``scripts/pallas_ab_torch.py``).  Returns the path's launches."""
+    from ital_tpu_torch import graphs
+    from ital_tpu_torch.ops import rbf_hopper
+    from ital_tpu_torch.select.base import StrategyParams
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import mi_block_torch as mbt
+    import pallas_ab_torch as pab
+    import qmc_error_study_torch as qes
+    import study_torch as st
+
+    t_phase = time.perf_counter()
+    held = len(graphs.programs())
+    print(f"batch8: {held} programs held from the earlier phases, graph pools "
+          f"{graphs._pool_bytes(torch.device('cuda', torch.cuda.current_device())) / 2**20:.1f}"
+          f" MiB [{smi}]")
+    state = st.mid_session_state(ds, dev)
+    _reset_counts()  # the path's count starts here
+    rows = mbt.selections_at(torch, dev, state, uncounted=_uncounted, log=lambda line: None)
+    launches = dict(rbf_hopper.ROUTE_LAUNCHES)
+    for tag, row in rows.items():
+        for mode in ("eager", "graphed"):
+            r = row[mode]
+            pool = (f", graph pool growth {_mib(r['pool_growth_mib'])}, programs released "
+                    f"for room {r['released_for_room']}" if mode == "graphed" else "")
+            print(f"batch8 {tag} at {row['n']} rows, {mode}: picks {r['picks']}, first call "
+                  f"{r['first_call_s']:.3f} s, a call {r['call_s']:.3f} s, peak "
+                  f"{_mib(r['peak_mib'])}{pool}; blocks by step {row['blocks_by_step']} [{smi}]")
+        check(row["graphed_equals_eager"], f"batch8 {tag}: graphed picks equal eager")
+        steps = row["cpu_replay"]
+        gap, diff = max(s["gap"] for s in steps), max(s["diff"] for s in steps)
+        print(f"batch8 {tag}: CPU replay of {steps[0]['scored']}-{steps[-1]['scored']} rows a "
+              f"step, each pick below the CPU's best by {gap:.3e} at most, |card - CPU| "
+              f"{diff:.3e} at most (tie atol {MI_TIE_ATOL})")
+        check(gap <= MI_TIE_ATOL and diff <= MI_TIE_ATOL,
+              f"batch8 {tag}: every pick within {MI_TIE_ATOL} of the CPU's best")
+    print(f"batch8: launches {launches} [{smi}]")
+    del state
+    m, n_qmc, count = QMC_SMOKE
+    cpu = torch.device("cpu")
+    on = {d: StrategyParams.create(d, label_prob=qes.LABEL_PROB, mistake_prob=qes.MISTAKE_PROB)
+          for d in (dev, cpu)}
+    worst = 0.0
+    for mu, cov in qes.problems(qes.MS)[m][:count]:
+        card, host = (qes.estimates(torch, d, mu, cov, n_qmc, on[d]) for d in (dev, cpu))
+        worst = max(worst, *(float(np.max(np.abs(np.asarray(card[k]) - np.asarray(host[k]))))
+                             for k in card))
+    print(f"batch8 QMC study: {count} problems at m = {m}, n_qmc {n_qmc}: the four estimators "
+          f"card vs CPU {worst:.3e} at most (atol {QMC_SMOKE_ATOL})")
+    check(worst <= QMC_SMOKE_ATOL, f"batch8 QMC study: card within {QMC_SMOKE_ATOL} of the CPU")
+    rng = np.random.default_rng(0)
+    x_all = torch.as_tensor(rng.standard_normal((AB_N, pab.D), np.float32), device=dev)
+    v_all = torch.as_tensor(rng.standard_normal((pab.CAP, AB_N), np.float32) * 0.05, device=dev)
+    with _uncounted():
+        ab = pab.run_scale(torch, dev, x_all, v_all, AB_N, "float32", pab.ROUTES,
+                           log=lambda line: None, target_s=0.05)
+    for case in pab.CASES:
+        print(f"batch8 router A/B {case} at {AB_N} rows: " + ", ".join(
+            f"{route} {ab[route][case]['ms_per_round']:.4f} ms graphed "
+            f"({ab[route][case]['eager_ms_per_round']:.4f} eager)" for route in pab.ROUTES)
+            + f"; the router picks {ab['fastest'][case]['router']}, fastest "
+              f"{ab['fastest'][case]['route']} [{smi}]")
+    for route, e in ab["check"].items():
+        print(f"batch8 router A/B {route} against plain: block {e['block']:.3e}, emoc "
+              f"{e['emoc_block']:.3e}, density {e['density_block']:.3e} (x var)")
+        check(e["held"], f"batch8 router A/B: {route} within {pab.ATOL['float32']} x var of plain")
+    print(f"batch8 phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -4509,6 +4623,8 @@ def main() -> int:
     clock("records")
     studies = studies_phase(torch, ds, torch.device("cuda"), smi)
     clock("studies")
+    batch8 = batch8_phase(torch, ds, torch.device("cuda"), smi)
+    clock("batch 8")
     # At 512 features every RBF call of the paths takes the tensor-core route
     # (the router's rule, PERF.md); the tile kernel serves narrower or
     # unaligned features and is held against the plain version in phase 3.
@@ -4518,7 +4634,7 @@ def main() -> int:
              "learn": {"launches": learn["launches"]},
              "strategies": {"launches": strategies["launches"]},
              "scale_session": scale["session"], "scale_serving": scale["serving"],
-             "records": records, "studies": studies}
+             "records": records, "studies": studies, "batch8": batch8}
     by_route = {r: sum(p["launches"][r] for p in paths.values()) for r in sess["launches"]}
     check(by_route["wgmma"] > 0, f"the tensor-core route launched on the main path: {by_route}")
     check(all(sum(p["launches"].values()) > 0 for p in paths.values()),

@@ -22,9 +22,18 @@ program whose corpus is gone is released at the next capture.  One
 lock orders copy-in, replay and copy-out, since a server's handler threads
 reach the programs for different sessions at once; captures run under it
 too, in ``thread_local`` error mode, so that another thread's work cannot
-break them.  All programs allocate from one memory pool.  A program keeps
-no reference to the tensors it shares: its key holds their address, which
-only a live tensor of the same layout can hold when the program is called.
+break them.  The single-device programs allocate from one memory pool, each
+mesh's programs from one of the mesh's own.  A program keeps no reference
+to the tensors it shares: its key holds their address, which only a live
+tensor of the same layout can hold when the program is called.
+
+A pool hands its memory back to the device only once no program in it
+lives, and a capture's warm-up runs eagerly beside the pools already held.
+So a single-device capture that runs out of device memory releases every
+single-device program (each is captured again at its next call), starts a
+new pool and captures once more; a call under :func:`eager` that runs out
+of memory and writes no input does the same.  A second failure raises.  A
+mesh program never does: its ranks release only alike.
 
 What a body may do, so that it can be captured:
 
@@ -92,10 +101,11 @@ from ital_tpu_torch.ops import rbf_hopper
 # (name, static, device, inputs' layouts, shared tensors' addresses, precision, mesh) -> Program
 _PROGRAMS: dict = {}
 _LOCK = threading.RLock()  # every program's capture, copy-in, replay and copy-out
-_POOL: list = []  # the one memory pool of every program, made at the first capture
+_POOLS: dict = {}  # mesh uid (None: the single-device programs) -> their memory pool
 _LOCAL = threading.local()  # .eager: eager() depth; .pending: checks of a body being captured
 _USES = itertools.count(1)  # the order of the programs' calls, for STACK_BYTES
 _CAPTURES = [0]  # programs captured in this process (released ones included)
+_ROOM = [0]  # programs released to make room after an out-of-memory error
 # Devices whose tensors a call runs through a captured graph.
 _GRAPH_DEVICES = ("cuda",)
 # Static bytes the programs that stack sessions (a list input) keep
@@ -320,6 +330,52 @@ def release_mesh(mesh) -> None:
             if prog.mesh == mesh.uid:
                 del _PROGRAMS[key]
                 prog.release()
+        _POOLS.pop(mesh.uid, None)
+
+
+def _out_of_memory(exc: BaseException) -> bool:
+    """Whether ``exc``, or an exception it was raised from or while
+    handling, is the device running out of memory."""
+    seen = set()
+    while exc is not None and id(exc) not in seen:
+        if isinstance(exc, torch.cuda.OutOfMemoryError):
+            return True
+        seen.add(id(exc))
+        exc = exc.__cause__ or exc.__context__
+    return False
+
+
+def _release_for_room() -> bool:
+    """Release every single-device program and drop their pool, whose
+    memory then goes back to the device at the next
+    ``torch.cuda.empty_cache()`` (a capture empties the cache first, and
+    the allocator does before it reports running out).  Releasing only
+    some would free nothing: the pool stays while any program in it lives.
+    (An m = 8 full scan's pool takes 44-52 GiB of the H100's 80 GB, and a
+    second one's capture beside it ran out, PERF.md §6.)  Returns whether
+    any program was released."""
+    held = [key for key, prog in _PROGRAMS.items() if prog.mesh is None]
+    for key in held:
+        _PROGRAMS.pop(key).release()
+    _POOLS.pop(None, None)
+    _ROOM[0] += len(held)
+    return bool(held)
+
+
+def _making_room(call: Callable[[], Any], mesh: Optional[int]) -> Any:
+    """``call()``; where the device runs out of memory for a single-device
+    call while single-device programs are held, release them and call it
+    once more."""
+    try:
+        return call()
+    except Exception as exc:
+        if mesh is not None or not _out_of_memory(exc):
+            raise
+        with _LOCK:
+            if not _release_for_room():
+                raise
+    # The failed attempt's tensors went with its exception.
+    return call()
 
 
 def _input_bytes(inputs: dict) -> int:
@@ -364,13 +420,18 @@ def run(name: str, body: Callable[..., tuple], inputs: dict, *, shared: Optional
     """
     shared = shared or {}
     device = _device_of(inputs)
-    if not _graphed(device):
-        args = {k: _as_tensor(v, device) for k, v in inputs.items()}
-        out = body(**shared, **args)
-        _write_back(inputs, args, writes)
-        return out
-    key = _signature(name, static, inputs, shared, device, mesh)
     uid = None if mesh is None else mesh.uid
+    if not _graphed(device):
+        def eagerly():
+            args = {k: _as_tensor(v, device) for k, v in inputs.items()}
+            out = body(**shared, **args)
+            _write_back(inputs, args, writes)
+            return out
+
+        if device.type in _GRAPH_DEVICES and not in_program() and not writes:
+            return _making_room(eagerly, uid)
+        return eagerly()
+    key = _signature(name, static, inputs, shared, device, mesh)
     with _LOCK:
         prog = _PROGRAMS.get(key)
         if prog is None:
@@ -378,7 +439,7 @@ def run(name: str, body: Callable[..., tuple], inputs: dict, *, shared: Optional
             stacks = any(_is_list(v) for v in inputs.values())
             if stacks:
                 _release_stacks(_input_bytes(inputs), uid)
-            prog = _capture(name, body, inputs, shared, device)
+            prog = _making_room(lambda: _capture(name, body, inputs, shared, device, uid), uid)
             prog.key, prog.stacks, prog.mesh = key, stacks, uid
             if mesh is not None:
                 prog.pinned = tuple(shared.values())
@@ -404,7 +465,7 @@ def run(name: str, body: Callable[..., tuple], inputs: dict, *, shared: Optional
         return out
 
 
-def _capture(name, body, inputs, shared, device) -> Program:
+def _capture(name, body, inputs, shared, device, mesh: Optional[int]) -> Program:
     # Each buffer keeps its input's layout: the library's Cholesky factor is
     # column-major, and a row-major copy would round its solves differently.
     buffers = {k: None if v is None else
@@ -414,7 +475,7 @@ def _capture(name, body, inputs, shared, device) -> Program:
     _load(buffers, inputs)
     pools = _pool_bytes(device)
     graph, outputs, checks, launches, warmup_ms, capture_ms, instantiate_ms = (
-        _capture_graph(name, body, buffers, shared, device))
+        _capture_graph(name, body, buffers, shared, device, mesh))
     grown = _pool_bytes(device) - pools
     held = [t for t in buffers.values() if t is not None] + list(outputs)
     return Program(name=name, graph=graph, inputs=buffers, outputs=outputs,
@@ -435,8 +496,10 @@ def _pool_bytes(device: torch.device) -> int:
                and tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
 
 
-def _capture_graph(name, body, buffers, shared, device):
-    """Warm ``body`` up on a side stream, then capture it into a graph.
+def _capture_graph(name, body, buffers, shared, device, mesh):
+    """Warm ``body`` up on a side stream, then capture it into a graph that
+    allocates from the pool of the programs of mesh uid ``mesh`` (``None``:
+    the single-device programs).
 
     The warm-up runs the body once on the static buffers: it loads the
     kernels' library, makes the kernels' first ``cudaFuncSetAttribute`` and
@@ -451,17 +514,17 @@ def _capture_graph(name, body, buffers, shared, device):
         body(**shared, **buffers)
     torch.cuda.current_stream(device).wait_stream(side)
     warmup_ms = (time.perf_counter() - t0) * 1e3
-    if not _PROGRAMS:
-        # Before the first program, a failed capture may have left the pool
-        # with no graph, and a capture may not join such a pool.
-        _POOL.clear()
-    if not _POOL:
-        _POOL.append(torch.cuda.graph_pool_handle())
+    if not any(prog.mesh == mesh for prog in _PROGRAMS.values()):
+        # A failed capture may have left the pool with no graph, and a
+        # capture may not join such a pool.
+        _POOLS.pop(mesh, None)
+    if mesh not in _POOLS:
+        _POOLS[mesh] = torch.cuda.graph_pool_handle()
     graph = torch.cuda.CUDAGraph()
     t0 = time.perf_counter()  # the capture starts with a synchronization
     try:
         with rbf_hopper.recording_launches() as launches, _in_program() as checks:
-            with torch.cuda.graph(graph, pool=_POOL[0], capture_error_mode="thread_local"):
+            with torch.cuda.graph(graph, pool=_POOLS[mesh], capture_error_mode="thread_local"):
                 outputs = tuple(body(**shared, **buffers))
                 t1 = time.perf_counter()
     except Exception as exc:
@@ -483,3 +546,10 @@ def captures() -> int:
     does not tell whether a call captured."""
     with _LOCK:
         return _CAPTURES[0]
+
+
+def released_for_room() -> int:
+    """How many programs this process has released to make room for a call
+    that ran out of device memory."""
+    with _LOCK:
+        return _ROOM[0]

@@ -77,7 +77,6 @@ from ital_tpu_torch.select import baselines as bl
 from ital_tpu_torch.select.base import StrategyParams, per_session
 from ital_tpu_torch.select.ital import (
     MAX_MI_BATCH,
-    MI_BLOCK,
     _pack_shifts,
     _session_scores,
     draw_qmc_shifts,
@@ -766,7 +765,7 @@ def _padded_uniforms(generator, n_real: int, n_pad: int, like: torch.Tensor) -> 
 _DRAWN = ("subsample_uniforms", "qmc_shifts", "uniforms")
 
 
-def _ital_options(*, n_qmc: int = 128, block: int = MI_BLOCK, pool_size: int = 0,
+def _ital_options(*, n_qmc: int = 128, block: Optional[int] = None, pool_size: int = 0,
                   subsample_size: int = 0, refine_top: int = 0, refine_n_qmc: int = 512,
                   randomize_qmc: bool = False) -> dict:
     """ITAL's options with the defaults of :func:`make_sharded_select`."""
@@ -951,7 +950,7 @@ def make_sharded_select(
     strategy: str = "ital",
     batch_size: int = 4,
     n_qmc: int = 128,
-    block: int = MI_BLOCK,
+    block: Optional[int] = None,
     pool_size: int = 0,
     subsample_size: int = 0,
     refine_top: int = 0,

@@ -66,11 +66,40 @@ from ital_tpu_torch.utils.metrics import top_k_stable
 # measured QMC accuracy (through m = 8) bound it.
 MAX_MI_BATCH = 8
 
-# Candidates scored per block of the MI scan.  Each block costs the same
-# ~800 small launches whatever its size, so on the card fewer blocks win: a
-# full-scan fetch over 25 000 candidates took 213-238 ms at block 1024 and
-# 22-25 ms at 32768 (one block) on an H100 80GB HBM3 at 700 W (PERF.md).
-MI_BLOCK = 32768
+# Candidates scored per block of the MI scan (``block``), by default
+# :func:`mi_block` of the tree's size.  Each block costs the same ~800 small
+# launches whatever its size, so on the card fewer blocks win: a full-scan
+# fetch over 25 000 candidates took 213-238 ms at block 1024 and 22-25 ms at
+# 32768 (one block) on an H100 80GB HBM3 at 700 W (PERF.md).  Past 32768
+# the gain is gone, so no block is larger.
+MI_BLOCK_MAX = 32768
+# The default block's budget: bytes of one block's eager working set.  The
+# tree's last level holds 2 x n_qmc x 2^m x (3m + 7) bytes of f32 values a
+# candidate row, and on an H100 80GB HBM3 at 700 W one call's eager peak
+# matched that count within 5 % at m = 4, 6 and 8 and n_qmc 32 to 512
+# (PERF.md §6, scripts/mi_block_torch.py: 4096 rows at m = 8, n_qmc 128
+# peaked at 7945 MiB).  A capture holds more than the eager peak: one
+# call's graph pool took 1.97-2.16 times the eager peak (15630 MiB for
+# those 4096 rows), and a whole m = 8 full-scan selection at n_qmc 128,
+# whose eager peak stays at the budget, grew the pool by 45468 MiB at
+# 25 000 rows, 51802 MiB at 100 000 and 46398 MiB at 1M beside a 5492 MiB
+# pool (2.3-2.6 times, past 45 GiB, not growing past 100 000 rows).
+# 20032 MiB is 45 GiB / 2.3 rounded down to 64 MiB: it keeps one block
+# for 25 000 rows up to m = 6 at n_qmc 256 and 32768 rows up to m = 6 at
+# n_qmc 128 (and at every m at n_qmc 32), and gives 10240 rows at m = 8,
+# n_qmc 128 and 5120 at 256.  Where a capture beside other programs'
+# pools runs out of memory, graphs.run releases them and captures again.
+MI_EAGER_BYTES = 20032 << 20
+
+
+def mi_block(m: int, n_qmc: int) -> int:
+    """The default block of an MI scan at batch size ``m`` (the partial
+    batch's t plus the candidate) and ``n_qmc`` lattice points: the most
+    candidate rows whose eager working set, 2 x n_qmc x 2^m x (3m + 7)
+    bytes a row, stays within :data:`MI_EAGER_BYTES`, a multiple of 256
+    where it is that large, and at most :data:`MI_BLOCK_MAX`."""
+    rows = MI_EAGER_BYTES // (2 * n_qmc * 2 ** m * (3 * m + 7))
+    return max(1, min(MI_BLOCK_MAX, rows - rows % 256 if rows >= 256 else rows))
 
 
 @functools.lru_cache(maxsize=None)
@@ -144,7 +173,7 @@ def mi_scores_from_moments(
     *,
     t: int,
     n_qmc: int = 128,
-    block: int = MI_BLOCK,
+    block: Optional[int] = None,
     shift: Optional[torch.Tensor] = None,
     session: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
@@ -163,6 +192,8 @@ def mi_scores_from_moments(
         holds K sessions' (K,) user models.
     """
     m = t + 1
+    if block is None:
+        block = mi_block(m, n_qmc)
     pfr = feedback_given_relevance(m, params.label_prob, params.mistake_prob)
     # Streamed per candidate, by name, with their pads (variance 1.0 keeps
     # pad rows' Cholesky SPD); the rest is shared by every candidate.
@@ -227,7 +258,7 @@ def _session_scores(
     *,
     t: int,
     n_qmc: int,
-    block: int = MI_BLOCK,
+    block: Optional[int] = None,
     shift: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """(K, P) MI of K sessions' P candidates each, in one
@@ -374,7 +405,7 @@ def score_candidates_mi(
     params: StrategyParams,
     *,
     n_qmc: int = 128,
-    block: int = MI_BLOCK,
+    block: Optional[int] = None,
     shift: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """(N,) mutual information of appending each corpus point to ``batch[:t]``."""
@@ -465,7 +496,7 @@ def _greedy_picks(
     forbid: torch.Tensor,
     *,
     n_qmc: int,
-    block: int,
+    block: Optional[int],
     refine_top: int,
     refine_n_qmc: int,
     qmc_shifts: Optional[Sequence[torch.Tensor]],
@@ -527,7 +558,7 @@ def _stacked_picks(
     *,
     batch_size: int,
     n_qmc: int = 128,
-    block: int = MI_BLOCK,
+    block: Optional[int] = None,
     pool_size: int = 0,
     subsample_size: int = 0,
     refine_top: int = 0,
@@ -576,7 +607,7 @@ def select_ital_stacked(
     params: StrategyParams,
     *,
     n_qmc: int = 128,
-    block: int = MI_BLOCK,
+    block: Optional[int] = None,
     pool_size: int = 0,
     subsample_size: int = 0,
     refine_top: int = 0,
@@ -644,7 +675,7 @@ def select_ital(
     params: StrategyParams,
     *,
     n_qmc: int = 128,
-    block: int = MI_BLOCK,
+    block: Optional[int] = None,
     pool_size: int = 0,
     subsample_size: int = 0,
     refine_top: int = 0,

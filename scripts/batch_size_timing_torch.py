@@ -15,8 +15,11 @@ on the reference's mid-session state (the reference builds it through
 ``study_torch.time_call`` (first call alone, then CUDA-event-timed calls,
 graphed and under ``graphs.eager()``).  Step t of the greedy loop scores
 2^(t+1) orthants, so the cost grows about 2^m, and so does the MI scan's
-working set: a row that runs out of device memory (in its eager warm-up
-or in its capture) records the error as its result.
+working set; its default block (``select.ital.mi_block``, recorded per
+greedy step under ``mi_blocks``) keeps that within a fixed budget.  A row that
+runs out of device memory (in its eager warm-up or in its capture) records
+the error as its result.  Each row's programs are released after it, so
+every row is measured with the card's memory to itself.
 
 Writes ``results/batch_size_timing_torch.json`` (``--out``); the reference
 has no record to compare with.  ``--batch-sizes 8`` times m = 8 alone, in a
@@ -59,18 +62,29 @@ def time_row(torch, device, state, tag: str, kwargs: dict, log) -> dict:
     """One row's :func:`study_torch.time_selects` entry, or its error when
     the device runs out of memory."""
     from ital_tpu_torch import graphs
-    from ital_tpu_torch.select.ital import MI_BLOCK
+    from ital_tpu_torch.select.ital import mi_block
 
+    m = kwargs["batch_size"]
     try:
         return st.time_selects(torch, device, state, [(tag, kwargs)], log=log,
-                               label=f"m={kwargs['batch_size']}")[tag]
+                               label=f"m={m}")[tag]
     except (torch.cuda.OutOfMemoryError, graphs.CaptureError) as exc:
         # Out of memory in the eager warm-up, or in the capture after it.
         if not isinstance(exc.__cause__ or exc, torch.cuda.OutOfMemoryError):
             raise
         torch.cuda.empty_cache()
-        log(f"  m={kwargs['batch_size']} {tag}: out of memory at block {MI_BLOCK}")
-        return {"error": f"out of memory at block {MI_BLOCK}: {str(exc).splitlines()[0]}"}
+        block = mi_block(m, kwargs["n_qmc"])  # the last greedy step's, the largest tree's
+        log(f"  m={m} {tag}: out of memory at block {block}")
+        return {"error": f"out of memory at block {block}: {str(exc).splitlines()[0]}"}
+
+
+def mi_blocks(m: int) -> dict:
+    """``{tag: [block of each greedy step]}``: the base scan's default block
+    (``select.ital.mi_block``) of each row at MI batch size ``m``."""
+    from ital_tpu_torch.select.ital import mi_block
+
+    return {tag: [mi_block(t + 1, kwargs["n_qmc"]) for t in range(m)]
+            for tag, kwargs in timing_rows(m)}
 
 
 def main(argv=None) -> int:
@@ -92,8 +106,9 @@ def main(argv=None) -> int:
     state = st.mid_session_state(ds, device)
     report = {"platform": "gpu" if device.type == "cuda" else "cpu", "n": ds.n,
               "dim": int(ds.x.shape[1]), "protocol": PROTOCOL,
-              **st.card_fields(torch, device), "rows": {}}
+              **st.card_fields(torch, device), "rows": {}, "mi_blocks": {}}
     for m in (int(v) for v in args.batch_sizes.split(",")):
+        report["mi_blocks"][f"m{m}"] = mi_blocks(m)
         report["rows"][f"m{m}"] = {tag: time_row(torch, device, state, tag, kwargs, log)
                                    for tag, kwargs in timing_rows(m)}
     st.write_record(args.out, report)

@@ -8,7 +8,8 @@ mid-session state at the MIRFLICKR-25K surrogate's size (the reference's
 production pool config (``pool4096_refine``: pool 4096, base n_qmc 32, the
 top 64 re-scored at 512) and the full-scan two-stage config
 (``fullscan_refine``), at the reference's blocks 512, 1024, 2048 and 4096
-and at 8192 and the port's default ``select.ital.MI_BLOCK`` (32768).  Each
+and at 8192 and 32768 (``select.ital.MI_BLOCK_MAX``, the largest default
+block, which ``select.ital.mi_block`` gives at m = 4).  Each
 row is ``study_torch.time_call`` (first call alone, then CUDA-event-timed
 calls, graphed and under ``graphs.eager()``); its per-call ms is
 ``ms_per_round`` where the reference's pipeline slope was ``slope_ms``.

@@ -19,7 +19,20 @@ given seeds:
 The port's study scripts feed it through
 ``ital_tpu_torch.runner.round_draws`` (``--user-draws``).  The uniforms do
 not depend on the user's label and mistake probabilities, so one file
-serves every noise level.
+serves every noise level.  ``draws --task regression`` exports the
+regression runner's draws instead (``ital_tpu.runner.
+run_regression_experiment``: round ``r`` of repetition ``rep`` splits
+``fold_in(fold_in(PRNGKey(seed), rep), r)`` into a selection key, the
+label key and the noise key), for ``scripts/regression_learning_study.py``'s
+task (``--rounds``, ``--batch-size``, one repetition):
+
+* ``sessions`` (S, 2) int64: ``seed, rep``;
+* ``u_label`` (S, n_rounds, batch_size) float32: the uniforms that decide
+  which answers are labeled;
+* ``eps`` (S, n_rounds, batch_size) float32: the N(0, 1) observation errors.
+
+``scripts/regression_learning_study_torch.py`` feeds it through
+``ital_tpu_torch.runner.regression_draws`` (``--user-draws``).
 
 ``partings``: where a port run's picks (``scripts/pool_refine_torch.py
 --picks-out``) part from the reference's on the same user draws.  For each
@@ -44,6 +57,8 @@ Run from the repository root::
 
     python3 scripts/jax_reference.py draws --seeds 0-7 \\
         --out results/jax_user_draws_mirflickr_s0-7_torch.npz
+    python3 scripts/jax_reference.py draws --task regression --seeds 0-7 \\
+        --out results/jax_user_draws_regression_toy_s0-7_torch.npz
     python3 scripts/jax_reference.py partings --picks results/pool_refine_picks_torch.json \\
         --seeds 0-7 --out results/full_scan_partings_torch.json
     python3 scripts/jax_reference.py orders --orders 0-3 --seeds 0-7 \\
@@ -100,6 +115,29 @@ def export(config: str, seeds: list, overrides: tuple = ()) -> dict:
     return {"sessions": np.asarray(sessions, np.int64),
             "u_label": np.asarray(u_label, np.float32),
             "u_flip": np.asarray(u_flip, np.float32)}
+
+
+def export_regression(seeds: list, n_rounds: int, batch_size: int,
+                      repetitions: int = 1) -> dict:
+    """The arrays of a regression draws file: each round's label uniforms
+    and N(0, 1) errors of ``ital_tpu.runner.run_regression_experiment`` at
+    ``seeds``."""
+    jax = _cpu_jax()
+
+    sessions, u_label, eps = [], [], []
+    for seed in seeds:
+        for rep in range(repetitions):
+            key = jax.random.fold_in(jax.random.PRNGKey(seed), rep)
+            lab, err = [], []
+            for rnd in range(n_rounds):
+                _, k_lab, k_eps = jax.random.split(jax.random.fold_in(key, rnd), 3)
+                lab.append(np.asarray(jax.random.uniform(k_lab, (batch_size,))))
+                err.append(np.asarray(jax.random.normal(k_eps, (batch_size,))))
+            sessions.append((seed, rep))
+            u_label.append(lab)
+            eps.append(err)
+    return {"sessions": np.asarray(sessions, np.int64),
+            "u_label": np.asarray(u_label, np.float32), "eps": np.asarray(eps, np.float32)}
 
 
 def reference_run(cfg, ds, plan=None) -> dict:
@@ -311,7 +349,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="command", required=True)
     d = sub.add_parser("draws", help="export the reference's user draws (.npz)")
-    d.add_argument("--config", default=MIRFLICKR)
+    d.add_argument("--task", default="retrieval", choices=("retrieval", "regression"))
+    d.add_argument("--config", default=MIRFLICKR, help="the retrieval task's config")
+    d.add_argument("--rounds", type=int, default=10, help="the regression task's rounds")
+    d.add_argument("--batch-size", type=int, default=4, help="the regression task's batch")
     d.add_argument("--seeds", default="0-7", help="seeds as 0,1,2 or 0-7")
     d.add_argument("--out", required=True, help="the .npz to write (its name carries _torch)")
     d.add_argument("overrides", nargs="*", help="SECTION.key=value config overrides")
@@ -332,7 +373,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     record_path(args.out)
     if args.command == "draws":
-        arrays = export(args.config, parse_seeds(args.seeds), tuple(args.overrides))
+        arrays = (export(args.config, parse_seeds(args.seeds), tuple(args.overrides))
+                  if args.task == "retrieval" else
+                  export_regression(parse_seeds(args.seeds), args.rounds, args.batch_size))
         np.savez(args.out, **arrays)
         print(f"wrote {args.out}: {len(arrays['sessions'])} sessions x "
               f"{arrays['u_label'].shape[1]} rounds x {arrays['u_label'].shape[2]}", flush=True)

@@ -10,10 +10,17 @@
   on a query and five rounds of four labels from ``default_rng(7)``;
 * :func:`time_call`, :func:`time_selects`: a call's first-call seconds and
   its per-call ms, graphed and under ``graphs.eager()``, by CUDA events;
+* :func:`pipeline_ms`, :func:`pipeline_slope`, :func:`event_ms`, :func:`sync_ms`,
+  :func:`device_profile`: the reference's timing-corroboration protocol
+  measured the card's way (back-to-back calls between one pair of CUDA
+  events, an event pair around each call, a host clock around a
+  synchronized call, and ``torch.profiler``'s device time and op count);
 * :func:`user_draws`, :func:`draws_for`: the reference's user draws from a file
   (``scripts/jax_reference.py draws``), fed through the runner's
   ``round_draws`` inside a ``with`` block, for the sessions
   :func:`sessions_needed` lists;
+* :func:`regression_user_draws`: the same for the regression runner
+  (``runner.regression_draws``: label uniforms and N(0, 1) errors);
 * :func:`map_runs`: the MAP half of the reference's selection studies, and
   :func:`paired`, their paired-delta summary of two configurations;
 * :func:`scale_datasets`, :func:`load_record`: the timing scales' corpora
@@ -122,32 +129,14 @@ def time_call(torch, device, call, *, target_s: float = 0.25, trials: int = 3) -
     from ital_tpu_torch import graphs
     from ital_tpu_torch.ops import rbf_hopper
 
-    on_card = device.type == "cuda"
-
-    def sync():
-        if on_card:
-            torch.cuda.synchronize(device)
-
     def run_ms(n: int) -> float:
-        sync()
-        if on_card:
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(n):
-                call()
-            end.record()
-            end.synchronize()
-            return start.elapsed_time(end) / n
-        t0 = time.perf_counter()
-        for _ in range(n):
-            call()
-        return (time.perf_counter() - t0) * 1e3 / n
+        return pipeline_ms(torch, device, call, n, trials=1) / n
 
     captures = graphs.captures()
-    sync()
+    sync(torch, device)
     t0 = time.perf_counter()
     call()
-    sync()
+    sync(torch, device)
     out = {"first_call_s": time.perf_counter() - t0, "captures": graphs.captures() - captures}
     for key, mode in (("", contextlib.nullcontext), ("eager_", graphs.eager)):
         with mode():
@@ -182,6 +171,107 @@ def time_selects(torch, device, state, rows, *, log=print, label: str = "",
             f"{r['eager_ms_per_round']:.3f} eager (first call {r['first_call_s']:.2f} s, "
             f"{r['launches_per_call']:g} launches a call)")
     return out
+
+
+class _HostEvent:
+    """A host-clock stand-in for a CUDA event off the card (the CPU tests)."""
+
+    def record(self):
+        self.t = time.perf_counter()
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, end) -> float:
+        return (end.t - self.t) * 1e3
+
+
+def _events(torch, device):
+    if device.type == "cuda":
+        return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    return _HostEvent(), _HostEvent()
+
+
+def sync(torch, device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def pipeline_ms(torch, device, call, reps: int, trials: int = 3) -> float:
+    """The least total ms of ``reps`` back-to-back calls over ``trials``,
+    each run between one pair of CUDA events (the reference's pipeline
+    protocol, whose total held one host fetch; a host clock off the card)."""
+    best = float("inf")
+    for _ in range(trials):
+        sync(torch, device)
+        start, end = _events(torch, device)
+        start.record()
+        for _ in range(reps):
+            call()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best
+
+
+def pipeline_slope(torch, device, call, reps: tuple = (8, 32)) -> tuple:
+    """``(lo, hi, slope)``: :func:`pipeline_ms` of ``reps[0]`` and
+    ``reps[1]`` calls, and the ms a call between them (the reference's
+    RTT-cancelling slope)."""
+    lo, hi = (pipeline_ms(torch, device, call, r) for r in reps)
+    return lo, hi, (hi - lo) / (reps[1] - reps[0])
+
+
+def event_ms(torch, device, call, calls: int = 10) -> list:
+    """Each of ``calls`` back-to-back calls' ms between two CUDA events
+    around it (a host clock off the card)."""
+    sync(torch, device)
+    pairs = []
+    for _ in range(calls):
+        start, end = _events(torch, device)
+        start.record()
+        call()
+        end.record()
+        pairs.append((start, end))
+    sync(torch, device)
+    return [s.elapsed_time(e) for s, e in pairs]
+
+
+def sync_ms(torch, device, call, calls: int = 5) -> list:
+    """Each of ``calls`` calls' host ms with a synchronization after it."""
+    out = []
+    for _ in range(calls):
+        sync(torch, device)
+        t0 = time.perf_counter()
+        call()
+        sync(torch, device)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def device_profile(torch, device, call, calls: int = 1) -> dict:
+    """``torch.profiler`` over ``calls`` synchronized calls on the card: the
+    device's busy share (kernel and copy time over the host's wall time;
+    None where the profiler saw no device time), the device ms and the
+    device operations a call.  Off the card every value is None (not
+    measured)."""
+    if device.type != "cuda":
+        return {"busy_share": None, "device_ms_per_call": None, "wall_ms_per_call": None,
+                "ops_per_call": None}
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize(device)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(getattr(e, "self_device_time_total", 0.0) or e.device_time_total for e in events)
+    return {"busy_share": busy / wall_us if busy > 0 else None,
+            "device_ms_per_call": busy / 1e3 / calls, "wall_ms_per_call": wall_us / 1e3 / calls,
+            "ops_per_call": sum(e.count for e in events) / calls}
 
 
 def load_user_draws(path: str) -> dict:
@@ -222,6 +312,40 @@ def user_draws(path: str, needed):
         yield
     finally:
         runner.round_draws = own
+
+
+@contextlib.contextmanager
+def regression_user_draws(path: str, needed):
+    """Inside the block the regression runner's simulated user draws the
+    file's label uniforms and N(0, 1) errors (``scripts/jax_reference.py
+    draws --task regression``); the strategy keeps the port's own
+    generator.  ``needed``: ``(seed, rep, n_rounds, batch_size)`` of every
+    run the block makes; exits non-zero, before anything runs, when the
+    file lacks one of them."""
+    from ital_tpu_torch import runner
+    from ital_tpu_torch.ops.chol import host_copy
+
+    with np.load(path) as f:
+        table = {tuple(int(v) for v in s): (lab, eps)
+                 for s, lab, eps in zip(f["sessions"], f["u_label"], f["eps"])}
+    for seed, rep, n_rounds, batch_size in needed:
+        got = table.get((seed, rep))
+        if got is None or got[0].shape[0] < n_rounds or got[0].shape[1] < batch_size:
+            sys.exit(f"--user-draws {path}: no draws for seed={seed} rep={rep} "
+                     f"({n_rounds} rounds x {batch_size})")
+    own = runner.regression_draws
+
+    def fed(seed, rep, rnd, batch_size, device):
+        generator, _, _ = own(seed, rep, rnd, batch_size, device)
+        lab, eps = table[(seed, rep)]
+        u = host_copy(np.stack([lab[rnd, :batch_size], eps[rnd, :batch_size]]), device)
+        return generator, u[0], u[1]
+
+    runner.regression_draws = fed
+    try:
+        yield
+    finally:
+        runner.regression_draws = own
 
 
 def sessions_needed(cfg_for_seed, seeds, data) -> list:

@@ -529,7 +529,7 @@ def test_failed_cholesky_check_leaves_all_sessions_unchanged(surrogate, stand_in
 def test_failed_capture_raises_and_never_runs_eagerly(surrogate, stand_in, monkeypatch):
     """A capture that fails raises from the cohort endpoints and the runner;
     no call falls back to the eager body, and no session moves."""
-    def failing(name, body, buffers, shared, device):
+    def failing(name, body, buffers, shared, device, mesh):
         raise graphs.CaptureError(f"capturing program {name!r} failed: stand-in")
 
     monkeypatch.setattr(graphs, "_capture_graph", failing)

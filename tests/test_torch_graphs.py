@@ -346,7 +346,7 @@ def stand_in(monkeypatch):
     log."""
     captured = []
 
-    def capture_graph(name, body, buffers, shared, device):
+    def capture_graph(name, body, buffers, shared, device, mesh):
         captured.append(name)
         with rbf_hopper.recording_launches() as launches, graphs._in_program() as checks:
             outputs = tuple(t.clone() for t in body(**shared, **buffers))
@@ -446,7 +446,7 @@ def test_failed_check_in_a_program_leaves_the_session_unchanged(surrogate, stand
 def test_failed_capture_raises_and_never_runs_eagerly(surrogate, stand_in, monkeypatch):
     """A capture that fails raises; the call does not fall back to the
     eager body, and no program is kept."""
-    def failing(name, body, buffers, shared, device):
+    def failing(name, body, buffers, shared, device, mesh):
         raise graphs.CaptureError(f"capturing program {name!r} failed: stand-in")
 
     monkeypatch.setattr(graphs, "_capture_graph", failing)

@@ -543,9 +543,12 @@ def test_a_row_out_of_memory_records_its_error_and_is_not_timed_again(monkeypatc
     assert bst.main(["--device", "cpu", "--batch-sizes", "6,8", "--out", str(out)]) == 0
     rows = json.loads(out.read_text())["rows"]
     assert sorted(calls) == sorted((tag, m) for m in (6, 8) for tag, *_ in bst.CONFIGS)
+    from ital_tpu_torch.select.ital import mi_block
+
     first = "CUDA out of memory" if where == "warm-up" else "select_ital could not"
-    for tag in ("full 128", "full 256"):
-        assert rows["m8"][tag]["error"].startswith("out of memory at block 32768: " + first)
+    for tag, n_qmc in (("full 128", 128), ("full 256", 256)):
+        assert rows["m8"][tag]["error"].startswith(
+            f"out of memory at block {mi_block(8, n_qmc)}: " + first)
         assert set(rows["m8"][tag]) == {"error"}
         assert rows["m6"][tag] == {"ms_per_round": 1.0}
     assert rows["m8"]["pool4096 32+top64@512"] == {"ms_per_round": 1.0}

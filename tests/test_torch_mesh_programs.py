@@ -96,7 +96,7 @@ class _StandInGraph:
             value.copy_(val)
 
 
-def _capture_graph(name, body, buffers, shared, device):
+def _capture_graph(name, body, buffers, shared, device, mesh):
     with rbf_hopper.recording_launches() as launches, graphs._in_program() as checks:
         outputs = tuple(t.clone() for t in body(**shared, **buffers))
     return _StandInGraph(body, shared, buffers, outputs, checks), outputs, checks, launches, 0.0, \

@@ -303,7 +303,7 @@ def test_stacked_pair_of_programs_is_kept_when_their_bytes_fit(monkeypatch):
     from tests.test_torch_graphs import _StandInGraph
     from ital_tpu_torch.data.datasets import corpus100k
 
-    def capture_graph(name, body, buffers, shared, device):
+    def capture_graph(name, body, buffers, shared, device, mesh):
         with rbf_hopper.recording_launches() as launches, graphs._in_program() as checks:
             outputs = tuple(t.clone() for t in body(**shared, **buffers))
         return (_StandInGraph(body, shared, buffers, outputs, checks), outputs, checks,
