@@ -340,6 +340,32 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    (``scripts/pallas_ab_torch.py``) at ``AB_N`` rows through each route,
    timed graphed and eager and held to plain within ``F32_ATOL`` x var.
 
+19. final: the port's last counterparts of the reference.  (a) The digits
+   (``ital_tpu_torch/data/digits.npz``, no scikit-learn: the phase asserts
+   that no ``sklearn`` module was imported in the process) through
+   ``configs/digits.ini``'s fused cohorts of 5 for ``DIGITS_ROUNDS`` rounds,
+   every pick equal to the CPU run's or, at its first parting, within
+   ``MI_TIE_ATOL`` of the CPU's MI maximum on the CPU's state.  (b)
+   ``scripts/round_term_split_torch.py``'s six terms at 25 000 rows on the
+   reference's mid-session state, each one program timed graphed and eager
+   with its launches a call (the timing uncounted; the path's count is one
+   graphed and one eager call of each term): graphed outputs equal to
+   eager's bit for bit, and ``round_full``'s batch, mean and AP equal to
+   ``select``, the user, ``update`` and ``ap`` run one after the other.  (c) A fused learning
+   cohort (``LEARN_FLOOR_OVERRIDES``: the heavy-noise user, GP noise 1.0,
+   ``learn_prior_strength=1.0``, ``learn_noise_floor=0.05``, two re-learns)
+   graphed and eager, picks and learned values equal, and on the CPU, its
+   learned (length scale, variance, noise) within ``LEARN_RTOL`` where the
+   picks agree (a parting held to ``MI_TIE_ATOL`` on the CPU's state).  The
+   terms' kernel shapes are phase 3's and phase 4's (the update's
+   (4, 25000, 512) b2 block, the pool's (4096, t, 512) and the batch's
+   (t, t)).  The digits path's blocks are new: every block its card run
+   called the kernel wrapper on (eagerly or at a capture: the 1797-row
+   cross blocks, the update's, the cap's and the batch's, all 64 wide) is
+   then held to the plain version within ``F32_ATOL`` x var and timed
+   against its bound as in phase 3 (``shapes_digits``).  Each part's launch
+   count is reset just before it and read just after.
+
 The second-to-last line is a JSON object describing the kernel (launches on
 the main paths in all, per route and per path, its bound, its time and the
 plain version's, and its times at the 100 000-row shapes, at the mesh
@@ -347,8 +373,10 @@ cohort's stacked shard shapes, at the large-cap refit's shapes and at the
 ascent's (64, 64, 512) block with its launches per ``/learn``, at the
 strategies' blocks and at the 1M-row blocks, and each mesh, large-cap,
 strategy and 1M-row program's launches per replay; ``launches_by_path``
-includes ``records``, phase 16's, ``studies``, phase 17's, and ``batch8``,
-phase 18's); the
+includes ``records``, phase 16's, ``studies``, phase 17's, ``batch8``,
+phase 18's, and ``digits``, ``round_terms`` and ``learn_floor``, phase
+19's, with the terms' launches a call in ``launches_per_term_25k`` and the
+digits path's blocks in ``shapes_digits``); the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -600,11 +628,58 @@ def _check_bound(what: str, ms: float, dev_us: float, bound_ms: float) -> None:
               f"{what}: {name} {t * 1e3:.2f} us is under its bound {bound_ms * 1e3:.2f} us")
 
 
+def _kernel_case(torch, name, a, b, norms, l, v, atol) -> dict:
+    """One block through ``rbf_kernel`` (its route counted once), each route
+    and the plain version: every route within ``atol`` x var of plain, timed
+    against its bound, the chosen route no slower than the tile kernel.
+    Returns the shape's record (with ``worst``, the largest error of any
+    route)."""
+    from ital_tpu_torch.ops import rbf_hopper
+    from ital_tpu_torch.ops.kernels import rbf_kernel, rbf_kernel_plain
+
+    m, d = a.shape
+    route = rbf_hopper.choose_route(m, b.shape[0], d, a.dtype, a.data_ptr(), b.data_ptr())
+    fns = {"plain": lambda: rbf_kernel_plain(a, b, l, v, **norms),
+           "tile": lambda: rbf_hopper.rbf_tile(a, b, l, v, _route="tile", **norms)}
+    if rbf_hopper.wgmma_takes(m, b.shape[0], d, a.dtype, a.data_ptr(), b.data_ptr()):
+        fns["wgmma"] = lambda: rbf_hopper.rbf_tile(a, b, l, v, _route="wgmma", **norms)
+    before = dict(rbf_hopper.ROUTE_LAUNCHES)
+    got = rbf_kernel(a, b, l, v, **norms)
+    check(rbf_hopper.ROUTE_LAUNCHES[route.name] == before[route.name] + 1,
+          f"{name}: rbf_kernel launched the {route.name} route")
+    want = fns["plain"]()
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and got.dtype == torch.float32, f"{name}: shape/dtype")
+    tol = atol * float(v)
+    errs = {r: float((fns[r]() - want).abs().max()) for r in fns if r != "plain"}
+    err = float((got - want).abs().max())
+    timed = dict(zip(fns, _time_turns_ms(torch, list(fns.values()))))
+    dev_us = {r: _device_us(torch, fns[r]) for r in errs}
+    ms, spread = timed[route.name]
+    bound, bound_by = rbf_bound_ms(m, b.shape[0], d, a.dtype == torch.bfloat16,
+                                   sum(v.numel() for v in norms.values()), same=a is b)
+    print(f"kernel: {name}: bound {bound * 1e3:.2f} us ({bound_by}); "
+          f"route {route.name} (variant {route.variant}, transposed "
+          f"{route.transposed}); max_abs_err {err:.3e} (atol {tol:.1e}; per route "
+          + ", ".join(f"{r} {e:.3e}" for r, e in errs.items()) + "); per launch ms "
+          + ", ".join(f"{r} {t:.4f} (spread {sp:.4f})" for r, (t, sp) in timed.items())
+          + "; device us per launch " + ", ".join(f"{r} {u:.2f}" for r, u in dev_us.items()))
+    for r, e in errs.items():
+        check(e <= tol, f"{name}: {r} route max_abs_err {e} > {tol}")
+        _check_bound(f"{name} {r} route", timed[r][0], dev_us[r], bound)
+    check(err <= tol, f"{name}: max_abs_err {err} > {tol}")
+    tile_ms, tile_spread = timed["tile"]
+    check(ms <= tile_ms + max(spread, tile_spread),
+          f"{name}: the chosen route ({ms} ms) is not slower than the tile kernel "
+          f"({tile_ms} ms) beyond the runs' spread")
+    return {"ms": ms, "plain_ms": timed["plain"][0], "bound_ms": bound, "bound_by": bound_by,
+            "max_abs_err": err, "worst": max(err, *errs.values())}
+
+
 def kernel_phase(torch, ds) -> dict:
     """Both routes and the plain version at the session's and the harness's
     shapes; returns the JSON record's numbers."""
     from ital_tpu_torch.ops import rbf_hopper
-    from ital_tpu_torch.ops.kernels import rbf_kernel, rbf_kernel_plain
 
     dev = torch.device("cuda")
     x = torch.from_numpy(ds.x).to(dev)
@@ -640,53 +715,13 @@ def kernel_phase(torch, ds) -> dict:
         ("bf16 emoc block (25000, 2048, 512) a2 b2", xb, xb[i2048],
          {"a2": xb2, "b2": xb2[i2048]}, ls, var, BF16_ATOL),
     ]
-    worst = 0.0
-    main = None
-    by_shape = {}
-    for name, a, b, norms, l, v, atol in cases:
-        m, d = a.shape
-        route = rbf_hopper.choose_route(m, b.shape[0], d, a.dtype, a.data_ptr(), b.data_ptr())
-        fns = {"plain": lambda: rbf_kernel_plain(a, b, l, v, **norms),
-               "tile": lambda: rbf_hopper.rbf_tile(a, b, l, v, _route="tile", **norms)}
-        if rbf_hopper.wgmma_takes(m, b.shape[0], d, a.dtype, a.data_ptr(), b.data_ptr()):
-            fns["wgmma"] = lambda: rbf_hopper.rbf_tile(a, b, l, v, _route="wgmma", **norms)
-        before = dict(rbf_hopper.ROUTE_LAUNCHES)
-        got = rbf_kernel(a, b, l, v, **norms)
-        check(rbf_hopper.ROUTE_LAUNCHES[route.name] == before[route.name] + 1,
-              f"{name}: rbf_kernel launched the {route.name} route")
-        want = fns["plain"]()
-        torch.cuda.synchronize()
-        check(got.shape == want.shape and got.dtype == torch.float32, f"{name}: shape/dtype")
-        tol = atol * float(v)
-        errs = {r: float((fns[r]() - want).abs().max()) for r in fns if r != "plain"}
-        err = float((got - want).abs().max())
-        timed = dict(zip(fns, _time_turns_ms(torch, list(fns.values()))))
-        dev_us = {r: _device_us(torch, fns[r]) for r in errs}
-        ms, spread = timed[route.name]
-        bound, bound_by = rbf_bound_ms(m, b.shape[0], d, a.dtype == torch.bfloat16,
-                                       sum(v.numel() for v in norms.values()), same=a is b)
-        print(f"kernel: {name}: bound {bound * 1e3:.2f} us ({bound_by}); "
-              f"route {route.name} (variant {route.variant}, transposed "
-              f"{route.transposed}); max_abs_err {err:.3e} (atol {tol:.1e}; per route "
-              + ", ".join(f"{r} {e:.3e}" for r, e in errs.items()) + "); per launch ms "
-              + ", ".join(f"{r} {t:.4f} (spread {sp:.4f})" for r, (t, sp) in timed.items())
-              + "; device us per launch " + ", ".join(f"{r} {u:.2f}" for r, u in dev_us.items()))
-        for r, e in errs.items():
-            check(e <= tol, f"{name}: {r} route max_abs_err {e} > {tol}")
-            _check_bound(f"{name} {r} route", timed[r][0], dev_us[r], bound)
-        check(err <= tol, f"{name}: max_abs_err {err} > {tol}")
-        tile_ms, tile_spread = timed["tile"]
-        check(ms <= tile_ms + max(spread, tile_spread),
-              f"{name}: the chosen route ({ms} ms) is not slower than the tile kernel "
-              f"({tile_ms} ms) beyond the runs' spread")
-        worst = max(worst, err, *errs.values())
-        by_shape[name] = {"ms": ms, "plain_ms": timed["plain"][0], "bound_ms": bound,
-                          "bound_by": bound_by, "max_abs_err": err}
-        if main is None:
-            main = (ms, timed["plain"][0], bound, bound_by)
+    by_shape = {name: _kernel_case(torch, name, a, b, norms, l, v, atol)
+                for name, a, b, norms, l, v, atol in cases}
+    worst = max(r.pop("worst") for r in by_shape.values())
+    main = by_shape[cases[0][0]]
     check(all(c > 0 for c in rbf_hopper.ROUTE_LAUNCHES.values()), "both routes launched in phase 3")
-    return {"max_abs_err": worst, "ms": main[0], "plain_ms": main[1], "bound_ms": main[2],
-            "bound_by": main[3], "by_shape": by_shape}
+    return {"max_abs_err": worst, "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "by_shape": by_shape}
 
 
 def session_phase(torch, ds, cfg, dev) -> dict:
@@ -4579,6 +4614,252 @@ def batch8_phase(torch, ds, dev, smi: str) -> dict:
     return {"launches": launches}
 
 
+DIGITS_CONFIG = ROOT / "configs" / "digits.ini"
+DIGITS_ROUNDS = 2
+DIGITS_QB = 5
+LEARN_FLOOR_OVERRIDES = (
+    "EXPERIMENT.max_classes=2", "EXPERIMENT.n_rounds=4", "EXPERIMENT.query_batch=2",
+    "EXPERIMENT.fused_sessions=true", "USER.label_prob=0.6", "USER.mistake_prob=0.15",
+    "GP.noise=1.0", "GP.learn_every=2", "GP.learn_prior_strength=1.0",
+    "GP.learn_noise_floor=0.05")
+
+
+@contextlib.contextmanager
+def _record_blocks(seen: dict):
+    """Record in ``seen`` each block the kernel wrapper is called on, eagerly
+    or at a graph's capture: ``(M, N, D, dtype)`` -> (a2 given, b2 given, a
+    and b one tensor)."""
+    from ital_tpu_torch.ops import rbf_hopper
+
+    orig = rbf_hopper.rbf_tile
+
+    @functools.wraps(orig)
+    def recording(a, b, *args, a2=None, b2=None, **kwargs):
+        seen.setdefault((a.shape[0], b.shape[0], a.shape[1], a.dtype),
+                        (a2 is not None, b2 is not None, a is b))
+        return orig(a, b, *args, a2=a2, b2=b2, **kwargs)
+
+    rbf_hopper.rbf_tile = recording
+    try:
+        yield
+    finally:
+        rbf_hopper.rbf_tile = orig
+
+
+def _digits_kernel_cases(torch, ds, cfg, dev, seen: dict) -> dict:
+    """Phase 3's check (:func:`_kernel_case`) at every block the digits path
+    launched, on rows of the digits at the configuration's length scale and
+    variance: each route within ``F32_ATOL`` x var of the plain version and
+    timed against its bound.  Uncounted; returns the shapes' records."""
+    x = torch.from_numpy(ds.x).to(dev)
+    x2 = (x * x).sum(-1)
+    ls = torch.tensor(cfg.gp.length_scale, device=dev)
+    var = torch.tensor(cfg.gp.var, device=dev)
+    rng = np.random.default_rng(SEED)
+    rows = lambda k: (torch.arange(k, device=dev) if k == ds.n else  # noqa: E731
+                      torch.from_numpy(rng.choice(ds.n, size=k, replace=False)).to(dev))
+    shapes = {}
+    with _uncounted():
+        for (m, n, d, dtype), (has_a2, has_b2, same) in sorted(seen.items(), key=str):
+            check(dtype == torch.float32 and d == ds.x.shape[1] and max(m, n) <= ds.n,
+                  f"digits: the path's block ({m}, {n}, {d}) {dtype} is one of digit rows")
+            ia = rows(m)
+            ib = ia if same else rows(n)
+            a = x[ia]
+            b = a if same else x[ib]
+            norms = {k: x2[i] for k, i, given in (("a2", ia, has_a2), ("b2", ib, has_b2))
+                     if given}
+            name = f"digits ({m}, {n}, {d})" + "".join(f" {k}" for k in norms)
+            shapes[name] = _kernel_case(torch, name, a, b, norms, ls, var, F32_ATOL)
+            shapes[name].pop("worst")
+    return shapes
+
+
+def _digits_cohort(torch, dev, smi: str) -> dict:
+    """Phase 19 (a): the digits without scikit-learn, a fused cohort run on
+    the card against the same run on the CPU, and phase 3's kernel check at
+    every block the card run launched.  Returns the card run's launches and
+    the blocks' records."""
+    from ital_tpu_torch import runner
+    from ital_tpu_torch.data.datasets import DIGITS_FILE, digits
+    from ital_tpu_torch.ops import rbf_hopper
+    from ital_tpu_torch.utils.config import load_config
+
+    ds = digits()
+    check(Path(DIGITS_FILE).resolve().is_relative_to(ROOT), f"digits: read from the checkout "
+          f"({DIGITS_FILE})")
+    check(not any(m == "sklearn" or m.startswith("sklearn.") for m in sys.modules),
+          "digits: no sklearn module imported in the process")
+    check(ds.x.shape == (1797, 64) and float(ds.x.max()) == 1.0 and ds.classes.size == 10,
+          f"digits: {ds.x.shape} in [0, 1], 10 classes")
+    cfg = load_config(str(DIGITS_CONFIG), (
+        f"EXPERIMENT.n_rounds={DIGITS_ROUNDS}", f"EXPERIMENT.query_batch={DIGITS_QB}",
+        "EXPERIMENT.fused_sessions=true"))
+    t0 = time.perf_counter()
+    seen = {}
+    with _record_blocks(seen):
+        _reset_counts()  # the digits path's count starts here
+        card = runner.run_experiment(cfg, ds, device=dev)
+        launches = dict(rbf_hopper.ROUTE_LAUNCHES)
+    card_s = time.perf_counter() - t0
+    record = []
+    with _uncounted(), _record_cohort_selections(record):
+        cpu = runner.run_experiment(cfg, ds, device="cpu")
+    parted = 0
+    for k in range(card["picks"].shape[0]):
+        a, b = card["picks"][k].tolist(), cpu["picks"][k].tolist()
+        r = next((r for r in range(DIGITS_ROUNDS) if a[r] != b[r]), None)
+        if r is None:
+            continue
+        parted += 1
+        states, params = record[(k // DIGITS_QB) * DIGITS_ROUNDS + r]
+        gaps = _mi_gaps(torch, states[k % DIGITS_QB], params, cfg.method_kwargs, a[r])
+        print(f"digits session {k}: round {r} card {a[r]} CPU {b[r]}; the CPU's MI maximum "
+              f"minus the card's pick's, step by step, on the CPU's state {gaps}")
+        check(max(gaps) <= MI_TIE_ATOL, f"digits session {k}: card and CPU part at an MI tie")
+    print(f"digits ({Path(DIGITS_FILE).relative_to(ROOT)}, {ds.x.shape[0]} x {ds.x.shape[1]}, no "
+          f"sklearn imported): {card['ap'].shape[0]} sessions in fused cohorts of {DIGITS_QB}, "
+          f"{DIGITS_ROUNDS} rounds, {card_s:.1f} s on the card (captures included); MAP card "
+          f"{[round(float(v), 4) for v in card['map']]}, CPU "
+          f"{[round(float(v), 4) for v in cpu['map']]}; {parted} sessions part from the CPU's "
+          f"picks, each at an MI tie; launches {launches} [{smi}]")
+    check(bool(seen), "digits: the card run launched the kernel")
+    shapes = _digits_kernel_cases(torch, ds, cfg, dev, seen)
+    return {"launches": launches, "shapes": shapes}
+
+
+def _round_terms(torch, ds, dev, smi: str) -> dict:
+    """Phase 19 (b): ``round_term_split_torch``'s terms at 25 000 rows, timed
+    (uncounted), then each run once graphed and once eager: the path, whose
+    count does not depend on how many calls the timing took.  Returns that
+    run's launches and each term's launches a graphed call."""
+    from ital_tpu_torch import graphs
+    from ital_tpu_torch.ops import rbf_hopper
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import round_term_split_torch as rts
+
+    w = rts.workload_25k(torch, dev, ds)
+    with _uncounted():
+        terms = rts.measure_terms(torch, w, log=lambda line: None, target_s=0.05, trials=1)
+    _reset_counts()  # the terms' count starts here
+    for name in rts.TERMS:
+        rts.term(w, name, turn=0)
+        with graphs.eager():
+            rts.term(w, name, turn=0)
+    torch.cuda.synchronize()
+    launches = dict(rbf_hopper.ROUTE_LAUNCHES)
+    for name, r in terms.items():
+        print(f"round_terms {name}: {r['graphed_ms']:.4f} ms graphed, {r['eager_ms']:.4f} eager, "
+              f"first call {r['first_call_s']:.3f} s, {r['rbf_launches_per_call']:g} launches a "
+              f"call, graphed equal to eager {r['graphed_equals_eager']} [{smi}]")
+        check(r["graphed_equals_eager"], f"round_terms {name}: graphed outputs equal eager's")
+    with _uncounted():
+        seq = rts.sequence(torch, w)
+    print(f"round_terms: one graphed and one eager call of each term, launches {launches} "
+          f"[{smi}]")
+    print(f"round_terms round_full against its terms in sequence: {seq}")
+    check(seq["batch_equal"] and seq["mu_equal"] and seq["ap_abs"] == 0.0,
+          "round_terms: round_full equals select, the user, update and ap in sequence")
+    return {"launches": launches,
+            "per_call": {name: r["rbf_launches_per_call"] for name, r in terms.items()}}
+
+
+def _learn_floor_run(torch, ds, cfg, dev, record=None) -> dict:
+    """The learning cohorts of ``cfg`` on ``dev``: each session's picks (R,
+    b), AP curve and learned (length scale, variance, noise)."""
+    from ital_tpu_torch import runner
+    from ital_tpu_torch.models import gp as gp_mod
+    from ital_tpu_torch.select.base import StrategyParams
+
+    state0 = gp_mod.gp_init(torch.from_numpy(ds.x).to(dev), cfg.gp.length_scale, cfg.gp.var,
+                            cfg.gp.noise, cfg.cap)
+    params = StrategyParams.create(dev, label_prob=cfg.user.label_prob,
+                                   mistake_prob=cfg.user.mistake_prob)
+    plan = runner._session_plan(cfg, ds)
+    picks, aps, hyper = [], [], []
+    for start in range(0, len(plan), cfg.query_batch):
+        chunk = plan[start:start + cfg.query_batch]
+        states = runner._query_states(state0, chunk)
+        relevant = torch.from_numpy(np.stack([ds.relevance[:, c] for _, c, _ in chunk])).to(dev)
+        exclude = torch.zeros((len(chunk), ds.n), dtype=torch.bool)
+        exclude[torch.arange(len(chunk)), torch.tensor([q for *_, q in chunk])] = True
+        with (_record_cohort_selections(record) if record is not None
+              else contextlib.nullcontext()):
+            a, b = runner._cohort_rounds(cfg, states, params, cfg.method_kwargs, chunk,
+                                         range(cfg.n_rounds), relevant, exclude.to(dev))
+        picks += b.transpose(0, 1).cpu().tolist()
+        aps += a.cpu().tolist()
+        hyper += [[float(s.hyper.length_scale), float(s.hyper.var), float(s.hyper.noise)]
+                  for s in states]
+    return {"picks": picks, "ap": aps, "hyper": hyper}
+
+
+def _learn_floor(torch, ds, dev, smi: str) -> dict:
+    """Phase 19 (c): a fused learning cohort with the MAP type-II prior and
+    a noise floor, graphed against eager and against the CPU.  Returns the
+    graphed run's launches."""
+    import types
+
+    from ital_tpu_torch import graphs
+    from ital_tpu_torch.ops import rbf_hopper
+    from ital_tpu_torch.utils.config import load_config
+
+    cfg = load_config(str(CONFIG), LEARN_FLOOR_OVERRIDES)
+    t0 = time.perf_counter()
+    _reset_counts()  # the path's count starts here
+    graphed = _learn_floor_run(torch, ds, cfg, dev)
+    launches = dict(rbf_hopper.ROUTE_LAUNCHES)
+    graphed_s = time.perf_counter() - t0
+    with _uncounted(), graphs.eager():
+        eager = _learn_floor_run(torch, ds, cfg, dev)
+    check(graphed["picks"] == eager["picks"] and graphed["ap"] == eager["ap"],
+          "learn_floor: graphed picks and curves equal eager's")
+    rel = max(abs(a - b) / max(abs(a), abs(b)) for g, e in zip(graphed["hyper"], eager["hyper"])
+              for a, b in zip(g, e))
+    check(rel <= LEARN_GRAPH_RTOL, f"learn_floor: learned values graphed vs eager {rel:.2e}")
+    record = []
+    with _uncounted():
+        cpu = _learn_floor_run(torch, ds, cfg, torch.device("cpu"), record)
+    worst, parted = 0.0, 0
+    for k, (a, b) in enumerate(zip(graphed["picks"], cpu["picks"])):
+        r = next((r for r in range(cfg.n_rounds) if a[r] != b[r]), None)
+        if r is None:
+            worst = max(worst, *(abs(u - v) / max(abs(u), abs(v))
+                                 for u, v in zip(graphed["hyper"][k], cpu["hyper"][k])))
+            continue
+        parted += 1
+        states, params = record[(k // cfg.query_batch) * cfg.n_rounds + r]
+        with _uncounted():
+            gaps = _tie_gaps(types.SimpleNamespace(state=states[k % cfg.query_batch],
+                                                   params=params), a[r], cfg.method_kwargs)
+        print(f"learn_floor session {k}: round {r} card {a[r]} CPU {b[r]}; refined-MI gaps on "
+              f"the CPU's state {gaps}")
+        check(all(abs(g) <= MI_TIE_ATOL for g in gaps), "learn_floor: the card and the CPU "
+              "part only at MI ties")
+    print(f"learn_floor ({len(graphed['picks'])} sessions x {cfg.n_rounds} rounds, learn_every "
+          f"{cfg.gp.learn_every}, prior strength {cfg.gp.learn_prior_strength}, noise floor "
+          f"{cfg.gp.learn_noise_floor}; {graphed_s:.1f} s graphed, captures included): learned "
+          f"(ls, var, noise) card {graphed['hyper']}, CPU {cpu['hyper']}; graphed vs eager "
+          f"{rel:.2e}; card vs CPU {worst:.2e} relative where the picks agree ({parted} "
+          f"sessions part at MI ties); launches {launches} [{smi}]")
+    check(worst <= LEARN_RTOL, f"learn_floor: learned values within {LEARN_RTOL} of the CPU")
+    check(all(h[2] >= cfg.gp.learn_noise_floor * (1 - 1e-6) for h in graphed["hyper"]),
+          "learn_floor: the learned noise keeps its floor")
+    return {"launches": launches}
+
+
+def final_phase(torch, ds, dev, smi: str) -> dict:
+    """Phase 19: the digits without scikit-learn, the round's term split and
+    the learning records' floor, each with its own launch count."""
+    t_phase = time.perf_counter()
+    out = {"digits": _digits_cohort(torch, dev, smi),
+           "round_terms": _round_terms(torch, ds, dev, smi),
+           "learn_floor": _learn_floor(torch, ds, dev, smi)}
+    print(f"final phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4625,6 +4906,8 @@ def main() -> int:
     clock("studies")
     batch8 = batch8_phase(torch, ds, torch.device("cuda"), smi)
     clock("batch 8")
+    final = final_phase(torch, ds, torch.device("cuda"), smi)
+    clock("final")
     # At 512 features every RBF call of the paths takes the tensor-core route
     # (the router's rule, PERF.md); the tile kernel serves narrower or
     # unaligned features and is held against the plain version in phase 3.
@@ -4634,7 +4917,9 @@ def main() -> int:
              "learn": {"launches": learn["launches"]},
              "strategies": {"launches": strategies["launches"]},
              "scale_session": scale["session"], "scale_serving": scale["serving"],
-             "records": records, "studies": studies, "batch8": batch8}
+             "records": records, "studies": studies, "batch8": batch8,
+             "digits": final["digits"], "round_terms": final["round_terms"],
+             "learn_floor": final["learn_floor"]}
     by_route = {r: sum(p["launches"][r] for p in paths.values()) for r in sess["launches"]}
     check(by_route["wgmma"] > 0, f"the tensor-core route launched on the main path: {by_route}")
     check(all(sum(p["launches"].values()) > 0 for p in paths.values()),
@@ -4680,6 +4965,12 @@ def main() -> int:
         "shapes_1m": scale["shapes"],
         "launches_per_replay_1m": {**scale["session"]["per_replay"],
                                    **scale["serving"]["per_replay"]},
+        # Phase 19: each term of the round's split at 25 000 rows, launches a
+        # graphed call.
+        "launches_per_term_25k": final["round_terms"]["per_call"],
+        # Phase 19: the blocks the digits path launched (1797 x 64 rows),
+        # each held against the plain version and timed as in phase 3.
+        "shapes_digits": final["digits"]["shapes"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

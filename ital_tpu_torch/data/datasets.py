@@ -71,21 +71,28 @@ def toy_gaussians(
     return Dataset("toy", x, labels, _class_relevance(labels, classes), classes)
 
 
+DIGITS_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "digits.npz")
+
+
 def digits(normalize: bool = True) -> Dataset:
-    """scikit-learn's bundled 8x8 digits, an offline USPS stand-in (1797 x 64),
-    scaled to [0, 1] when ``normalize`` (raw 0-16 counts otherwise).
+    """The 8x8 digits, an offline USPS stand-in (1797 x 64), scaled to
+    [0, 1] when ``normalize`` (raw 0-16 counts otherwise).
 
-    Needs scikit-learn, which is imported only here.
+    Read from ``digits.npz`` beside this file: ``data`` (1797, 64) uint8
+    counts 0-16 and ``target`` (1797,) uint8, the arrays of scikit-learn
+    1.9.0's ``sklearn.datasets.load_digits()`` (its bundled copy of the UCI
+    Optical Recognition of Handwritten Digits test set, distributed with
+    scikit-learn under the BSD 3-Clause licence), stored unchanged.  The
+    values equal the reference's ``ital_tpu.data.datasets.digits``, which
+    loads them from scikit-learn.
     """
-    from sklearn.datasets import load_digits
-
-    d = load_digits()
-    x = d.data.astype(np.float32)
+    with np.load(DIGITS_FILE) as f:
+        data, target = f["data"], f["target"].astype(np.int64)
+    x = data.astype(np.float32)
     if normalize:
         x = x / 16.0
     classes = np.arange(10)
-    return Dataset("digits", x, d.target.astype(np.int64),
-                   _class_relevance(d.target, classes), classes)
+    return Dataset("digits", x, target, _class_relevance(target, classes), classes)
 
 
 def _synthetic_surrogate(

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Evaluate the JAX reference on the CPU for the port's records.
 
-Three commands, each run on the CPU only; this script imports JAX and the
+Five commands, each run on the CPU only; this script imports JAX and the
 JAX package and is never run on the card.
 
 ``draws``: the reference runner's simulated-user draws, to a file the port
@@ -53,6 +53,20 @@ With ``--port`` (a record of that script) it pairs, seed by seed, the
 port's final MAP averaged over its orders with the reference's averaged
 over these: a comparison that averages each side's tie-breaking out.
 
+``qmc``: the reference's four QMC estimators of ``scripts/qmc_error_study.py``
+(``ops.mvn.orthant_probs_all_configs_tree``, ``orthant_probs_with_error``,
+``select.ital.mi_with_error`` and ``mutual_information_from_relevance``, f32)
+on the study's problems (``qmc_error_study_torch.problems``, ``default_rng(17)``)
+against the port's seeded oracle truth (``qmc_error_study_torch.truths``, draw
+0).  It writes the record's ``by_m`` table, the truth it used (``truth``: each
+m's normalized orthant vectors and MI, which the port's study reads, so that
+both packages are held on one truth) and how far its truth-free entries (the
+self-estimates) lie from ``results/qmc_error_study.json``.
+
+``trajectory``: the reference's serial runner (``ital_tpu.runner.run_experiment``)
+with its per-round JSONL log, on ``scripts/hyperopt_trajectory_torch.py``'s
+configuration, for the port's trajectory to be held to.
+
 Run from the repository root::
 
     python3 scripts/jax_reference.py draws --seeds 0-7 \\
@@ -63,6 +77,9 @@ Run from the repository root::
         --seeds 0-7 --out results/full_scan_partings_torch.json
     python3 scripts/jax_reference.py orders --orders 0-3 --seeds 0-7 \\
         --port results/tie_order_torch.json --out results/tie_order_reference_torch.json
+    python3 scripts/jax_reference.py qmc --out results/qmc_error_reference_cpu_torch.json
+    python3 scripts/jax_reference.py trajectory \
+        --out results/hyperopt_trajectory_reference_cpu_torch.jsonl
 """
 
 from __future__ import annotations
@@ -343,6 +360,116 @@ def orders(config: str, order_list: list, seeds: list, overrides: tuple = (), *,
     return out
 
 
+def qmc_estimates(mu, cov, n_qmc: int, params, n_shifts: int) -> dict:
+    """The reference's four estimators of one problem (f32, JAX's CPU), in
+    the layout of ``qmc_error_study_torch.estimates``."""
+    import jax.numpy as jnp
+
+    from ital_tpu.ops.mvn import (
+        orthant_probs_all_configs_tree,
+        orthant_probs_with_error,
+        small_cholesky,
+    )
+    from ital_tpu.select.ital import (
+        feedback_given_relevance,
+        mi_with_error,
+        mutual_information_from_relevance,
+    )
+
+    muj = jnp.asarray(mu, jnp.float32)
+    chol = small_cholesky(jnp.asarray(cov, jnp.float32))
+    p1 = orthant_probs_all_configs_tree(muj, chol, n_points=n_qmc)
+    pm, pe = orthant_probs_with_error(muj, chol, n_points=n_qmc, n_shifts=n_shifts)
+    mi1, mie = mi_with_error(muj, chol, params, n_qmc=n_qmc, n_shifts=n_shifts)
+    mi_single = mutual_information_from_relevance(
+        p1, feedback_given_relevance(len(mu), params.label_prob, params.mistake_prob))
+    host = lambda v: np.asarray(v, np.float64)  # noqa: E731
+    return {"p1": host(p1), "pm": host(pm), "pe": host(pe), "mi1": float(mi1),
+            "mie": float(mie), "mi_single": float(mi_single)}
+
+
+def qmc(ms, nqmcs, n_problems: int, workers: int, log=print) -> dict:
+    """The reference's estimators on the QMC study's problems against the
+    port's seeded truth (draw 0): the record's ``by_m`` table, the truth, and
+    the truth-free entries' gap to ``results/qmc_error_study.json``."""
+    import itertools
+
+    _cpu_jax()
+    import jax.numpy as jnp
+
+    import qmc_error_study_torch as qes
+    from ital_tpu.select.base import StrategyParams
+    from ital_tpu.select.ital import sign_table
+
+    for m in ms:  # the truth's order is the reference's sign table's
+        assert (sign_table(m) == np.asarray(list(itertools.product([-1.0, 1.0], repeat=m)))).all()
+    t0 = time.time()
+    probs = qes.problems(ms, n_problems)
+    truth = qes.truths(probs, workers, draw=0)
+    oracle_s = time.time() - t0
+    log(f"oracle truth (draw 0): {oracle_s:.1f} s in {workers} processes")
+    params = StrategyParams(label_prob=jnp.asarray(qes.LABEL_PROB),
+                            mistake_prob=jnp.asarray(qes.MISTAKE_PROB))
+    est = {(m, n_qmc): [qmc_estimates(mu, cov, n_qmc, params, qes.N_SHIFTS) for mu, cov in ps]
+           for m, ps in probs.items() for n_qmc in nqmcs}
+    table = qes.by_m(est, truth, log=log)
+    with open(qes.RECORD) as fh:
+        record = json.load(fh)["by_m"]
+    free = qes.gaps(table, record, qes.TRUTH_FREE)
+    out = {"n_problems": n_problems, "n_shifts": qes.N_SHIFTS, "label_prob": qes.LABEL_PROB,
+           "mistake_prob": qes.MISTAKE_PROB, "platform": "cpu", "dtype": "float32",
+           "estimators": "ital_tpu (JAX on the CPU), as scripts/qmc_error_study.py",
+           "oracle": qes.ORACLE, "by_m": table,
+           "truth_free_gap_by_m": free, "truth_free_atol": qes.RERUN_ATOL,
+           "is_the_records_estimator": all(g is not None and g <= qes.RERUN_ATOL
+                                           for g in free.values()),
+           "truth": {str(m): {"probs": [p.tolist() for p, _ in rows],
+                              "mi": [float(v) for _, v in rows]} for m, rows in truth.items()},
+           "oracle_s": round(oracle_s, 1), "wall_s": round(time.time() - t0, 1)}
+    for m, g in free.items():
+        log(f"m={m}: the rerun's self-estimates against the record {g:.2e}")
+    return out
+
+
+def trajectory(config: str, overrides: tuple, out: str) -> None:
+    """The reference's serial runner at ``hyperopt_trajectory_torch``'s
+    configuration (plus ``overrides``), its per-round log written to ``out``
+    with two keys of the port's script added to each line: ``batch`` (the
+    round's picks) and ``hyper_raw`` (the learned values unrounded)."""
+    _cpu_jax()
+    from hyperopt_trajectory_torch import OVERRIDES
+
+    from ital_tpu import runner
+    from ital_tpu.utils.config import load_config
+
+    if os.path.exists(out):
+        os.remove(out)  # the runner's logger appends
+    picks = []
+    own_steps, own_fields = runner.make_step_fns, runner._hyper_log_fields
+
+    def steps(cfg):
+        select_step, absorb_step = own_steps(cfg)
+
+        def recorded(state, key, params):
+            batch = select_step(state, key, params)
+            picks.append([int(v) for v in np.asarray(batch)])
+            return batch
+
+        return recorded, absorb_step
+
+    def fields(state, cfg):
+        h = state.hyper
+        return {**own_fields(state, cfg), "batch": picks[-1],
+                "hyper_raw": [float(h.length_scale), float(h.var), float(h.noise)]}
+
+    runner.make_step_fns, runner._hyper_log_fields = steps, fields
+    try:
+        runner.run_experiment(load_config(config, OVERRIDES + tuple(overrides)
+                                          + (f"EXPERIMENT.log_jsonl={out}",)))
+    finally:
+        runner.make_step_fns, runner._hyper_log_fields = own_steps, own_fields
+
+
 def main(argv=None) -> int:
     from study_torch import parse_seeds, record_path
 
@@ -370,8 +497,31 @@ def main(argv=None) -> int:
                    help="a record of tie_order_study_torch.py to pair with, seed by seed")
     o.add_argument("--out", required=True, help="the JSON to write (its name carries _torch)")
     o.add_argument("overrides", nargs="*", help="SECTION.key=value config overrides")
+    q = sub.add_parser("qmc", help="the reference's QMC estimators on the port's seeded truth")
+    q.add_argument("--ms", default="2-8", help="batch sizes m as 2,3 or 2-8")
+    q.add_argument("--nqmcs", default="64,128,256,512")
+    q.add_argument("--problems", type=int, default=16)
+    q.add_argument("--workers", type=int, default=os.cpu_count() or 1,
+                   help="processes computing the oracle's truth")
+    q.add_argument("--out", required=True, help="the JSON to write (its name carries _torch)")
+    t = sub.add_parser("trajectory", help="the reference's serial runner's per-round log")
+    t.add_argument("--config", default=MIRFLICKR)
+    t.add_argument("--out", required=True, help="the JSONL to write (its name carries _torch)")
+    t.add_argument("overrides", nargs="*",
+                   help="SECTION.key=value overrides after the trajectory's own")
     args = ap.parse_args(argv)
     record_path(args.out)
+    if args.command == "qmc":
+        rows = qmc(parse_seeds(args.ms), parse_seeds(args.nqmcs), args.problems, args.workers,
+                   log=lambda s: print(s, flush=True))
+        with open(args.out, "w") as fh:
+            json.dump(rows, fh, indent=1)
+        print(f"wrote {args.out}", flush=True)
+        return 0
+    if args.command == "trajectory":
+        trajectory(args.config, tuple(args.overrides), args.out)
+        print(f"wrote {args.out}", flush=True)
+        return 0
     if args.command == "draws":
         arrays = (export(args.config, parse_seeds(args.seeds), tuple(args.overrides))
                   if args.task == "retrieval" else

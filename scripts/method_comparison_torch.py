@@ -4,9 +4,9 @@
 The port's counterpart of ``scripts/method_comparison.py``, with its
 workload, flags and report keys: ITAL against uncertainty sampling and
 random (``--methods``) on the MIRFLICKR corpus (the 25 000 x 512 surrogate)
-or scikit-learn's digits (``--dataset digits``), a noisy user, every query
-session of ``configs/<dataset>.ini`` per method, run through
-``ital_tpu_torch.runner.run_experiment`` in cohort-fused mode
+or the 8x8 digits (``--dataset digits``, ``ital_tpu_torch/data/digits.npz``),
+a noisy user, every query session of ``configs/<dataset>.ini`` per method,
+run through ``ital_tpu_torch.runner.run_experiment`` in cohort-fused mode
 (``EXPERIMENT.fused_sessions=true``, cohorts of ``--query-batch``: 7 for
 mirflickr's 14 topics, 5 otherwise).  Every MAP row is a mean +/- std over
 ``--seeds`` (``0,1,2``, ``0-15`` or a mix).
@@ -99,7 +99,7 @@ def parser() -> argparse.ArgumentParser:
                     help="GP.learn_every (suffixes the output filename)")
     ap.add_argument("--methods", default=",".join(DEFAULT_METHODS))
     ap.add_argument("--dataset", default="mirflickr",
-                    help="config stem under configs/ (digits needs scikit-learn)")
+                    help="config stem under configs/ (mirflickr, digits, ...)")
     ap.add_argument("--query-batch", type=int, default=None,
                     help="cohort width; default 7 for mirflickr, 5 otherwise")
     ap.add_argument("--ital-kwargs", default="",

@@ -12,7 +12,8 @@ merged with any earlier summary.  Each record adds ``device`` and
 ``mesh_devices = 8``) runs on the cards there are: one card is a NCCL world
 of one.  A scenario that raises is recorded in the summary as
 ``{"error": ...}`` and the rest run; the script then exits non-zero.
-Scenarios 2-3 need scikit-learn's digits.  Run from the repository root::
+Scenarios 2-3 read the digits from ``ital_tpu_torch/data/digits.npz``.  Run
+from the repository root::
 
     python3 scripts/run_scenarios_torch.py --seeds 0,1,2 --out results
     python3 scripts/run_scenarios_torch.py --quick --seeds 0 --only config1 --device cpu --out x
