@@ -82,6 +82,23 @@ On the CPU, and on the card inside :func:`eager` (the counterpart of
 ``jax.disable_jit``), a call runs its body eagerly on the caller's tensors.
 On the card a capture or replay error raises; nothing falls back to the
 eager body.
+
+While tracing is on (:mod:`ital_tpu_torch.utils.logging`), each call is a
+span ``graphs.run`` (attributes ``program`` and ``graphed``) and, on the
+graph path, its parts are spans beneath it: ``graphs.capture`` (attributes
+``program`` and ``cause``) with ``graphs.release`` (attribute ``reason``),
+``graphs.warmup``, ``graphs.record``, ``graphs.instantiate`` and
+``graphs.pool_bytes`` beneath it; ``graphs.copy_in``, ``graphs.replay``,
+``graphs.checks.wait``, ``graphs.copy_back`` and ``graphs.copy_out``.  A
+capture's ``cause`` is ``new`` for a signature never held, else
+``after_<reason>`` of its release; the reasons of the last
+``_RELEASED_KEPT`` releases are kept whether tracing is on or off, so that a
+capture traced after its release went untraced is still named.  The one
+counter is ``graphs.copy_bytes`` (by ``dir``: ``in``, ``back``, ``out``),
+the bytes of the tensors that the copy-in, the copy-back and the outputs'
+clones copy.  A program's ``warmup_ms``, ``capture_ms`` and
+``instantiate_ms`` are its capture spans' durations, kept also with tracing
+off.
 """
 
 from __future__ import annotations
@@ -90,13 +107,13 @@ import contextlib
 import dataclasses
 import itertools
 import threading
-import time
 import weakref
 from typing import Any, Callable, Optional
 
 import torch
 
 from ital_tpu_torch.ops import rbf_hopper
+from ital_tpu_torch.utils.logging import count, span, timed, tracing
 
 # (name, static, device, inputs' layouts, shared tensors' addresses, precision, mesh) -> Program
 _PROGRAMS: dict = {}
@@ -106,6 +123,10 @@ _LOCAL = threading.local()  # .eager: eager() depth; .pending: checks of a body 
 _USES = itertools.count(1)  # the order of the programs' calls, for STACK_BYTES
 _CAPTURES = [0]  # programs captured in this process (released ones included)
 _ROOM = [0]  # programs released to make room after an out-of-memory error
+# Key -> why it was released (stack_bytes, dead_corpus, room), at most
+# _RELEASED_KEPT of them, the oldest dropped first: a capture of the key names it.
+_RELEASED: dict = {}
+_RELEASED_KEPT = 1024
 # Devices whose tensors a call runs through a captured graph.
 _GRAPH_DEVICES = ("cuda",)
 # Static bytes the programs that stack sessions (a list input) keep
@@ -287,7 +308,16 @@ def _as_tensor(v, device):
     return v
 
 
+def _bytes(values) -> int:
+    """Bytes of the tensors among ``values``, each tensor of a list input."""
+    tensors = [t for v in values for t in (v if _is_list(v) else [v])
+               if isinstance(t, torch.Tensor)]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def _load(buffers: dict, inputs: dict) -> None:
+    if tracing():
+        count("graphs.copy_bytes", _bytes(inputs.values()), dir="in")
     for k, v in inputs.items():
         if isinstance(v, int):
             buffers[k].fill_(v)
@@ -301,6 +331,10 @@ def _load(buffers: dict, inputs: dict) -> None:
 def _write_back(inputs: dict, buffers: dict, writes: tuple) -> None:
     """Copy the written ``buffers`` into the caller's inputs: a list input's
     K tensors slice by slice, a tensor where it is not the buffer itself."""
+    if tracing():
+        count("graphs.copy_bytes", _bytes(inputs[k] for k in writes
+                                          if _is_list(inputs[k]) or inputs[k] is not buffers[k]),
+              dir="back")
     for k in writes:
         v = inputs[k]
         if _is_list(v):
@@ -317,8 +351,18 @@ def _release_dead() -> None:
     tensors and goes with its mesh (:func:`release_mesh`)."""
     for key, prog in list(_PROGRAMS.items()):
         if prog.mesh is None and any(ref() is None for ref in prog.shared):
-            del _PROGRAMS[key]
-            prog.release()
+            _release(key, "dead_corpus")
+
+
+def _release(key: tuple, reason: str) -> None:
+    """Release the program of ``key``, remembering why for its next capture."""
+    prog = _PROGRAMS.pop(key)
+    with span("graphs.release", program=prog.name, reason=reason):
+        prog.release()
+    _RELEASED.pop(key, None)
+    _RELEASED[key] = reason
+    if len(_RELEASED) > _RELEASED_KEPT:
+        del _RELEASED[next(iter(_RELEASED))]
 
 
 def release_mesh(mesh) -> None:
@@ -356,7 +400,7 @@ def _release_for_room() -> bool:
     any program was released."""
     held = [key for key, prog in _PROGRAMS.items() if prog.mesh is None]
     for key in held:
-        _PROGRAMS.pop(key).release()
+        _release(key, "room")
     _POOLS.pop(None, None)
     _ROOM[0] += len(held)
     return bool(held)
@@ -378,13 +422,6 @@ def _making_room(call: Callable[[], Any], mesh: Optional[int]) -> Any:
     return call()
 
 
-def _input_bytes(inputs: dict) -> int:
-    """Bytes of the static input buffers a program of ``inputs`` holds."""
-    tensors = [t for v in inputs.values() for t in (v if _is_list(v) else [v])
-               if isinstance(t, torch.Tensor)]
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
 def _release_stacks(need: int, mesh: Optional[int]) -> None:
     """Release the least recently used programs that stack sessions until
     their static buffers and ``need`` bytes more fit in :data:`STACK_BYTES`:
@@ -396,8 +433,7 @@ def _release_stacks(need: int, mesh: Optional[int]) -> None:
     for prog in held:
         if total <= STACK_BYTES:
             break
-        del _PROGRAMS[prog.key]
-        prog.release()
+        _release(prog.key, "stack_bytes")
         total -= prog.static_bytes
 
 
@@ -420,49 +456,84 @@ def run(name: str, body: Callable[..., tuple], inputs: dict, *, shared: Optional
     """
     shared = shared or {}
     device = _device_of(inputs)
-    uid = None if mesh is None else mesh.uid
-    if not _graphed(device):
-        def eagerly():
-            args = {k: _as_tensor(v, device) for k, v in inputs.items()}
-            out = body(**shared, **args)
-            _write_back(inputs, args, writes)
-            return out
+    graphed = _graphed(device)
+    with span("graphs.run", program=name, graphed=graphed):
+        if graphed:
+            return _replay(name, body, inputs, shared, static, writes, device, mesh)
+        return _eagerly(body, inputs, shared, writes, device, mesh)
 
-        if device.type in _GRAPH_DEVICES and not in_program() and not writes:
-            return _making_room(eagerly, uid)
-        return eagerly()
+
+def _eagerly(body, inputs: dict, shared: dict, writes: tuple, device, mesh) -> tuple:
+    """:func:`run`'s call of ``body`` on the caller's tensors."""
+    def call():
+        args = {k: _as_tensor(v, device) for k, v in inputs.items()}
+        out = body(**shared, **args)
+        _write_back(inputs, args, writes)
+        return out
+
+    if device.type in _GRAPH_DEVICES and not in_program() and not writes:
+        return _making_room(call, None if mesh is None else mesh.uid)
+    return call()
+
+
+def _replay(name, body, inputs: dict, shared: dict, static: tuple, writes: tuple, device,
+            mesh) -> tuple:
+    """:func:`run`'s call through the program of the call's signature,
+    captured first where none is held."""
     key = _signature(name, static, inputs, shared, device, mesh)
     with _LOCK:
         prog = _PROGRAMS.get(key)
         if prog is None:
-            _release_dead()
-            stacks = any(_is_list(v) for v in inputs.values())
-            if stacks:
-                _release_stacks(_input_bytes(inputs), uid)
-            prog = _making_room(lambda: _capture(name, body, inputs, shared, device, uid), uid)
-            prog.key, prog.stacks, prog.mesh = key, stacks, uid
-            if mesh is not None:
-                prog.pinned = tuple(shared.values())
-            _PROGRAMS[key] = prog
-            _CAPTURES[0] += 1
+            prog = _new_program(name, body, inputs, shared, device, key, mesh)
         if not prog.shared or any(ref() is None for ref in prog.shared):
             # A new tensor at a dead one's address and layout: the program is its.
             prog.shared = tuple(weakref.ref(t) for t in shared.values())
         if prog.done is not None:  # the last call's copy-out, on whatever stream it ran
             torch.cuda.current_stream(device).wait_event(prog.done)
-        _load(prog.inputs, inputs)
-        prog.graph.replay()
+        with span("graphs.copy_in"):
+            _load(prog.inputs, inputs)
+        with span("graphs.replay"):
+            prog.graph.replay()
         prog.replays += 1
         prog.last_used = next(_USES)
         rbf_hopper.add_launches(prog.launches)
-        for value, check in prog.checks:
-            _checked(check, value)
-        _write_back(inputs, prog.inputs, writes)
-        out = tuple(o.clone() for o in prog.outputs)
+        if prog.checks:
+            with span("graphs.checks.wait"):
+                for value, check in prog.checks:
+                    _checked(check, value)
+        if writes:
+            with span("graphs.copy_back"):
+                _write_back(inputs, prog.inputs, writes)
+        with span("graphs.copy_out"):
+            out = tuple(o.clone() for o in prog.outputs)
+        if tracing():
+            count("graphs.copy_bytes", _bytes(out), dir="out")
         if device.type == "cuda":
             prog.done = torch.cuda.Event()
             prog.done.record(torch.cuda.current_stream(device))
         return out
+
+
+def _new_program(name, body, inputs: dict, shared: dict, device, key: tuple, mesh) -> Program:
+    """Capture the program of ``key`` and hold it, first releasing the
+    programs whose corpus is gone and, for one that stacks sessions, those
+    that :data:`STACK_BYTES` no longer holds beside it."""
+    uid = None if mesh is None else mesh.uid
+    reason = _RELEASED.get(key)
+    cause = "new" if reason is None else f"after_{reason}"
+    with span("graphs.capture", program=name, cause=cause):
+        _release_dead()
+        stacks = any(_is_list(v) for v in inputs.values())
+        if stacks:
+            _release_stacks(_bytes(inputs.values()), uid)
+        prog = _making_room(lambda: _capture(name, body, inputs, shared, device, uid), uid)
+        prog.key, prog.stacks, prog.mesh = key, stacks, uid
+        if mesh is not None:
+            prog.pinned = tuple(shared.values())
+        _PROGRAMS[key] = prog
+        _RELEASED.pop(key, None)
+        _CAPTURES[0] += 1
+    return prog
 
 
 def _capture(name, body, inputs, shared, device, mesh: Optional[int]) -> Program:
@@ -473,15 +544,17 @@ def _capture(name, body, inputs, shared, device, mesh: Optional[int]) -> Program
                _stack_buffer(v) if _is_list(v) else
                torch.empty_like(v) for k, v in inputs.items()}
     _load(buffers, inputs)
-    pools = _pool_bytes(device)
+    with span("graphs.pool_bytes"):
+        pools = _pool_bytes(device)
     graph, outputs, checks, launches, warmup_ms, capture_ms, instantiate_ms = (
         _capture_graph(name, body, buffers, shared, device, mesh))
-    grown = _pool_bytes(device) - pools
+    with span("graphs.pool_bytes"):
+        grown = _pool_bytes(device) - pools
     held = [t for t in buffers.values() if t is not None] + list(outputs)
     return Program(name=name, graph=graph, inputs=buffers, outputs=outputs,
                    checks=checks, launches=launches, warmup_ms=warmup_ms,
                    capture_ms=capture_ms, instantiate_ms=instantiate_ms,
-                   static_bytes=sum(t.numel() * t.element_size() for t in held),
+                   static_bytes=_bytes(held),
                    pool_bytes=grown)
 
 
@@ -505,15 +578,16 @@ def _capture_graph(name, body, buffers, shared, device, mesh):
     kernels' library, makes the kernels' first ``cudaFuncSetAttribute`` and
     fills the device tables' caches, none of which a capture may do.  Returns
     (graph, outputs, checks, launches by route, warm-up ms, capture ms,
-    instantiate ms); the capture ms include the synchronization before it.
+    instantiate ms), the durations of the spans ``graphs.warmup``,
+    ``graphs.record`` and ``graphs.instantiate``; the capture ms include the
+    synchronization before it.
     """
-    t0 = time.perf_counter()
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side), _in_program():
-        body(**shared, **buffers)
-    torch.cuda.current_stream(device).wait_stream(side)
-    warmup_ms = (time.perf_counter() - t0) * 1e3
+    with timed("graphs.warmup") as warmup:
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side), _in_program():
+            body(**shared, **buffers)
+        torch.cuda.current_stream(device).wait_stream(side)
     if not any(prog.mesh == mesh for prog in _PROGRAMS.values()):
         # A failed capture may have left the pool with no graph, and a
         # capture may not join such a pool.
@@ -521,16 +595,22 @@ def _capture_graph(name, body, buffers, shared, device, mesh):
     if mesh not in _POOLS:
         _POOLS[mesh] = torch.cuda.graph_pool_handle()
     graph = torch.cuda.CUDAGraph()
-    t0 = time.perf_counter()  # the capture starts with a synchronization
+    record = timed("graphs.record").open()  # the capture starts with a synchronization
+    instantiate = None
     try:
         with rbf_hopper.recording_launches() as launches, _in_program() as checks:
             with torch.cuda.graph(graph, pool=_POOLS[mesh], capture_error_mode="thread_local"):
                 outputs = tuple(body(**shared, **buffers))
-                t1 = time.perf_counter()
+                record.close()
+                instantiate = timed("graphs.instantiate").open()
+        instantiate.close()
     except Exception as exc:
         raise CaptureError(f"capturing program {name!r} failed: {exc}") from exc
-    t2 = time.perf_counter()
-    return graph, outputs, checks, launches, warmup_ms, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+    finally:
+        record.close()
+        if instantiate is not None:
+            instantiate.close()
+    return graph, outputs, checks, launches, warmup.ms, record.ms, instantiate.ms
 
 
 def programs() -> list[Program]:

@@ -29,6 +29,7 @@ from ital_tpu_torch.select.base import (
     labeled_mask,
     validate_method_kwargs,
 )
+from ital_tpu_torch.utils.logging import span
 from ital_tpu_torch.utils.metrics import top_k_stable
 
 # Feedback blocks are padded up to a multiple of this width (valid=False on
@@ -180,7 +181,8 @@ class ActiveRetrieval:
         # method_kwargs, and may name options another strategy declares.
         kw = filter_method_kwargs(self.strategy_name, self.method_kwargs)
         batch = select(self.state, int(k), self.generator, self.params, **kw)
-        return batch.cpu().numpy()
+        with span("serve.picks.wait"):
+            return batch.cpu().numpy()
 
     def update(self, feedback: Dict[int, int]) -> None:
         """Apply one round of user feedback and refresh the posterior.

@@ -51,6 +51,12 @@ Concurrency:
   sessions serialize at the mesh, not only at the device.  The session
   locks are taken first, then the mesh lock.
 
+While tracing is on (:mod:`ital_tpu_torch.utils.logging`), each call of
+``create_session``, ``set_query``, ``feedback``, ``feedback_many``,
+``next_batch``, ``next_batch_many`` and ``delete`` is one request, a span
+``serve.<method>``, and the picks' read to the host inside it is the span
+``serve.picks.wait``.
+
 API (JSON bodies)::
 
     GET  /healthz                          -> {"ok": true, "corpus": ..., "n": N}
@@ -88,6 +94,7 @@ shards the corpus over N cards (or, with ``--device cpu``, N gloo processes).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import io
 import json
 import os
@@ -111,6 +118,7 @@ from ital_tpu_torch.select.base import (
     get_stacked_strategy,
 )
 from ital_tpu_torch.utils import checkpoint as ckpt
+from ital_tpu_torch.utils.logging import span
 
 # Peak device memory a stacked cohort program adds per session: copies of
 # the session's (cap, N) f32 whitened buffer v (the stack and the
@@ -155,6 +163,18 @@ def max_cohort_sessions(cap: int, n: int, copies: float, fixed_bytes: int = 0) -
     (a strategy's :data:`SELECT_BUDGET` entry, :data:`UPDATE_COPIES`)."""
     budget = int(os.environ.get("ITAL_TPU_COHORT_STATE_BYTES", COHORT_STATE_BYTES))
     return max(1, int(budget // (copies * int(cap) * int(n) * 4 + fixed_bytes)))
+
+
+def _request(method):
+    """``method`` of the service as one request: the span ``serve.<name>``."""
+    name = f"serve.{method.__name__}"
+
+    @functools.wraps(method)
+    def call(*args, **kwargs):
+        with span(name):
+            return method(*args, **kwargs)
+
+    return call
 
 
 class NotFound(KeyError):
@@ -263,6 +283,7 @@ class RetrievalService:
             raise NotFound(f"no such session {sid!r}")
         return self._world.run(fn, sid, *args)
 
+    @_request
     def create_session(self, **overrides) -> str:
         """A new session over the shared corpus; ``overrides`` replace the
         service's defaults, and ``method_kwargs`` layer over its options
@@ -329,6 +350,7 @@ class RetrievalService:
         for _, _, lock in entries:
             lock.release()
 
+    @_request
     def set_query(self, sid: str, index: int) -> None:
         sess, lock = self._entry(sid)
         with lock:
@@ -339,6 +361,7 @@ class RetrievalService:
                 raise ValueError(f"query index {index} outside the corpus of {self.n_real}")
             self._mesh(sid, _mesh_set_query, int(index))
 
+    @_request
     def next_batch(self, sid: str, k: int) -> list:
         sess, lock = self._entry(sid)
         with lock:
@@ -358,6 +381,7 @@ class RetrievalService:
         are whole on every rank, so it bounds a rank's MI temporaries."""
         return max_cohort_sessions(cap, self.x.shape[0], copies, fixed_bytes)
 
+    @_request
     def next_batch_many(self, sids: list, k: int) -> Dict[str, list]:
         """Select for many sessions in one request.
 
@@ -401,12 +425,15 @@ class RetrievalService:
                                    [s.generator.get_state() for s in sessions])
         else:
             name = sessions[0].strategy_name
-            rows = get_stacked_strategy(name)(
+            picks = get_stacked_strategy(name)(
                 [s.state for s in sessions], k, [s.generator for s in sessions],
                 _group_params(sessions),
-                **filter_method_kwargs(name, sessions[0].method_kwargs)).tolist()
+                **filter_method_kwargs(name, sessions[0].method_kwargs))
+            with span("serve.picks.wait"):
+                rows = picks.tolist()
         return {sid: [int(i) for i in row] for (sid, _, _), row in zip(group, rows)}
 
+    @_request
     def feedback(self, sid: str, labels: Dict[str, int]) -> dict:
         sess, lock = self._entry(sid)
         with lock:
@@ -417,6 +444,7 @@ class RetrievalService:
                 self._mesh(sid, _mesh_absorb, *sess.feedback_block(parsed))
             return {"labeled": int(sess.state.count)}
 
+    @_request
     def feedback_many(self, fb: Dict[str, Dict[str, int]]) -> Dict[str, dict]:
         """Absorb many sessions' feedback in one request.
 
@@ -494,6 +522,7 @@ class RetrievalService:
             self._mesh(sid, _mesh_refit, vals)
             return dict(zip(("length_scale", "var", "noise"), vals))
 
+    @_request
     def delete(self, sid: str) -> None:
         with self._lock:
             entry = self._sessions.get(sid)

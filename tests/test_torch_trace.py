@@ -1,0 +1,420 @@
+"""The served path's spans and counters (``ital_tpu_torch.utils.logging``):
+how they nest and group, that they record nothing while tracing is off, how
+they lie on a ``torch.profiler`` timeline, and what ``serve.py`` and
+``graphs.py`` mark with them.  The graph path runs on the CPU through a
+stand-in graph; the capture's own spans are held on a card by the
+``cuda``-marked test at the end.
+
+No JAX here, so this file also runs where only the port is installed:
+
+    python -m pytest tests/test_torch_trace.py --noconftest -q
+"""
+
+import gc
+import threading
+import time
+import weakref
+
+import numpy as np
+import pytest
+import torch
+
+from ital_tpu_torch import graphs
+from ital_tpu_torch.serve import RetrievalService
+from ital_tpu_torch.utils import logging as trace
+
+
+@pytest.fixture(autouse=True)
+def _fresh():
+    trace.clear()
+    yield
+    trace.clear()
+
+
+def _spans(seg, name):
+    return [s for s in seg.spans if s.name == name]
+
+
+def _corpus(seed=0):
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(3, 6)) * 4
+    return np.concatenate([c + rng.normal(size=(40, 6)) for c in centers]).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def service():
+    return RetrievalService(_corpus(), length_scale=2.5, noise=0.1, cap=32, strategy="ital",
+                            label_prob=1.0, mistake_prob=0.0, device="cpu",
+                            method_kwargs={"pool_size": 32, "n_qmc": 16})
+
+
+# --- the recorder -------------------------------------------------------------
+
+
+def test_spans_nest_within_their_parent_and_share_its_request():
+    with trace.recording():
+        with trace.span("serve.outer", who="a"):
+            with trace.span("graphs.run", program="p"):
+                time.sleep(0.002)
+                with trace.span("graphs.replay"):
+                    time.sleep(0.001)
+            with trace.span("serve.picks.wait"):
+                time.sleep(0.001)
+        with trace.span("serve.other"):
+            pass
+    (seg,) = trace.segments()
+    outer, run, replay, wait, other = seg.spans
+    assert [s.name for s in seg.spans] == ["serve.outer", "graphs.run", "graphs.replay",
+                                           "serve.picks.wait", "serve.other"]
+    assert outer.parent is None and run.parent is outer and replay.parent is run
+    assert wait.parent is outer and other.parent is None
+    assert outer.attrs == {"who": "a"} and run.attrs == {"program": "p"}
+    for child in (run, replay, wait):
+        assert child.parent.start_ns <= child.start_ns <= child.end_ns <= child.parent.end_ns
+    assert outer.request == run.request == replay.request == wait.request
+    assert other.request != outer.request
+    assert outer.self_ns == outer.ns - run.ns - wait.ns
+    assert run.self_ns == run.ns - replay.ns
+    assert replay.self_ns == replay.ns > 0
+
+
+def test_spans_on_another_thread_open_their_own_request():
+    seen = []
+
+    def worker():
+        with trace.span("serve.next_batch"):
+            seen.append(trace._stack()[0])
+
+    with trace.recording():
+        with trace.span("serve.feedback") as mine:
+            t = threading.Thread(target=worker)
+            t.start()
+            t.join()
+    (seg,) = trace.segments()
+    assert seen[0].parent is None and seen[0].request != mine.request
+    assert {s.name for s in seg.spans} == {"serve.feedback", "serve.next_batch"}
+
+
+def test_tracing_off_records_nothing_and_enters_no_profiler_range(monkeypatch):
+    entered = []
+
+    class Range:
+        def __init__(self, *args):
+            entered.append(args)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(trace, "_RANGE", Range)
+    assert not trace.tracing()
+    before = len(trace._RING)
+    for _ in range(3):
+        got = trace.span("graphs.run", program="p", graphed=True)
+        assert got is trace._OFF
+        with got:
+            trace.count("graphs.copy_bytes", 8, dir="in")
+    assert len(trace._RING) == before and trace.segments() == [] and entered == []
+    # recording() alone keeps spans but opens no profiler range either
+    with trace.recording(), trace.span("graphs.run"):
+        pass
+    assert entered == [] and len(trace.segments()[0].spans) == 1
+
+
+def test_timed_keeps_its_clock_readings_with_tracing_off():
+    with trace.timed("graphs.warmup") as t:
+        time.sleep(0.001)
+    assert t.ns >= 1_000_000 and t.ms == t.ns / 1e6
+    assert trace.segments() == []
+    with trace.recording():
+        with trace.timed("graphs.warmup") as kept:
+            pass
+    (seg,) = trace.segments()
+    assert seg.spans == [kept]
+
+
+def test_counters_sum_by_attribute_per_segment():
+    with trace.recording():
+        trace.count("graphs.copy_bytes", 10, dir="in")
+        trace.count("graphs.copy_bytes", 5, dir="in")
+        trace.count("graphs.copy_bytes", 7, dir="back")
+        trace.count("calls")
+    trace.count("calls")  # off: not counted
+    with trace.recording():
+        trace.count("calls", 2)
+    first, second = trace.segments()
+    assert first.count("graphs.copy_bytes") == 22
+    assert first.count("graphs.copy_bytes", dir="in") == 15
+    assert first.count("graphs.copy_bytes", dir="out") == 0
+    assert first.count("calls") == 1 and second.count("calls") == 2
+    assert second.index > first.index
+
+
+def test_threads_lose_no_count_and_keep_their_own_parents():
+    """Server handler threads trace at once: no counter update is lost and
+    each thread's spans nest under its own."""
+    import sys
+
+    workers, rounds = 16, 200
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def worker():
+            for _ in range(rounds):
+                with trace.span("serve.feedback"), trace.span("graphs.run"):
+                    trace.count("calls")
+
+        with trace.recording():
+            threads = [threading.Thread(target=worker) for _ in range(workers)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+            assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(switch)
+    (seg,) = trace.segments()
+    assert seg.count("calls") == workers * rounds
+    runs = [s for s in seg.spans if s.name == "graphs.run"]
+    assert len(runs) == workers * rounds
+    assert all(s.parent.name == "serve.feedback" and s.request == s.parent.request
+               for s in runs)
+    assert len({s.request for s in runs}) == workers * rounds
+
+
+def test_the_ring_drops_the_oldest_spans(monkeypatch):
+    import collections
+
+    monkeypatch.setattr(trace, "_RING", collections.deque(maxlen=4))
+    with trace.recording():
+        for i in range(6):
+            with trace.span(f"s{i}"):
+                pass
+    (seg,) = trace.segments()
+    assert [s.name for s in seg.spans] == ["s2", "s3", "s4", "s5"]
+
+
+def test_each_profiler_session_opens_a_new_segment():
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU]):
+            with trace.span("serve.next_batch"):
+                torch.ones(4).add_(1)
+            trace.count("calls")
+        with trace.span("serve.next_batch"):  # between the sessions: off
+            pass
+    segs = trace.segments()
+    assert len(segs) == 2
+    assert [len(seg.spans) for seg in segs] == [1, 1]
+    assert [seg.count("calls") for seg in segs] == [1, 1]
+
+
+# --- the service and its programs -----------------------------------------------
+
+
+def test_profile_holds_the_request_and_program_ranges_around_their_work(service):
+    from torch.profiler import ProfilerActivity, profile
+
+    sid = service.create_session()
+    service.set_query(sid, 3)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        batch = service.next_batch(sid, 4)
+        service.feedback(sid, {str(i): 1 for i in batch})
+    service.delete(sid)
+    events = prof.events()
+    names = {e.name for e in events}
+    assert {"ital.serve.next_batch", "ital.serve.feedback", "ital.graphs.run",
+            "ital.serve.picks.wait"} <= names
+
+    def inside(e, name):
+        while e is not None:
+            if e.name == name:
+                return True
+            e = e.cpu_parent
+        return False
+
+    ops = [e for e in events if e.name.startswith("aten::")]
+    for outer in ("ital.graphs.run", "ital.serve.next_batch", "ital.serve.feedback"):
+        held = [e for e in ops if inside(e, outer)]
+        assert held, outer
+        rng = [e for e in events if e.name == outer]
+        for e in held:
+            assert any(r.time_range.start <= e.time_range.start <= e.time_range.end
+                       <= r.time_range.end for r in rng)
+    (seg,) = trace.segments()
+    assert [s.name for s in seg.spans if s.parent is None] == ["serve.next_batch",
+                                                               "serve.feedback"]
+
+
+def test_each_service_call_is_one_request_with_its_name(service):
+    with trace.recording():
+        sids = [service.create_session() for _ in range(2)]
+        for sid, q in zip(sids, (3, 47)):
+            service.set_query(sid, q)
+        batches = service.next_batch_many(sids, 4)
+        service.feedback_many({sid: {str(i): 1 for i in batches[sid]} for sid in sids})
+        batch = service.next_batch(sids[0], 4)
+        service.feedback(sids[0], {str(i): -1 for i in batch})
+        for sid in sids:
+            service.delete(sid)
+    (seg,) = trace.segments()
+    roots = [s for s in seg.spans if s.parent is None]
+    assert [s.name for s in roots] == (
+        ["serve.create_session"] * 2 + ["serve.set_query"] * 2
+        + ["serve.next_batch_many", "serve.feedback_many", "serve.next_batch",
+           "serve.feedback"] + ["serve.delete"] * 2)
+    assert len({s.request for s in roots}) == len(roots)
+    by_request = {s.request: s for s in roots}
+    for s in seg.spans:
+        assert s.request in by_request
+    picks = _spans(seg, "serve.picks.wait")
+    assert [by_request[s.request].name for s in picks] == ["serve.next_batch_many",
+                                                           "serve.next_batch"]
+    runs = _spans(seg, "graphs.run")
+    assert runs and all(s.attrs["graphed"] is False for s in runs)
+    assert {by_request[s.request].name for s in runs} >= {
+        "serve.next_batch_many", "serve.feedback_many", "serve.next_batch", "serve.feedback"}
+
+
+class _StandInGraph:
+    """Recomputes the body into the captured outputs at each replay, as the
+    captured graph rewrites its static buffers; like a graph, it does not
+    keep the shared tensors alive."""
+
+    def __init__(self, body, shared, buffers, outputs):
+        self.body, self.buffers, self.outputs = body, buffers, outputs
+        self.shared = {k: weakref.ref(v) for k, v in shared.items()}
+
+    def replay(self):
+        with graphs._in_program():
+            new = self.body(**{k: ref() for k, ref in self.shared.items()}, **self.buffers)
+        for out, val in zip(self.outputs, new):
+            out.copy_(val)
+
+
+@pytest.fixture
+def stand_in(monkeypatch):
+    """Route CPU tensors through the graph path with :class:`_StandInGraph`."""
+    def capture_graph(name, body, buffers, shared, device, mesh):
+        with graphs._in_program() as checks:
+            outputs = tuple(t.clone() for t in body(**shared, **buffers))
+        return _StandInGraph(body, shared, buffers, outputs), outputs, checks, {}, 0.0, 0.0, 0.0
+
+    monkeypatch.setattr(graphs, "_PROGRAMS", {})
+    monkeypatch.setattr(graphs, "_RELEASED", {})
+    monkeypatch.setattr(graphs, "_GRAPH_DEVICES", ("cuda", "cpu"))
+    monkeypatch.setattr(graphs, "_capture_graph", capture_graph)
+
+
+def _double(a, w):
+    a.mul_(2)
+    return (a.sum(-1) * w,)
+
+
+def _scaled(x, a):
+    return (a * x.sum(),)
+
+
+ONE = torch.ones(1)
+
+
+def test_program_calls_split_into_their_parts_with_bytes_counted(stand_in):
+    ts = [torch.arange(6, dtype=torch.float32) + j for j in range(3)]
+    before = graphs.captures()
+    with trace.recording():
+        graphs.run("double", _double, {"a": ts, "w": ONE}, writes=("a",))
+        graphs.run("double", _double, {"a": ts, "w": ONE}, writes=("a",))
+    (seg,) = trace.segments()
+    assert graphs.captures() - before == 1
+    runs = _spans(seg, "graphs.run")
+    assert len(runs) == 2 and all(s.attrs == {"program": "double", "graphed": True}
+                                  for s in runs)
+    (capture,) = _spans(seg, "graphs.capture")
+    assert capture.parent is runs[0] and capture.attrs == {"program": "double", "cause": "new"}
+    assert [s.name for s in seg.spans if s.parent is capture] == ["graphs.pool_bytes"] * 2
+    for run in runs:
+        assert [s.name for s in seg.spans if s.parent is run][-4:] == [
+            "graphs.copy_in", "graphs.replay", "graphs.copy_back", "graphs.copy_out"]
+    assert len(_spans(seg, "graphs.replay")) == 2
+    stack = 3 * 6 * 4
+    # the capture's copy into its new buffers, then one copy-in a call
+    assert seg.count("graphs.copy_bytes", dir="in") == 3 * (stack + 4)
+    assert seg.count("graphs.copy_bytes", dir="back") == 2 * stack
+    assert seg.count("graphs.copy_bytes", dir="out") == 2 * 3 * 4
+    assert torch.equal(ts[1], (torch.arange(6, dtype=torch.float32) + 1) * 4)
+
+
+def test_a_capture_names_why_its_program_was_released(stand_in, monkeypatch):
+    small = [torch.ones(4) for _ in range(2)]
+    large = [torch.ones(8) for _ in range(2)]
+    one = ONE
+    monkeypatch.setattr(graphs, "STACK_BYTES", 100)  # one of the two stacks at a time
+    before = graphs.captures()
+    with trace.recording():
+        graphs.run("double", _double, {"a": small, "w": one}, writes=("a",))
+        graphs.run("double", _double, {"a": large, "w": one}, writes=("a",))  # releases the small one
+        graphs.run("double", _double, {"a": small, "w": one}, writes=("a",))
+        graphs._release_for_room()
+        graphs.run("double", _double, {"a": small, "w": one}, writes=("a",))
+        x = torch.ones(5)
+        graphs.run("scaled", _scaled, {"a": torch.ones(3)}, shared={"x": x})
+        del x
+        gc.collect()
+        graphs.run("double", _double, {"a": torch.ones(2), "w": one}, writes=("a",))
+    (seg,) = trace.segments()
+    captures = _spans(seg, "graphs.capture")
+    assert graphs.captures() - before == len(captures)
+    causes = [s.attrs["cause"] for s in captures]
+    assert causes == ["new", "new", "after_stack_bytes", "after_room", "new", "new"]
+    assert [s.attrs["program"] for s in captures].count("scaled") == 1
+    reasons = [s.attrs["reason"] for s in _spans(seg, "graphs.release")]
+    assert reasons == ["stack_bytes", "stack_bytes", "room", "dead_corpus"]
+    assert all(s.parent.name == "graphs.capture" for s in _spans(seg, "graphs.release")
+               if s.attrs["reason"] != "room")
+
+
+@pytest.mark.cuda
+def test_a_captured_program_records_its_capture_split_causes_and_bytes(monkeypatch):
+    """On a card: the capture's parts are spans whose durations are the
+    program's timings, a program released under ``STACK_BYTES`` is captured
+    again with that cause, and the bytes counted are the tensors' sizes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (a graph capture has no CPU mode)")
+    monkeypatch.setattr(graphs, "_PROGRAMS", {})
+    monkeypatch.setattr(graphs, "_RELEASED", {})
+    small = [torch.ones(256, device="cuda") for _ in range(4)]
+    large = [torch.ones(512, device="cuda") for _ in range(4)]
+    one = torch.ones(1, device="cuda")
+    monkeypatch.setattr(graphs, "STACK_BYTES", 9000)  # one of the two at a time
+    before = graphs.captures()
+    with trace.recording():
+        graphs.run("double", _double, {"a": small, "w": one}, writes=("a",))
+        graphs.run("double", _double, {"a": small, "w": one}, writes=("a",))
+        graphs.run("double", _double, {"a": large, "w": one}, writes=("a",))
+        graphs.run("double", _double, {"a": small, "w": one}, writes=("a",))
+        torch.cuda.synchronize()
+    (seg,) = trace.segments()
+    captures = _spans(seg, "graphs.capture")
+    assert [s.attrs["cause"] for s in captures] == ["new", "new", "after_stack_bytes"]
+    assert graphs.captures() - before == len(captures)
+    assert len(_spans(seg, "graphs.replay")) == 4
+    for cap in captures:
+        parts = [s.name for s in seg.spans if s.parent is cap]
+        assert parts[-5:] == ["graphs.pool_bytes", "graphs.warmup", "graphs.record",
+                              "graphs.instantiate", "graphs.pool_bytes"]
+    prog = graphs.programs()[-1]
+    last = captures[-1]
+    split = {s.name: s for s in seg.spans if s.parent is last}
+    assert prog.warmup_ms == split["graphs.warmup"].ms
+    assert prog.capture_ms == split["graphs.record"].ms
+    assert prog.instantiate_ms == split["graphs.instantiate"].ms
+    n_small, n_large = 4 * 256 * 4 + 4, 4 * 512 * 4 + 4  # the stack and w
+    loads = 2 * n_small + n_large  # each capture's copy into its buffers
+    calls = 3 * n_small + n_large
+    assert seg.count("graphs.copy_bytes", dir="in") == loads + calls
+    assert seg.count("graphs.copy_bytes", dir="back") == calls - 4 * 4
+    assert seg.count("graphs.copy_bytes", dir="out") == 4 * 4 * 4
+    assert torch.equal(small[0], torch.full((256,), 8.0, device="cuda"))
