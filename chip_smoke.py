@@ -98,9 +98,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    and 8 in varying orders and mixes of learned and default sessions, a
    ``/batch_select`` and a ``/batch_feedback`` each), twice: graphed picks
    equal eager picks, and the second graphed turn captures nothing (every
-   program held within ``graphs.STACK_BYTES``); per turn and pass the
-   request latencies, the captures and their ms, the programs held with
-   their static MiB and the graph pools' MiB.
+   program's stages held within ``graphs.STACK_BYTES``); per turn and pass
+   the request latencies, the captures and their ms, the programs held,
+   the stages' MiB and the graph pools' MiB.
 9. sharded: the corpus-sharded path (``ital_tpu_torch.parallel``).  A mesh of
    one card must run on NCCL.  The kernel at the two whole-corpus shapes the
    100 000-row path adds, (64, 100000, 512) and (4, 100000, 512) f32, against
@@ -285,7 +285,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    bfloat16 corpus over HTTP: ``SCALE1M_K`` sessions and
    ``SCALE1M_SERVE_ROUNDS`` rounds of ``/batch_select`` and
    ``/batch_feedback`` of all of them (the path's count); the second round
-   captures nothing (the two stacked programs held within
+   captures nothing (the two stacked programs' shared stages held within
    ``graphs.STACK_BYTES``), every request that forms RBF blocks launches
    the kernel, and the device memory each cohort request adds per session
    is held to the server's budget and printed beside the 25 000/100 000-row
@@ -1605,11 +1605,11 @@ def _cohort_mix(torch, ds, cfg, dev, smi: str) -> None:
     varying orders).  A graphed turn captures one program per signature (K,
     block width and group sizes: a cohort is laid out by hyperparameter
     group first) and replays it after; the second graphed turn captures
-    nothing if every program of the traffic stayed within
+    nothing if the stages of the traffic's programs stayed within
     ``graphs.STACK_BYTES``.  Graphed picks equal eager picks request by
     request.  Prints per turn and pass the host ms of each request kind,
-    the captures, the programs held with their static MiB and the graph
-    pools' MiB."""
+    the captures, the programs held, the stages' MiB and the graph pools'
+    MiB."""
     from ital_tpu_torch import graphs, serve
 
     svc = serve.service_from_config(cfg, device=dev)
@@ -1682,14 +1682,14 @@ def _cohort_mix(torch, ds, cfg, dev, smi: str) -> None:
                   + ", ".join(f"{p.name} K = {p.inputs['mu'].shape[0]} capture "
                               f"{p.warmup_ms + p.capture_ms + p.instantiate_ms:.1f} ms"
                               for p in new if p.stacks and p.graph is not None)
-                  + f"); stacking programs held {len(held)}, static "
-                  f"{sum(p.static_bytes for p in held) / 2**20:.2f} MiB of "
+                  + f"); stacking programs held {len(held)}, stages "
+                  f"{sum(s.nbytes for s in graphs.stages()) / 2**20:.2f} MiB of "
                   f"{graphs.STACK_BYTES / 2**20:.0f}; graph pools "
                   f"{'not measured' if pool is None else f'{pool:.1f} MiB'} [{smi}]")
             if turn == "graphed" and picks_by_turn[:-1]:
                 check(graphs.captures() == captured,
                       "cohort mix: the second graphed turn replays the first one's programs "
-                      "(all held within graphs.STACK_BYTES)")
+                      "(their stages held within graphs.STACK_BYTES)")
     finally:
         srv.shutdown()
         srv.server_close()
@@ -4036,8 +4036,8 @@ def strategies_phase(torch, ds, dev, smi: str) -> dict:
     held = [p for p in graphs.programs() if p.stacks]
     print(f"strategies phase: {time.perf_counter() - t_phase:.1f} s; "
           f"{graphs.captures() - captured} captures; launches {launches}; stacking programs "
-          f"held {len(held)}, static {sum(p.static_bytes for p in held) / 2**20:.2f} MiB of "
-          f"{graphs.STACK_BYTES / 2**20:.0f}; graph pools "
+          f"held {len(held)}, stages {sum(s.nbytes for s in graphs.stages()) / 2**20:.2f} MiB "
+          f"of {graphs.STACK_BYTES / 2**20:.0f}; graph pools "
           f"{'not reported' if pool is None else f'{pool:.1f} MiB'} [{smi}]")
     return {"launches": launches, "shapes": shapes, "by_strategy": out}
 
@@ -4306,9 +4306,10 @@ def _scale_service(torch, big, cfg, dev, smi: str) -> dict:
     _print_programs(progs, known, "scale serve", smi)
     held = [p for p in graphs.programs() if p.stacks]
     print(f"scale serve: captures a round {captured}; programs with stacks held "
-          f"{[(p.name, round(p.static_bytes / 2**20, 2)) for p in held]} MiB, "
-          f"{sum(p.static_bytes for p in held) / 2**20:.2f} MiB of graphs.STACK_BYTES "
-          f"{graphs.STACK_BYTES / 2**20:.0f} MiB; graph pools {_pool_mib(torch)} MiB [{smi}]")
+          f"{[(p.name, round(p.static_bytes / 2**20, 2)) for p in held]} MiB of their own, "
+          f"stages {sum(s.nbytes for s in graphs.stages()) / 2**20:.2f} MiB of "
+          f"graphs.STACK_BYTES {graphs.STACK_BYTES / 2**20:.0f} MiB; graph pools "
+          f"{_pool_mib(torch)} MiB [{smi}]")
     check(captured[0] > 0 and captured[-1] == 0,
           f"1M serve: the second round captures nothing {captured}")
     for kind in ("query", "batch_select", "batch_feedback"):

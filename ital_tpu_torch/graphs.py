@@ -54,9 +54,18 @@ A cohort's program takes each session's buffers as they are: an input that
 is a list of K same-shaped tensors is stacked inside the program (the
 reference's ``_stack_gpstates`` inside its jit) into one (K, ...) buffer by
 K copies, and where the body writes it, copied back slice by slice into the
-K tensors after the checks.  Such programs hold their stacks for as long as
-they live, so together they keep at most :data:`STACK_BYTES` of static
-buffers: capturing one more first releases the least recently used.
+K tensors after the checks.  That buffer only stages: every call copies all
+of its inputs in, and its writes back before another program runs, so the
+programs share it.  One *stage* is held per list input's name and slice
+layout (shape, strides, dtype, device, mesh), (Kmax, ...) for the widest K
+asked of it, and a program of K sessions binds its first K slices
+(``stage[:K]``: one address and the slices' strides for every K).  A
+program that needs more slices than its stage holds grows it, which
+releases every program bound to the old buffer.  A call that binds a stage
+first waits for the copy-out of the stage's last call, on whatever stream it
+ran.  The stages together keep at most :data:`STACK_BYTES`, each counted
+once: a new or grown stage first releases others, those no program binds
+before the least recently used, and the programs bound to them.
 
 A program on a corpus mesh (``run(..., mesh=mesh)``, the reference's
 ``jax.jit(shard_map(...))``) calls ``torch.distributed`` collectives on the
@@ -68,15 +77,16 @@ So a mesh program's choices depend only on the calls the ranks make alike:
 its key holds the mesh, it holds the tensors it shares (no other tensor can
 come to their addresses while it lives, so no rank finds it by a dead
 tensor's address while another captures anew), the garbage collector never
-releases it, and its stacks count against :data:`STACK_BYTES` with its own
-mesh's programs only.  :func:`release_mesh` (``Mesh.close``) releases a
-mesh's programs before its communicator goes, so no graph outlives it.  The
-warm-up before a capture runs the collectives once, which sets up any
-communicator that starts lazily (the ring's point-to-point pairs).  A check
-of a mesh program (:func:`check_after`) reads values every rank holds alike,
-so it fails on every rank alike; the exception it raises is marked
-(:func:`uniform_failure`), which tells a mesh service that the ranks are
-still in step.
+releases it, and its stages are its mesh's own, counted against
+:data:`STACK_BYTES` with its own mesh's stages only (a stage grows only with
+the K that every rank calls alike).  :func:`release_mesh` (``Mesh.close``)
+releases a mesh's programs and stages before its communicator goes, so no
+graph outlives it.  The warm-up before a capture runs the collectives once,
+which sets up any communicator that starts lazily (the ring's point-to-point
+pairs).  A check of a mesh program (:func:`check_after`) reads values every
+rank holds alike, so it fails on every rank alike; the exception it raises
+is marked (:func:`uniform_failure`), which tells a mesh service that the
+ranks are still in step.
 
 On the CPU, and on the card inside :func:`eager` (the counterpart of
 ``jax.disable_jit``), a call runs its body eagerly on the caller's tensors.
@@ -86,17 +96,21 @@ eager body.
 While tracing is on (:mod:`ital_tpu_torch.utils.logging`), each call is a
 span ``graphs.run`` (attributes ``program`` and ``graphed``) and, on the
 graph path, its parts are spans beneath it: ``graphs.capture`` (attributes
-``program`` and ``cause``) with ``graphs.release`` (attribute ``reason``),
+``program``, ``cause`` and ``stage``: ``reused`` where every list input's
+stage held its K slices, ``grown`` where one was made or grown, ``none``
+without a list input) with ``graphs.release`` (attribute ``reason``),
 ``graphs.warmup``, ``graphs.record``, ``graphs.instantiate`` and
 ``graphs.pool_bytes`` beneath it; ``graphs.copy_in``, ``graphs.replay``,
 ``graphs.checks.wait``, ``graphs.copy_back`` and ``graphs.copy_out``.  A
 capture's ``cause`` is ``new`` for a signature never held, else
 ``after_<reason>`` of its release; the reasons of the last
 ``_RELEASED_KEPT`` releases are kept whether tracing is on or off, so that a
-capture traced after its release went untraced is still named.  The one
-counter is ``graphs.copy_bytes`` (by ``dir``: ``in``, ``back``, ``out``),
+capture traced after its release went untraced is still named.  The
+counters are ``graphs.copy_bytes`` (by ``dir``: ``in``, ``back``, ``out``),
 the bytes of the tensors that the copy-in, the copy-back and the outputs'
-clones copy.  A program's ``warmup_ms``, ``capture_ms`` and
+clones copy, and ``graphs.stage_bytes`` (by ``event``: ``reused``,
+``grown``), the bytes of the stage slices a capture bound, as its stage held
+them or after growing it.  A program's ``warmup_ms``, ``capture_ms`` and
 ``instantiate_ms`` are its capture spans' durations, kept also with tracing
 off.
 """
@@ -123,23 +137,22 @@ _LOCAL = threading.local()  # .eager: eager() depth; .pending: checks of a body 
 _USES = itertools.count(1)  # the order of the programs' calls, for STACK_BYTES
 _CAPTURES = [0]  # programs captured in this process (released ones included)
 _ROOM = [0]  # programs released to make room after an out-of-memory error
-# Key -> why it was released (stack_bytes, dead_corpus, room), at most
+# (mesh uid, input name, slice shape, strides, dtype, device) -> Stage
+_STAGES: dict = {}
+# Key -> why it was released (stack_bytes, stage_grown, dead_corpus, room), at most
 # _RELEASED_KEPT of them, the oldest dropped first: a capture of the key names it.
 _RELEASED: dict = {}
 _RELEASED_KEPT = 1024
 # Devices whose tensors a call runs through a captured graph.
 _GRAPH_DEVICES = ("cuda",)
-# Static bytes the programs that stack sessions (a list input) keep
-# captured together, the least recently used released first: each holds a
-# copy of its K sessions' buffers for as long as it lives.  On an H100 at
-# cap 64 a session's copy is 6.3 MiB at 25 000 x 512 and 25.2 MiB at
-# 100 000 (chip_smoke.py phases 8-9); the 16 programs of phase 8's mixed
-# serving traffic hold 68 copies, 430 MiB at 25 000 rows, so the default
-# of 4 GiB keeps all of them up to 100 000 rows (1.7 GiB).  At 1M rows a
-# /batch_select of 8 and a /batch_feedback of 8 hold 2018.11 MiB each,
-# 4036.22 MiB together, and their second round captured nothing (phase
-# 15, H100 80GB HBM3 at 700 W); a third program of 8 sessions at 1M rows
-# releases one of them.
+# Bytes of the stages of one mesh (or of the single-device programs), each
+# counted once, the least recently used released first.  On an H100 at cap
+# 64 a session's slices are 6.3 MiB at 25 000 x 512 and 25.2 MiB at 100 000
+# (chip_smoke.py phases 8-9), about 252 MiB at 1M rows: a program of 8
+# sessions there held 2018.11 MiB of them (phase 15, H100 80GB HBM3 at 700
+# W).  Every stacked program of up to 8 sessions binds the same stages, so at
+# 1M rows the selection of 8 and the updates of 3 to 8 hold one such set
+# between them, and the default of 4 GiB keeps it.
 STACK_BYTES = 4 << 30
 
 
@@ -163,21 +176,56 @@ class Program:
     instantiate_ms: float
     key: tuple = ()
     shared: tuple = ()  # weak references to the tensors the program reads in place
-    static_bytes: int = 0  # of the static input and output buffers (not the pool's temporaries)
+    # Of its own static input and output buffers (not the stages it binds,
+    # nor the pool's temporaries).
+    static_bytes: int = 0
     pool_bytes: int = 0  # growth of the graph pools' segments at the capture
     replays: int = 0
     last_used: int = 0
-    stacks: bool = False  # holds a stack of sessions' buffers (a list input)
+    stages: tuple = ()  # the stages its list inputs are bound to
     done: Any = None  # CUDA event after the last call's copy-out
     mesh: Optional[int] = None  # the uid of the mesh whose collectives it holds
     pinned: tuple = ()  # a mesh program's shared tensors, held while it lives
 
+    @property
+    def stacks(self) -> bool:
+        """Whether it stacks sessions' buffers (a list input) and lives."""
+        return bool(self.stages)
+
     def release(self) -> None:
-        """Drop the graph and the static buffers, once the last call is done."""
+        """Drop the graph and the static buffers, once the last call is done;
+        the stages it bound stay."""
         if self.done is not None:
             self.done.synchronize()
         self.graph, self.inputs, self.outputs, self.checks = None, {}, (), []
-        self.pinned = ()
+        self.pinned, self.stages = (), ()
+
+
+@dataclasses.dataclass(eq=False)
+class Stage:
+    """The (Kmax, ...) buffer that every program with a list input of one
+    name and slice layout binds its first K slices of."""
+
+    key: tuple
+    buffer: torch.Tensor
+    done: Any = None  # CUDA event after the copy-out of the last call that bound it
+    last_used: int = 0
+
+    @property
+    def nbytes(self) -> int:
+        return self.buffer.numel() * self.buffer.element_size()
+
+    def release(self) -> None:
+        """Let the buffer go, once the last call that bound it is done."""
+        if self.done is not None:
+            self.done.synchronize()
+
+
+def _wait_for(device: torch.device, events) -> None:
+    """Order the current stream after each of ``events`` (earlier calls'
+    copy-outs, on whatever stream they ran; ``None``: none), each once."""
+    for event in set(events) - {None}:
+        torch.cuda.current_stream(device).wait_event(event)
 
 
 @contextlib.contextmanager
@@ -374,6 +422,8 @@ def release_mesh(mesh) -> None:
             if prog.mesh == mesh.uid:
                 del _PROGRAMS[key]
                 prog.release()
+        for key in [key for key in _STAGES if key[0] == mesh.uid]:
+            _STAGES.pop(key).release()
         _POOLS.pop(mesh.uid, None)
 
 
@@ -390,26 +440,29 @@ def _out_of_memory(exc: BaseException) -> bool:
 
 
 def _release_for_room() -> bool:
-    """Release every single-device program and drop their pool, whose
-    memory then goes back to the device at the next
+    """Release every single-device program and drop their stages and pool,
+    whose memory then goes back to the device at the next
     ``torch.cuda.empty_cache()`` (a capture empties the cache first, and
     the allocator does before it reports running out).  Releasing only
     some would free nothing: the pool stays while any program in it lives.
     (An m = 8 full scan's pool takes 44-52 GiB of the H100's 80 GB, and a
     second one's capture beside it ran out, PERF.md §6.)  Returns whether
-    any program was released."""
+    any program or stage was released."""
     held = [key for key, prog in _PROGRAMS.items() if prog.mesh is None]
     for key in held:
         _release(key, "room")
+    stages = [key for key in _STAGES if key[0] is None]
+    for key in stages:
+        _drop_stage(key, "room")
     _POOLS.pop(None, None)
     _ROOM[0] += len(held)
-    return bool(held)
+    return bool(held or stages)
 
 
 def _making_room(call: Callable[[], Any], mesh: Optional[int]) -> Any:
     """``call()``; where the device runs out of memory for a single-device
-    call while single-device programs are held, release them and call it
-    once more."""
+    call while single-device programs or stages are held, release them and
+    call it once more."""
     try:
         return call()
     except Exception as exc:
@@ -422,19 +475,73 @@ def _making_room(call: Callable[[], Any], mesh: Optional[int]) -> Any:
     return call()
 
 
-def _release_stacks(need: int, mesh: Optional[int]) -> None:
-    """Release the least recently used programs that stack sessions until
-    their static buffers and ``need`` bytes more fit in :data:`STACK_BYTES`:
-    those of the mesh of uid ``mesh`` (``None``: the single-device ones), so
-    that every rank of a mesh releases the same programs."""
-    held = sorted((p for p in _PROGRAMS.values() if p.stacks and p.mesh == mesh),
-                  key=lambda p: p.last_used)
-    total = need + sum(p.static_bytes for p in held)
-    for prog in held:
-        if total <= STACK_BYTES:
-            break
-        _release(prog.key, "stack_bytes")
-        total -= prog.static_bytes
+def _stage_needs(inputs: dict, mesh: Optional[int]) -> dict:
+    """Input name -> (stage key, K) of each list input of ``inputs``."""
+    return {k: ((mesh, k, *_list_spec(v)[1:]), len(v)) for k, v in inputs.items()
+            if _is_list(v)}
+
+
+def _lacks(key: tuple, k: int) -> bool:
+    """Whether no stage of ``key`` holds ``k`` slices."""
+    stage = _STAGES.get(key)
+    return stage is None or stage.buffer.shape[0] < k
+
+
+def _stage_event(inputs: dict, mesh: Optional[int]) -> str:
+    """What a capture of ``inputs`` does to the stages: ``none`` without a
+    list input, ``reused`` where each stage holds its K slices, else
+    ``grown``."""
+    needs = _stage_needs(inputs, mesh)
+    if not needs:
+        return "none"
+    return "grown" if any(_lacks(key, k) for key, k in needs.values()) else "reused"
+
+
+def _bind_stages(inputs: dict, mesh: Optional[int]) -> dict:
+    """Input name -> the stage of each list input of a capture, made or grown
+    to the input's K slices where it lacks them.  Growing releases the
+    programs bound to the old buffer; a new or grown stage first makes room
+    for itself among the stages of the mesh of uid ``mesh`` (``None``: the
+    single-device ones) (:func:`_stage_room`)."""
+    needs = _stage_needs(inputs, mesh)
+    grown = {name: key for name, (key, k) in needs.items() if _lacks(key, k)}
+    for key in grown.values():
+        if key in _STAGES:
+            _drop_stage(key, "stage_grown")
+    if grown:
+        _stage_room(_bytes(inputs[name] for name in grown), mesh,
+                    {key for key, _ in needs.values()})
+    for name, key in grown.items():
+        _STAGES[key] = Stage(key, _stack_buffer(inputs[name]))
+    if tracing():
+        for name in needs:
+            count("graphs.stage_bytes", _bytes([inputs[name]]),
+                  event="grown" if name in grown else "reused")
+    return {name: _STAGES[key] for name, (key, _) in needs.items()}
+
+
+def _drop_stage(key: tuple, reason: str) -> None:
+    """Drop the stage of ``key``, first releasing the programs bound to it."""
+    stage = _STAGES.pop(key)
+    for pkey, prog in list(_PROGRAMS.items()):
+        if any(s is stage for s in prog.stages):
+            _release(pkey, reason)
+    stage.release()
+
+
+def _stage_room(need: int, mesh: Optional[int], keep: set) -> None:
+    """Release stages of the mesh of uid ``mesh`` but those of ``keep``, and
+    the programs bound to them, until its stages and ``need`` bytes more fit
+    in :data:`STACK_BYTES`: first those no program binds, then the least
+    recently used.  Every rank of a mesh releases the same."""
+    while True:
+        held = [stage for key, stage in _STAGES.items() if key[0] == mesh]
+        free = [stage for stage in held if stage.key not in keep]
+        if not free or need + sum(stage.nbytes for stage in held) <= STACK_BYTES:
+            return
+        bound = {id(s) for prog in _PROGRAMS.values() for s in prog.stages}
+        stage = min(free, key=lambda s: (id(s) in bound, s.last_used))
+        _drop_stage(stage.key, "stack_bytes")
 
 
 def run(name: str, body: Callable[..., tuple], inputs: dict, *, shared: Optional[dict] = None,
@@ -443,13 +550,14 @@ def run(name: str, body: Callable[..., tuple], inputs: dict, *, shared: Optional
 
     ``inputs``: tensors on one device (CUDA or CPU), ``None``, host ints
     (the body gets a 0-d int64 tensor) or lists of K same-shaped tensors (the
-    body gets their (K, ...) stack, and the program counts against
-    :data:`STACK_BYTES`); ``shared``: tensors the program reads where they
-    are, keyed by their address (the corpus); ``static``: the hashable
-    options ``body`` closes over; ``writes``: the inputs the body writes in
-    place, copied back after a replay (a list input slice by slice, also
-    when the body runs eagerly); ``mesh``: the corpus mesh whose collectives
-    the body calls (every rank calls ``run`` alike).  Returns the outputs, as
+    body gets their (K, ...) stack, the first K slices of a stage shared
+    with the other programs, which counts against :data:`STACK_BYTES`);
+    ``shared``: tensors the program reads where they are, keyed by their
+    address (the corpus); ``static``: the hashable options ``body`` closes
+    over; ``writes``: the inputs the body writes in place, copied back after
+    a replay (a list input slice by slice, also when the body runs
+    eagerly); ``mesh``: the corpus mesh whose collectives the body calls
+    (every rank calls ``run`` alike).  Returns the outputs, as
     tensors of the caller's own.  The body's :func:`check_after` checks run
     after each replay, before any write is copied back: one that raises
     leaves the caller's tensors as they were.
@@ -488,14 +596,16 @@ def _replay(name, body, inputs: dict, shared: dict, static: tuple, writes: tuple
         if not prog.shared or any(ref() is None for ref in prog.shared):
             # A new tensor at a dead one's address and layout: the program is its.
             prog.shared = tuple(weakref.ref(t) for t in shared.values())
-        if prog.done is not None:  # the last call's copy-out, on whatever stream it ran
-            torch.cuda.current_stream(device).wait_event(prog.done)
+        # This program's last copy-out, and that of the last call on each of its stages.
+        _wait_for(device, [prog.done, *(stage.done for stage in prog.stages)])
         with span("graphs.copy_in"):
             _load(prog.inputs, inputs)
         with span("graphs.replay"):
             prog.graph.replay()
         prog.replays += 1
         prog.last_used = next(_USES)
+        for stage in prog.stages:
+            stage.last_used = prog.last_used
         rbf_hopper.add_launches(prog.launches)
         if prog.checks:
             with span("graphs.checks.wait"):
@@ -511,23 +621,22 @@ def _replay(name, body, inputs: dict, shared: dict, static: tuple, writes: tuple
         if device.type == "cuda":
             prog.done = torch.cuda.Event()
             prog.done.record(torch.cuda.current_stream(device))
+            for stage in prog.stages:
+                stage.done = prog.done
         return out
 
 
 def _new_program(name, body, inputs: dict, shared: dict, device, key: tuple, mesh) -> Program:
     """Capture the program of ``key`` and hold it, first releasing the
-    programs whose corpus is gone and, for one that stacks sessions, those
-    that :data:`STACK_BYTES` no longer holds beside it."""
+    programs whose corpus is gone and, for one that stacks sessions, making
+    or growing its stages (:func:`_bind_stages`)."""
     uid = None if mesh is None else mesh.uid
     reason = _RELEASED.get(key)
     cause = "new" if reason is None else f"after_{reason}"
-    with span("graphs.capture", program=name, cause=cause):
+    with span("graphs.capture", program=name, cause=cause, stage=_stage_event(inputs, uid)):
         _release_dead()
-        stacks = any(_is_list(v) for v in inputs.values())
-        if stacks:
-            _release_stacks(_bytes(inputs.values()), uid)
         prog = _making_room(lambda: _capture(name, body, inputs, shared, device, uid), uid)
-        prog.key, prog.stacks, prog.mesh = key, stacks, uid
+        prog.key, prog.mesh = key, uid
         if mesh is not None:
             prog.pinned = tuple(shared.values())
         _PROGRAMS[key] = prog
@@ -539,9 +648,12 @@ def _new_program(name, body, inputs: dict, shared: dict, device, key: tuple, mes
 def _capture(name, body, inputs, shared, device, mesh: Optional[int]) -> Program:
     # Each buffer keeps its input's layout: the library's Cholesky factor is
     # column-major, and a row-major copy would round its solves differently.
+    # A list input's buffer is the first K slices of its stage.
+    stages = _bind_stages(inputs, mesh)
+    _wait_for(device, [stage.done for stage in stages.values()])
     buffers = {k: None if v is None else
                torch.empty((), dtype=torch.int64, device=device) if isinstance(v, int) else
-               _stack_buffer(v) if _is_list(v) else
+               stages[k].buffer[:len(v)] if _is_list(v) else
                torch.empty_like(v) for k, v in inputs.items()}
     _load(buffers, inputs)
     with span("graphs.pool_bytes"):
@@ -550,12 +662,12 @@ def _capture(name, body, inputs, shared, device, mesh: Optional[int]) -> Program
         _capture_graph(name, body, buffers, shared, device, mesh))
     with span("graphs.pool_bytes"):
         grown = _pool_bytes(device) - pools
-    held = [t for t in buffers.values() if t is not None] + list(outputs)
+    own = [t for k, t in buffers.items() if t is not None and k not in stages] + list(outputs)
     return Program(name=name, graph=graph, inputs=buffers, outputs=outputs,
                    checks=checks, launches=launches, warmup_ms=warmup_ms,
                    capture_ms=capture_ms, instantiate_ms=instantiate_ms,
-                   static_bytes=_bytes(held),
-                   pool_bytes=grown)
+                   static_bytes=_bytes(own), pool_bytes=grown,
+                   stages=tuple(stages.values()))
 
 
 def _pool_bytes(device: torch.device) -> int:
@@ -618,6 +730,12 @@ def programs() -> list[Program]:
     capture order."""
     with _LOCK:
         return list(_PROGRAMS.values())
+
+
+def stages() -> list[Stage]:
+    """Every stage held, in the order they were made."""
+    with _LOCK:
+        return list(_STAGES.values())
 
 
 def captures() -> int:

@@ -41,11 +41,11 @@ Concurrency:
   (:mod:`ital_tpu_torch.graphs`), which stacks the sessions' buffers inside
   itself.  A group is laid out by hyperparameter group first, larger groups
   first, so that its program depends on its size and the sizes of its
-  hyperparameter groups alone; the programs held for all signatures keep
-  at most ``graphs.STACK_BYTES`` of stacks.  Groups larger than the memory
-  budget (``ITAL_TPU_COHORT_STATE_BYTES``, :meth:`RetrievalService.
-  _max_cohort_sessions`) run as several stacked programs, with the same
-  results.
+  hyperparameter groups alone; the programs of every signature stack into
+  shared stages, which keep at most ``graphs.STACK_BYTES``.  Groups larger
+  than the memory budget (``ITAL_TPU_COHORT_STATE_BYTES``,
+  :meth:`RetrievalService._max_cohort_sessions`) run as several stacked
+  programs, with the same results.
 * On a mesh service one lock orders every mesh command, since every rank
   must issue its collectives in the same order: requests for different
   sessions serialize at the mesh, not only at the device.  The session

@@ -275,6 +275,7 @@ def worlds(jax_side):
         if p == 1:
             with pytest.MonkeyPatch.context() as mp:
                 mp.setattr(graphs, "_PROGRAMS", {})
+                mp.setattr(graphs, "_STAGES", {})
                 mp.setattr(graphs, "_GRAPH_DEVICES", ("cuda", "cpu"))
                 mp.setattr(graphs, "_capture_graph", _capture_graph)
                 mp.setattr(kernels, "_rbf_forward", _counted_rbf)

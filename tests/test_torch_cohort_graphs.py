@@ -53,6 +53,7 @@ from ital_tpu_torch.select import ital as tital
 from ital_tpu_torch.select.base import StrategyParams, labeled_mask
 from ital_tpu_torch.serve import RetrievalService
 from ital_tpu_torch.utils import config as tconfig
+from ital_tpu_torch.utils import logging as trace
 from tests.test_torch_gp import jax_state_arrays
 from tests.test_torch_graphs import stand_in  # noqa: F401 (the stand-in graph fixture)
 from tests.test_torch_ital import _jax_draws
@@ -368,8 +369,8 @@ def test_group_index_is_cached_on_the_device(surrogate):
 MKW = dict(PRODUCTION_KW, randomize_qmc=True)
 
 
-def _service(ds):
-    return RetrievalService(ds.x, length_scale=LS, noise=0.1, cap=CAP, label_prob=0.8,
+def _service(ds, cap=CAP):
+    return RetrievalService(ds.x, length_scale=LS, noise=0.1, cap=cap, label_prob=0.8,
                             mistake_prob=0.05, method_kwargs=MKW, device="cpu")
 
 
@@ -418,29 +419,98 @@ def test_cohort_endpoints_replay_per_k_and_equal_eager(surrogate, stand_in):
     assert len(stand_in) == 3 and first.replays == 3
 
 
+def _stage_bytes() -> int:
+    return sum(stage.nbytes for stage in graphs.stages())
+
+
 def test_stacking_programs_keep_their_stacks_within_the_budget(surrogate, stand_in,
                                                               monkeypatch):
-    """The programs that stack sessions keep at most ``graphs.STACK_BYTES``
-    of static buffers together: capturing one more first releases the least
-    recently used until it fits."""
+    """The stages that the programs stacking sessions bind keep at most
+    ``graphs.STACK_BYTES`` together, each counted once: a stage that would
+    pass it first releases the least recently used other stage and the
+    programs bound to it.  Cohorts of caps 32 and 16 share the stages of the
+    fields whose slices do not depend on the cap (``mu``, ``sig2``)."""
+    wide, narrow = _service(surrogate), _service(surrogate, cap=16)
+    sids = {32: _sessions(wide, [17, 240, 410]), 16: _sessions(narrow, [33, 77, 520])}
+    svcs = {32: wide, 16: narrow}
+    wide.next_batch_many(sids[32], 4)
+    alone = _stage_bytes()  # the stages of cap 32
+    narrow.next_batch_many(sids[16], 4)
+    both = _stage_bytes()
+    assert len(graphs.stages()) == 2 * len(FIELDS) - 2 and alone < both
+    assert both <= graphs.STACK_BYTES
+    for prog in graphs.programs():  # every list input at its stage's address
+        for stage in prog.stages:
+            assert prog.inputs[stage.key[1]].data_ptr() == stage.buffer.data_ptr()
+    graphs._PROGRAMS.clear()
+    graphs._STAGES.clear()
+    monkeypatch.setattr(graphs, "STACK_BYTES", both - 1)
+    before = len(stand_in)
+    for cap in (32, 16, 32, 16):  # each cap's stages fit only without the other's
+        svcs[cap].next_batch_many(sids[cap], 4)
+        assert _stage_bytes() <= graphs.STACK_BYTES
+        (prog,) = _programs("select_ital_stacked")
+        assert prog.inputs["l"].shape[1] == cap
+    assert len(stand_in) - before == 4
+    assert graphs._RELEASED[[k for k in graphs._RELEASED][-1]] == "stack_bytes"
+    kept = {stage.key[1] for stage in graphs.stages()}
+    assert {"mu", "sig2"} <= kept
+
+
+def test_cohort_programs_of_every_width_bind_one_stage_per_field(surrogate, stand_in):
+    """A selection of 4 sessions and then updates of 2, 3 and 4 in
+    alternation bind one stage per field: every program's list inputs lie
+    at their stage's address, each K captures once, and each call equals
+    the eager one bit for bit."""
+    queries = [17, 240, 410, 520]
+    svc = _service(surrogate)
+    graphed, plain = _sessions(svc, queries), _sessions(svc, queries)
+    for r, k in enumerate((2, 3, 4, 3, 2, 4)):
+        got = svc.next_batch_many(graphed, 4)
+        with graphs.eager():
+            want = svc.next_batch_many(plain, 4)
+        assert [got[s] for s in graphed] == [want[s] for s in plain], r
+        assert len(graphs.stages()) == len(FIELDS)
+        labels = [{str(i): (1 if (i + r) % 3 else -1) for i in got[s]} for s in graphed[:k]]
+        captured = len(stand_in)
+        svc.feedback_many(dict(zip(graphed, labels)))
+        with graphs.eager():
+            svc.feedback_many(dict(zip(plain, labels)))
+        assert len(stand_in) - captured == (1 if r < 3 else 0), (r, k)
+        for a, b in zip(graphed, plain):
+            _equal_states(svc._entry(a)[0].state, svc._entry(b)[0].state)
+    assert [svc._entry(s)[0].state.count for s in graphed] == [29, 25, 17, 9]
+    assert stand_in == ["select_ital_stacked"] + ["gp_update_stacked"] * 3
+    stages = {stage.key[1]: stage for stage in graphs.stages()}
+    assert sorted(stages) == sorted(FIELDS)
+    assert all(stage.buffer.shape[0] == 4 for stage in stages.values())
+    for prog in graphs.programs():
+        assert {stage.key[1] for stage in prog.stages} == set(FIELDS)
+        for f in FIELDS:
+            assert prog.inputs[f].data_ptr() == stages[f].buffer.data_ptr(), (prog.name, f)
+            assert prog.inputs[f].stride() == stages[f].buffer.stride(), (prog.name, f)
+    assert sorted(p.inputs["v"].shape[0] for p in _programs("gp_update_stacked")) == [2, 3, 4]
+
+
+def test_a_wider_cohort_grows_the_stage_and_releases_the_programs_bound_to_it(surrogate,
+                                                                             stand_in):
+    """A K larger than its stages hold grows them: the programs bound to the
+    old buffers are released, and their next capture is named
+    ``after_stage_grown``."""
     svc = _service(surrogate)
     sids = _sessions(svc, [17, 240, 410, 520])
-    size = {}
-    for k in (4, 3, 2):  # each program's static bytes, under the default budget
-        svc.next_batch_many(sids[:k], 4)
-        size[k] = _programs("select_ital_stacked")[-1].static_bytes
-    assert len(_programs("select_ital_stacked")) == 3
-    graphs._PROGRAMS.clear()
-    monkeypatch.setattr(graphs, "STACK_BYTES", size[4] + size[3])
-    svc.next_batch_many(sids[:3], 4)
-    svc.next_batch_many(sids[:2], 4)  # fits beside K = 3
-    svc.next_batch_many(sids[:3], 4)  # replays; K = 2 is now the least recently used
-    assert len(_programs("select_ital_stacked")) == 2
-    svc.next_batch_many(sids, 4)  # K = 4 fits only once K = 2 is released
-    held = _programs("select_ital_stacked")
-    assert sorted(p.inputs["mu"].shape[0] for p in held) == [3, 4]
-    assert sum(p.static_bytes for p in held) <= graphs.STACK_BYTES
-    assert stand_in.count("select_ital_stacked") == 3 + 3
+    svc.next_batch_many(sids[:2], 4)
+    svc.next_batch_many(sids[:3], 4)  # grows the stages from 2 to 3
+    (held,) = graphs.programs()
+    assert held.inputs["mu"].shape[0] == 3
+    assert all(stage.buffer.shape[0] == 3 for stage in graphs.stages())
+    with trace.recording():
+        svc.next_batch_many(sids[:2], 4)
+    captures = [s for seg in trace.segments() for s in seg.spans if s.name == "graphs.capture"]
+    assert [(s.attrs["cause"], s.attrs["stage"]) for s in captures] == [
+        ("after_stage_grown", "reused")]
+    assert len(graphs.programs()) == 2 and stand_in == ["select_ital_stacked"] * 3
+    trace.clear()
 
 
 def test_cohort_programs_depend_on_group_sizes_not_order(surrogate, stand_in):
@@ -509,21 +579,32 @@ def test_runner_programs_replay_and_equal_eager(surrogate, stand_in, mode, progr
     assert stand_in == [next(iter(programs))] * captures
 
 
-@pytest.mark.parametrize("graphed", [True, False], ids=["graphed", "eager"])
-def test_failed_cholesky_check_leaves_all_sessions_unchanged(surrogate, stand_in, graphed):
+@pytest.mark.parametrize("mode", ["graphed", "eager", "shared stage"])
+def test_failed_cholesky_check_leaves_all_sessions_unchanged(surrogate, stand_in, mode):
     """A block that is not positive definite in one session raises the
     Cholesky error once the stacked update ran, and no write reaches any of
-    the K sessions."""
+    the K sessions; also where the update of 3 binds stages that an update
+    of 4 made, whose sessions keep what it wrote."""
     ts = _port(_jax_sessions(surrogate, SPECS[:3]))
     ts[1].hyper.noise = torch.tensor(-2.0)
     before = _copies(ts)
-    idx = torch.tensor([[3, 4, 5, 6]] * 3)
-    with contextlib.nullcontext() if graphed else graphs.eager():
+    idx = torch.tensor([[3, 4, 5, 6]] * 4)
+    ones = torch.ones(4, 4), torch.ones(4, 4, dtype=torch.bool)
+    others = _port(_jax_sessions(surrogate, SPECS))
+    if mode == "shared stage":
+        tgp.update_stacked(others, idx, *ones)
+    wrote = _copies(others)
+    with graphs.eager() if mode == "eager" else contextlib.nullcontext():
         with pytest.raises(torch.linalg.LinAlgError, match="not positive-definite"):
-            tgp.update_stacked(ts, idx, torch.ones(3, 4), torch.ones(3, 4, dtype=torch.bool))
-    for a, b in zip(ts, before):
+            tgp.update_stacked(ts, idx[:3], ones[0][:3], ones[1][:3])
+    for a, b in zip([*ts, *others], [*before, *wrote]):
         _equal_states(a, b)
-    assert [p.replays for p in graphs.programs()] == ([1] if graphed else [])
+    replays = {"graphed": [1], "eager": [], "shared stage": [1, 1]}[mode]
+    assert [p.replays for p in graphs.programs()] == replays
+    if mode == "shared stage":
+        four, three = graphs.programs()
+        assert three.stages == four.stages and len(graphs.stages()) == len(FIELDS)
+        assert three.inputs["l"].data_ptr() == four.inputs["l"].data_ptr()
 
 
 def test_failed_capture_raises_and_never_runs_eagerly(surrogate, stand_in, monkeypatch):

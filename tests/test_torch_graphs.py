@@ -360,6 +360,7 @@ def stand_in(monkeypatch):
         return plain(*args)
 
     monkeypatch.setattr(graphs, "_PROGRAMS", {})
+    monkeypatch.setattr(graphs, "_STAGES", {})
     monkeypatch.setattr(graphs, "_GRAPH_DEVICES", ("cuda", "cpu"))
     monkeypatch.setattr(graphs, "_capture_graph", capture_graph)
     monkeypatch.setattr(kernels, "_rbf_forward", counted)

@@ -123,6 +123,7 @@ def _stand_in() -> None:
 @pytest.fixture
 def stand_in(monkeypatch):
     monkeypatch.setattr(graphs, "_PROGRAMS", {})
+    monkeypatch.setattr(graphs, "_STAGES", {})
     monkeypatch.setattr(graphs, "_GRAPH_DEVICES", ("cuda", "cpu"))
     monkeypatch.setattr(graphs, "_capture_graph", _capture_graph)
     monkeypatch.setattr(kernels, "_rbf_forward", _counted_rbf)
@@ -459,6 +460,32 @@ def _failing_checks(mesh, warmed):
     return out
 
 
+WIDTHS = (2, 4, 3, 2, 4, 3)
+
+
+def _widths(mesh, warmed):
+    """The cohort update at the K of :data:`WIDTHS` (the warmed sessions
+    repeated), each call beside its eager twin: per call the captures it
+    made, the slices of the mesh's stage of ``v`` and whether the sessions
+    equal the twins', from every rank."""
+    update = sh.make_sharded_cohort_update(mesh)
+    idx, y = torch.from_numpy(UPDATE["idx"]), torch.from_numpy(UPDATE["y"])
+    rows = []
+    for k in WIDTHS:
+        take = [j % len(warmed) for j in range(k)]
+        states, twins = ([_copy(warmed[j]) for j in take] for _ in range(2))
+        c0 = graphs.captures()
+        update(states, idx[take], y[take], y[take] != 0)
+        captured = graphs.captures() - c0
+        with graphs.eager():
+            update(twins, idx[take], y[take], y[take] != 0)
+        same = all(torch.equal(getattr(a, f), getattr(b, f)) and a.count == b.count
+                   for a, b in zip(states, twins) for f in tgp.SESSION_FIELDS)
+        (stage,) = [s for s in graphs.stages() if s.key[:2] == (mesh.uid, "v")]
+        rows.append([captured, stage.buffer.shape[0], same])
+    return sh.all_gather_cat(mesh, torch.tensor(rows, dtype=torch.float32)[None]).numpy()
+
+
 def _rank_main(mesh, payload):
     """Every case on this mesh, eager and graphed; rank 0 keeps the results."""
     _stand_in()
@@ -477,6 +504,7 @@ def _rank_main(mesh, payload):
     out["programs"] = sorted({p.name for p in graphs.programs() if p.mesh == mesh.uid})
     out["singles"], out["counts"] = _singles_and_counts(mesh, payload, warmed)
     out["checks"] = _failing_checks(mesh, warmed)
+    out["widths"] = _widths(mesh, warmed)
     return out
 
 
@@ -575,6 +603,18 @@ def test_a_failing_check_raises_on_every_rank_and_leaves_the_sessions(worlds, p,
     assert (flags == 1.0).all(), flags
 
 
+@pytest.mark.parametrize("p", MESHES)
+def test_every_rank_grows_and_binds_its_mesh_stages_alike(worlds, p):
+    """Cohort updates of K = 2, 4, 3, 2, 4, 3: every rank captures, grows
+    its stage and replays at the same calls, a K captures once after the
+    growth to 4, and each call equals its eager twin."""
+    rows = worlds[p]["widths"]  # (ranks, calls, (captures, stage slices, equal))
+    assert rows.shape == (p, len(WIDTHS), 3) and (rows == rows[0]).all()
+    captures, slices, same = rows[0].T
+    assert list(captures[1:]) == [1, 1, 1, 0, 0] and list(slices[1:]) == [4] * 5
+    assert (same == 1).all()
+
+
 # -- a mesh of one, in-process ----------------------------------------------------
 
 
@@ -629,16 +669,18 @@ def test_a_closed_mesh_releases_its_programs_and_a_new_mesh_captures_anew(stand_
 
 def test_mesh_programs_keep_their_stacks_within_the_budget_of_their_own_mesh(stand_in,
                                                                               monkeypatch):
-    """The LRU of programs that stack sessions counts only its own mesh's
-    (every rank of a mesh sees the same calls), never a single-device
-    program's, which rank 0 of a mesh service also holds."""
+    """A mesh's stages count against the budget with its own mesh's only
+    (every rank of a mesh sees the same calls), never beside a single-device
+    program's, which rank 0 of a mesh service also holds; they grow with the
+    K its calls ask for and go with the mesh."""
     state, pad = _one_rank_state()
     single = tgp.gp_session_copy(state)
     tgp.update_stacked([single, _copy(single)], torch.tensor([[7, 9]] * 2),
                        torch.ones(2, 2), torch.ones(2, 2, dtype=torch.bool))
     outside = [p for p in graphs.programs() if p.stacks]
     assert len(outside) == 1 and outside[0].mesh is None
-    monkeypatch.setattr(graphs, "STACK_BYTES", outside[0].static_bytes)
+    singles = graphs.stages()
+    monkeypatch.setattr(graphs, "STACK_BYTES", sum(s.nbytes for s in singles))
     with make_mesh(1, device="cpu") as mesh:
         st = sh.shard_state(state, mesh)
         update = sh.make_sharded_cohort_update(mesh)
@@ -646,10 +688,14 @@ def test_mesh_programs_keep_their_stacks_within_the_budget_of_their_own_mesh(sta
             update([_copy(st) for _ in range(k)], torch.tensor([[7, 9]] * k),
                    torch.ones(k, 2), torch.ones(k, 2, dtype=torch.bool))
         mine = [p for p in graphs.programs() if p.mesh == mesh.uid]
-        # Each stack exceeds the budget alone: the second released the first.
+        # K = 3 grew the mesh's stages past the budget, which released the
+        # program of K = 2 and nothing of the single-device programs.
         assert [p.name for p in mine] == ["sharded_cohort_update"]
         assert mine[0].inputs["v"].shape[0] == 3
-        assert outside[0] in graphs.programs()
+        assert all(s.key[0] == mesh.uid for s in mine[0].stages)
+        assert sum(s.nbytes for s in mine[0].stages) > graphs.STACK_BYTES
+        assert outside[0] in graphs.programs() and graphs.stages()[:len(singles)] == singles
+    assert graphs.stages() == singles
 
 
 # -- the mesh service -------------------------------------------------------------

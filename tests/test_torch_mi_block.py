@@ -266,6 +266,7 @@ def room(monkeypatch):
         return _StandIn(body, shared, buffers, outputs), outputs, checks, {}, 0.0, 0.0, 0.0
 
     monkeypatch.setattr(graphs, "_PROGRAMS", {})
+    monkeypatch.setattr(graphs, "_STAGES", {})
     monkeypatch.setattr(graphs, "_POOLS", {})
     monkeypatch.setattr(graphs, "_GRAPH_DEVICES", ("cuda", "cpu"))
     monkeypatch.setattr(graphs, "_capture_graph", capture)
@@ -320,6 +321,29 @@ def test_a_second_failure_raises(room):
         tital.select_ital(state, M, None, _params(), n_qmc=16)
     assert room["tries"] == [("select_ital", 0), ("select_ital", 1), ("select_ital", 0)]
     assert graphs.programs() == []
+
+
+def test_a_capture_out_of_memory_drops_the_stages_with_the_programs(room):
+    """A capture that runs out of memory beside a stacked program releases
+    it and drops the single-device stages with it; once more out of memory,
+    the stacked program's capture makes its stage anew and binds that."""
+    from ital_tpu_torch import graphs
+
+    def total(a, w):
+        return (a.sum(0) * w,)
+
+    rows, w = [torch.arange(4.0) + j for j in range(3)], torch.ones(1)
+    graphs.run("stacked", total, {"a": rows, "w": w})
+    (old,) = graphs.stages()
+    room["full"] = lambda held: held >= 1
+    (out,) = graphs.run("other", lambda x: (x * 2,), {"x": torch.ones(3)})
+    assert [p.name for p in graphs.programs()] == ["other"] and graphs.stages() == []
+    (got,) = graphs.run("stacked", total, {"a": rows, "w": w})
+    (new,) = graphs.stages()
+    (prog,) = graphs.programs()
+    assert new is not old and prog.stages == (new,)
+    assert prog.inputs["a"].data_ptr() == new.buffer.data_ptr()
+    assert torch.equal(got, torch.stack(rows).sum(0)) and torch.equal(out, torch.full((3,), 2.0))
 
 
 def test_a_mesh_program_out_of_memory_releases_nothing(room):

@@ -295,11 +295,12 @@ def test_launch_check_raises_before_a_grid_cuda_would_refuse(route, m, n, d):
 
 def test_stacked_pair_of_programs_is_kept_when_their_bytes_fit(monkeypatch):
     """A ``/batch_select`` of 8 and a ``/batch_feedback`` of 8 hold two
-    stacked programs (stand-in graph).  With ``graphs.STACK_BYTES`` at their
-    two static sizes together (at 1M rows and cap 64 the pair holds 4.23e9
-    bytes of the 4 GiB) the second round replays both and captures nothing;
-    with room for only the larger one they evict each other and every round
-    captures both again."""
+    stacked programs (stand-in graph), which bind one set of stages between
+    them.  With ``graphs.STACK_BYTES`` at that set's bytes (at 1M rows and
+    cap 64 about 2.1e9 bytes of the 4 GiB, where the two programs' own
+    stacks held 4.23e9) the second round replays both and captures nothing;
+    with room for less than the set they still share it, and neither
+    releases the other, where their own stacks evicted each other."""
     from tests.test_torch_graphs import _StandInGraph
     from ital_tpu_torch.data.datasets import corpus100k
 
@@ -310,6 +311,7 @@ def test_stacked_pair_of_programs_is_kept_when_their_bytes_fit(monkeypatch):
                 launches, 0.0, 0.0, 0.0)
 
     monkeypatch.setattr(graphs, "_PROGRAMS", {})
+    monkeypatch.setattr(graphs, "_STAGES", {})
     monkeypatch.setattr(graphs, "_GRAPH_DEVICES", ("cuda", "cpu"))
     monkeypatch.setattr(graphs, "_capture_graph", capture_graph)
     ds = corpus100k(n=1024, dim=32)
@@ -328,9 +330,14 @@ def test_stacked_pair_of_programs_is_kept_when_their_bytes_fit(monkeypatch):
         return graphs.captures() - before
 
     assert cohort_round() == 2
-    size = {p.name: p.static_bytes for p in graphs.programs() if p.stacks}
-    assert sorted(size) == ["gp_update_stacked", "select_ital_stacked"]
-    for budget, captures in ((sum(size.values()), [2, 0, 0]), (max(size.values()), [2, 2, 2])):
+    held = {p.name: p for p in graphs.programs() if p.stacks}
+    assert sorted(held) == ["gp_update_stacked", "select_ital_stacked"]
+    select, update = held["select_ital_stacked"], held["gp_update_stacked"]
+    assert select.stages == update.stages
+    assert select.inputs["v"].data_ptr() == update.inputs["v"].data_ptr()
+    size = sum(stage.nbytes for stage in graphs.stages())
+    for budget in (size, size // 2):
         graphs._PROGRAMS.clear()
+        graphs._STAGES.clear()
         monkeypatch.setattr(graphs, "STACK_BYTES", budget)
-        assert [cohort_round() for _ in range(3)] == captures, budget
+        assert [cohort_round() for _ in range(3)] == [2, 0, 0], budget

@@ -10,7 +10,10 @@ No JAX here, so this file also runs where only the port is installed:
     python -m pytest tests/test_torch_trace.py --noconftest -q
 """
 
+import contextlib
 import gc
+import os
+import sys
 import threading
 import time
 import weakref
@@ -304,6 +307,7 @@ def stand_in(monkeypatch):
         return _StandInGraph(body, shared, buffers, outputs), outputs, checks, {}, 0.0, 0.0, 0.0
 
     monkeypatch.setattr(graphs, "_PROGRAMS", {})
+    monkeypatch.setattr(graphs, "_STAGES", {})
     monkeypatch.setattr(graphs, "_RELEASED", {})
     monkeypatch.setattr(graphs, "_GRAPH_DEVICES", ("cuda", "cpu"))
     monkeypatch.setattr(graphs, "_capture_graph", capture_graph)
@@ -333,7 +337,8 @@ def test_program_calls_split_into_their_parts_with_bytes_counted(stand_in):
     assert len(runs) == 2 and all(s.attrs == {"program": "double", "graphed": True}
                                   for s in runs)
     (capture,) = _spans(seg, "graphs.capture")
-    assert capture.parent is runs[0] and capture.attrs == {"program": "double", "cause": "new"}
+    assert capture.parent is runs[0] and capture.attrs == {"program": "double", "cause": "new",
+                                                           "stage": "grown"}
     assert [s.name for s in seg.spans if s.parent is capture] == ["graphs.pool_bytes"] * 2
     for run in runs:
         assert [s.name for s in seg.spans if s.parent is run][-4:] == [
@@ -351,7 +356,7 @@ def test_a_capture_names_why_its_program_was_released(stand_in, monkeypatch):
     small = [torch.ones(4) for _ in range(2)]
     large = [torch.ones(8) for _ in range(2)]
     one = ONE
-    monkeypatch.setattr(graphs, "STACK_BYTES", 100)  # one of the two stacks at a time
+    monkeypatch.setattr(graphs, "STACK_BYTES", 80)  # one of the two stages at a time
     before = graphs.captures()
     with trace.recording():
         graphs.run("double", _double, {"a": small, "w": one}, writes=("a",))
@@ -376,6 +381,87 @@ def test_a_capture_names_why_its_program_was_released(stand_in, monkeypatch):
                if s.attrs["reason"] != "room")
 
 
+def test_a_capture_binds_the_stage_of_its_list_input_and_counts_its_bytes(stand_in):
+    """Programs over one list input's name and slice layout bind one stage:
+    the first makes it (``grown``), a narrower K binds its first slices
+    (``reused``), a wider K grows it, which releases the programs bound to
+    it (their next capture ``after_stage_grown``); a program without a list
+    input binds none.  Each call equals the eager call."""
+    ts = [torch.arange(6, dtype=torch.float32) + j for j in range(4)]
+    twins = [t.clone() for t in ts]
+    x = torch.ones(5)
+    before = graphs.captures()
+    with trace.recording():
+        for k in (3, 2, 4, 2, 3):
+            got = graphs.run("double", _double, {"a": ts[:k], "w": ONE}, writes=("a",))
+            with graphs.eager():
+                want = graphs.run("double", _double, {"a": twins[:k], "w": ONE}, writes=("a",))
+            assert torch.equal(got[0], want[0]) and all(map(torch.equal, ts, twins)), k
+        graphs.run("scaled", _scaled, {"a": torch.ones(3)}, shared={"x": x})
+    (seg,) = trace.segments()
+    captures = _spans(seg, "graphs.capture")
+    assert graphs.captures() - before == len(captures) == 6
+    assert [(s.attrs["cause"], s.attrs["stage"]) for s in captures] == [
+        ("new", "grown"), ("new", "reused"), ("new", "grown"), ("after_stage_grown", "reused"),
+        ("after_stage_grown", "reused"), ("new", "none")]
+    assert [s.attrs["reason"] for s in _spans(seg, "graphs.release")] == ["stage_grown"] * 2
+    row = 6 * 4
+    assert seg.count("graphs.stage_bytes", event="grown") == (3 + 4) * row
+    assert seg.count("graphs.stage_bytes", event="reused") == (2 + 2 + 3) * row
+    (stage,) = graphs.stages()
+    assert stage.buffer.shape == (4, 6)
+    held = [p for p in graphs.programs() if p.stacks]
+    assert sorted(p.inputs["a"].shape[0] for p in held) == [2, 3, 4]
+    assert all(p.inputs["a"].data_ptr() == stage.buffer.data_ptr() and p.stages == (stage,)
+               for p in held)
+
+
+def _add(a, w):
+    a.add_(w)
+    return (a.sum(-1),)
+
+
+def test_threads_sharing_a_stage_lose_no_write(stand_in):
+    """More threads than cores call programs of K = 3 to 8 over one list
+    input, each on its own rows, with a short switch interval: every write
+    lands in its own thread's rows, and once a call of 8 has made the
+    stage, each K captures once."""
+    n_threads, calls = (os.cpu_count() or 2) + 2, 24
+    rows = [[torch.zeros(16) for _ in range(8)] for _ in range(n_threads)]
+    one, c0, errors = torch.ones(1), graphs.captures(), []
+    graphs.run("add", _add, {"a": [torch.zeros(16) for _ in range(8)], "w": one}, writes=("a",))
+
+    def work(t):
+        try:
+            for i in range(calls):
+                graphs.run("add", _add, {"a": rows[t][:3 + (t + i) % 6], "w": one},
+                           writes=("a",))
+        except Exception as exc:  # reported below
+            errors.append(exc)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(t,)) for t in range(n_threads)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not errors and not any(th.is_alive() for th in threads)
+    for t in range(n_threads):
+        hits = [sum(j < 3 + (t + i) % 6 for i in range(calls)) for j in range(8)]
+        assert [r.tolist() for r in rows[t]] == [[float(h)] * 16 for h in hits], t
+    assert graphs.captures() - c0 == 6 and len(graphs.stages()) == 1
+
+
+def _scaled_rows(a, w):
+    """Writes its list input and returns a view of it."""
+    a.mul_(w)
+    return (a[:, :8],)
+
+
 @pytest.mark.cuda
 def test_a_captured_program_records_its_capture_split_causes_and_bytes(monkeypatch):
     """On a card: the capture's parts are spans whose durations are the
@@ -384,6 +470,7 @@ def test_a_captured_program_records_its_capture_split_causes_and_bytes(monkeypat
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (a graph capture has no CPU mode)")
     monkeypatch.setattr(graphs, "_PROGRAMS", {})
+    monkeypatch.setattr(graphs, "_STAGES", {})
     monkeypatch.setattr(graphs, "_RELEASED", {})
     small = [torch.ones(256, device="cuda") for _ in range(4)]
     large = [torch.ones(512, device="cuda") for _ in range(4)]
@@ -418,3 +505,34 @@ def test_a_captured_program_records_its_capture_split_causes_and_bytes(monkeypat
     assert seg.count("graphs.copy_bytes", dir="back") == calls - 4 * 4
     assert seg.count("graphs.copy_bytes", dir="out") == 4 * 4 * 4
     assert torch.equal(small[0], torch.full((256,), 8.0, device="cuda"))
+
+    # Widths 3 to 8 in alternation, every other call on a side stream: one
+    # stage of 8 slices serves every width, so each K captures once, where
+    # each program's own stack beside another's would have passed the budget.
+    row = 4096
+    monkeypatch.setattr(graphs, "STACK_BYTES", 9 * row * 4)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = [torch.rand(row, device="cuda", generator=gen) for _ in range(8)]
+    twins = [t.clone() for t in rows]
+    widths = (8, 3, 5, 8, 4, 7, 6, 3, 8, 5, 4, 6, 7, 3)
+    ws = [torch.full((1,), 1.0 + 0.25 * j, device="cuda") for j in range(len(widths))]
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    got, seen, c0 = [], set(), graphs.captures()
+    for j, k in enumerate(widths):  # nothing but the stage orders the two streams
+        with torch.cuda.stream(side) if j % 2 else contextlib.nullcontext():
+            got += graphs.run("scaled_rows", _scaled_rows, {"a": rows[:k], "w": ws[j]},
+                              writes=("a",))
+        seen.add(k)
+        assert graphs.captures() - c0 == len(seen), (j, k)
+    torch.cuda.synchronize()
+    with graphs.eager():
+        want = [graphs.run("scaled_rows", _scaled_rows, {"a": twins[:k], "w": ws[j]},
+                           writes=("a",))[0] for j, k in enumerate(widths)]
+    torch.cuda.synchronize()
+    assert all(map(torch.equal, got, want)) and all(map(torch.equal, rows, twins))
+    stage = next(s for s in graphs.stages() if s.key[1] == "a" and s.buffer.shape[1:] == (row,))
+    assert stage.buffer.shape[0] == 8
+    held = [p for p in graphs.programs() if p.name == "scaled_rows"]
+    assert len(held) == 6 and all(p.inputs["a"].data_ptr() == stage.buffer.data_ptr()
+                                  for p in held)
