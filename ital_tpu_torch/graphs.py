@@ -113,6 +113,17 @@ clones copy, and ``graphs.stage_bytes`` (by ``event``: ``reused``,
 them or after growing it.  A program's ``warmup_ms``, ``capture_ms`` and
 ``instantiate_ms`` are its capture spans' durations, kept also with tracing
 off.
+
+A graph's replay runs no Python, so the counters a body counts
+(``logging.count``, e.g. ``kernels.kpost_bytes``) are counted as its RBF
+launches are: the calls the body makes while it is captured are kept in the
+program (``Program.counts``, :func:`~ital_tpu_torch.utils.logging.
+program_counts`), whether tracing is on or off, and each replay adds them to
+the segment being recorded while tracing is on, inside the check that the
+copy-out's counter already makes (with tracing off a replay reads no more
+flags than before).  A call that captures counts them twice, as it does its
+launches: once as its eager warm-up runs the body, once at its replay.  An
+eager call (:func:`eager`, the CPU) counts them as the body runs.
 """
 
 from __future__ import annotations
@@ -127,7 +138,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from ital_tpu_torch.ops import rbf_hopper
-from ital_tpu_torch.utils.logging import count, span, timed, tracing
+from ital_tpu_torch.utils.logging import add_counts, count, program_counts, span, timed, tracing
 
 # (name, static, device, inputs' layouts, shared tensors' addresses, precision, mesh) -> Program
 _PROGRAMS: dict = {}
@@ -186,6 +197,8 @@ class Program:
     done: Any = None  # CUDA event after the last call's copy-out
     mesh: Optional[int] = None  # the uid of the mesh whose collectives it holds
     pinned: tuple = ()  # a mesh program's shared tensors, held while it lives
+    # The count() calls of its capture, (name, attributes) -> n, counted at each replay.
+    counts: dict = dataclasses.field(default_factory=dict)
 
     @property
     def stacks(self) -> bool:
@@ -618,6 +631,7 @@ def _replay(name, body, inputs: dict, shared: dict, static: tuple, writes: tuple
             out = tuple(o.clone() for o in prog.outputs)
         if tracing():
             count("graphs.copy_bytes", _bytes(out), dir="out")
+            add_counts(prog.counts)
         if device.type == "cuda":
             prog.done = torch.cuda.Event()
             prog.done.record(torch.cuda.current_stream(device))
@@ -658,8 +672,9 @@ def _capture(name, body, inputs, shared, device, mesh: Optional[int]) -> Program
     _load(buffers, inputs)
     with span("graphs.pool_bytes"):
         pools = _pool_bytes(device)
-    graph, outputs, checks, launches, warmup_ms, capture_ms, instantiate_ms = (
-        _capture_graph(name, body, buffers, shared, device, mesh))
+    with program_counts() as counts:
+        graph, outputs, checks, launches, warmup_ms, capture_ms, instantiate_ms = (
+            _capture_graph(name, body, buffers, shared, device, mesh))
     with span("graphs.pool_bytes"):
         grown = _pool_bytes(device) - pools
     own = [t for k, t in buffers.items() if t is not None and k not in stages] + list(outputs)
@@ -667,7 +682,7 @@ def _capture(name, body, inputs, shared, device, mesh: Optional[int]) -> Program
                    checks=checks, launches=launches, warmup_ms=warmup_ms,
                    capture_ms=capture_ms, instantiate_ms=instantiate_ms,
                    static_bytes=_bytes(own), pool_bytes=grown,
-                   stages=tuple(stages.values()))
+                   stages=tuple(stages.values()), counts=counts)
 
 
 def _pool_bytes(device: torch.device) -> int:
@@ -697,7 +712,7 @@ def _capture_graph(name, body, buffers, shared, device, mesh):
     with timed("graphs.warmup") as warmup:
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side), _in_program():
+        with torch.cuda.stream(side), _in_program(), program_counts(record=False):
             body(**shared, **buffers)
         torch.cuda.current_stream(device).wait_stream(side)
     if not any(prog.mesh == mesh for prog in _PROGRAMS.values()):

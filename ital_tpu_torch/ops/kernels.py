@@ -10,6 +10,12 @@ requires grad (hyperparameter learning), :class:`RBFHyperGrad` carries the
 gradient past the kernel.  The blockwise consumers below
 (:func:`rbf_kernel_blockwise`, :func:`blockwise_reduce_abs_kpost`) and the
 cohort programs' :func:`rbf_sessions` form their blocks through it.
+
+The posterior-covariance consumers count what they form, while tracing is on
+(``utils/logging.py``; inside a program at its capture, and at each replay):
+``kernels.kpost_blocks``, one per (N, block) posterior-covariance block a
+session forms, and ``kernels.kpost_bytes``, its bytes (N x block x 4 in
+float32).  A consumer that never writes such a block counts neither.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from typing import Optional
 import torch
 
 from ital_tpu_torch.ops import rbf_hopper
+from ital_tpu_torch.utils.logging import count
 
 
 def sqdist(
@@ -246,7 +253,12 @@ def blockwise_reduce_abs_kpost(
     kernel on the card), subtracts ``v^T v[:, block]`` with a matmul and
     reduces it; the N x N matrix is never held.  ``x2``: the corpus' cached
     f32 squared norms, so a bf16 corpus gets norms from its stored values.
+    Counts the blocks (``kernels.kpost_blocks``, ``kernels.kpost_bytes``).
     """
+    n, m = x.shape[0], cand_idx.shape[0]
+    count("kernels.kpost_blocks", -(-m // block))
+    count("kernels.kpost_bytes", n * m * v.element_size())
+
     def one_block(idx_blk):
         norms = {} if x2 is None else {"a2": x2, "b2": x2[idx_blk]}
         k_cross = rbf_kernel(x, x[idx_blk], length_scale, var, **norms)  # (N, block)
@@ -277,10 +289,13 @@ def blockwise_reduce_abs_kpost_stacked(
     one shared (N, block) kernel block, one kernel launch, and each of its
     sessions subtracts its own ``v^T v[:, block]`` from it and reduces, one
     session after another: a block per group and one session's temporaries
-    are held at a time, never K blocks.
+    are held at a time, never K blocks.  Counts the K sessions' blocks
+    (``kernels.kpost_blocks``, ``kernels.kpost_bytes``).
     """
-    n = x.shape[0]
-    out = v.new_empty((v.shape[0], n))
+    n, k_all = x.shape[0], v.shape[0]
+    count("kernels.kpost_blocks", k_all * -(-n // block))
+    count("kernels.kpost_bytes", k_all * n * n * v.element_size())
+    out = v.new_empty((k_all, n))
     for lo in range(0, n, block):
         c = slice(lo, min(lo + block, n))
         norms = {} if x2 is None else {"a2": x2, "b2": x2[c]}

@@ -10,7 +10,7 @@ The served path (``serve.py``, ``graphs.py``) marks its work with
 :func:`span` and :func:`count` instead, which never synchronise.  They trace
 only while a ``torch.profiler`` records, or inside :func:`recording`; off,
 ``span`` returns one shared no-op context manager and ``count`` returns at
-once, after reading two flags.  On, a span keeps its name, its attributes,
+once, after reading three flags.  On, a span keeps its name, its attributes,
 its ``time.perf_counter_ns()`` readings at start and end, its parent (the
 span open on its thread when it started) and its request: a span started
 with none open on its thread opens a new request id, and every span beneath
@@ -27,7 +27,9 @@ Closed spans are kept in one ring of :data:`RING` records, the oldest
 dropped first, and grouped into segments, one per stretch of tracing: a new
 segment starts when a span or count finds tracing on after one found it off.
 Counters are kept per segment.  :func:`segments` returns the segments held,
-:func:`clear` empties them.
+:func:`clear` empties them.  A CUDA graph's replay runs no Python, so a
+program's capture keeps its body's counts (:func:`program_counts`, tracing
+on or off) and each replay adds them (:func:`add_counts`, tracing on).
 """
 
 from __future__ import annotations
@@ -147,7 +149,9 @@ SEGMENTS = 64  # segments kept, the oldest dropped first
 _RING: collections.deque = collections.deque(maxlen=RING)
 _SEGMENTS: collections.deque = collections.deque(maxlen=SEGMENTS)
 _LOCK = threading.Lock()  # opening a segment, a counter's update, recording()'s depth
-_LOCAL = threading.local()  # .stack: the spans open on this thread, innermost last
+# .stack: the spans open on this thread, innermost last; .tally: the counts of
+# a program being captured on this thread (program_counts)
+_LOCAL = threading.local()
 _REQUESTS = itertools.count(1)
 _SEGMENT_IDS = itertools.count(1)
 _RECORDING = [0]  # depth of recording() blocks, over every thread
@@ -283,14 +287,43 @@ def timed(name: str, **attrs) -> Span:
 
 def count(name: str, n: int = 1, **attrs) -> None:
     """Add ``n`` to counter ``name`` with ``attrs`` in the segment being
-    recorded, while tracing is on."""
-    if not (_profiler._is_profiler_enabled or _RECORDING[0]):
+    recorded, while tracing is on; inside :func:`program_counts` to its
+    record instead, whether tracing is on or off."""
+    tally = getattr(_LOCAL, "tally", None)
+    if tally is None and not (_profiler._is_profiler_enabled or _RECORDING[0]):
         _GAP[0] = True
         return
     key = (name, tuple(sorted(attrs.items())))
+    if tally is None:
+        add_counts({key: n})
+    else:
+        tally[key] = tally.get(key, 0) + n
+
+
+def add_counts(counts: dict) -> None:
+    """Add ``counts`` (a :func:`program_counts` record, ``(name,
+    attributes) -> n``) to the segment being recorded: a replayed program's
+    counters, whose ``count`` calls ran only at its capture."""
     seg = _segment()
     with _LOCK:
-        seg.counters[key] = seg.counters.get(key, 0) + n
+        for key, n in counts.items():
+            seg.counters[key] = seg.counters.get(key, 0) + n
+
+
+@contextlib.contextmanager
+def program_counts(record: bool = True):
+    """Keep this thread's :func:`count` calls in the dict this yields, by
+    ``(name, attributes)``, whether tracing is on or off, and count none of
+    them: what a program's capture counts happens at each of its replays,
+    which :func:`add_counts` counts.  With ``record`` False, inside such a
+    block, the calls count as usual again (the eager warm-up before the
+    capture)."""
+    outer = getattr(_LOCAL, "tally", None)
+    _LOCAL.tally = {} if record else None
+    try:
+        yield _LOCAL.tally
+    finally:
+        _LOCAL.tally = outer
 
 
 @contextlib.contextmanager

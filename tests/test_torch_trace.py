@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from ital_tpu_torch import graphs
+from ital_tpu_torch.ops import kernels, rbf_hopper
 from ital_tpu_torch.serve import RetrievalService
 from ital_tpu_torch.utils import logging as trace
 
@@ -456,6 +457,151 @@ def test_threads_sharing_a_stage_lose_no_write(stand_in):
     assert graphs.captures() - c0 == 6 and len(graphs.stages()) == 1
 
 
+# --- counters inside a program: recorded at its capture, counted at each replay --
+
+
+class _ReplayGraph:
+    """Recomputes the body into the captured outputs at each replay, and, as
+    a graph's replay runs no Python, lets none of its launches or counts
+    reach the counters: the caller counts them from the capture's record."""
+
+    def __init__(self, body, shared, buffers, outputs):
+        self.body, self.shared, self.buffers, self.outputs = body, shared, buffers, outputs
+
+    def replay(self):
+        with rbf_hopper.recording_launches(), trace.program_counts(), graphs._in_program():
+            new = self.body(**self.shared, **self.buffers)
+        for out, val in zip(self.outputs, new):
+            out.copy_(val)
+
+
+@pytest.fixture
+def replay_graph(monkeypatch):
+    """The graph path on the CPU as ``graphs._capture_graph`` takes it on a
+    card: an eager warm-up that counts as it runs, then a capture whose
+    launches are recorded (its counts are recorded by ``graphs._capture``),
+    then :class:`_ReplayGraph`; each plain RBF call counts as a launch."""
+    def capture_graph(name, body, buffers, shared, device, mesh):
+        with graphs._in_program(), trace.program_counts(record=False):
+            body(**shared, **buffers)
+        with rbf_hopper.recording_launches() as launches, graphs._in_program() as checks:
+            outputs = tuple(t.clone() for t in body(**shared, **buffers))
+        return (_ReplayGraph(body, shared, buffers, outputs), outputs, checks, launches,
+                0.0, 0.0, 0.0)
+
+    plain = kernels._rbf_forward
+
+    def counted(*args):
+        rbf_hopper._count_launch("wgmma")
+        return plain(*args)
+
+    monkeypatch.setattr(graphs, "_PROGRAMS", {})
+    monkeypatch.setattr(graphs, "_STAGES", {})
+    monkeypatch.setattr(graphs, "_RELEASED", {})
+    monkeypatch.setattr(graphs, "_GRAPH_DEVICES", ("cuda", "cpu"))
+    monkeypatch.setattr(graphs, "_capture_graph", capture_graph)
+    monkeypatch.setattr(kernels, "_rbf_forward", counted)
+
+
+KPOST_N, KPOST_BLOCK = 40, 16  # three candidate blocks: 16, 16 and 8 wide
+
+
+def _kpost_inputs(k=3, dtype=torch.float32):
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(KPOST_N, 6, generator=gen, dtype=dtype)
+    v = [0.3 * torch.randn(4, KPOST_N, generator=gen, dtype=dtype) for _ in range(k)]
+    hyper = torch.full((k,), 2.0, dtype=dtype)
+    return x, {"v": v, "ls": hyper, "var": hyper * 0.5}
+
+
+def _kpost(x, v, ls, var):
+    groups = [list(range(v.shape[0]))]
+    return (kernels.blockwise_reduce_abs_kpost_stacked(x, v, ls, var, groups,
+                                                       block=KPOST_BLOCK),)
+
+
+def _kpost_call(x, inputs):
+    return graphs.run("kpost", _kpost, inputs, shared={"x": x})[0]
+
+
+def test_a_replay_counts_what_its_capture_recorded_as_an_eager_call_does(replay_graph):
+    """A program captured with tracing off and replayed under ``recording()``
+    counts ``kernels.kpost_bytes`` and ``kernels.kpost_blocks`` at every
+    replay, as much as an eager call of its body counts."""
+    x, inputs = _kpost_inputs()
+    c0 = graphs.captures()
+    first = _kpost_call(x, inputs)  # tracing off: captured and replayed, nothing counted
+    assert graphs.captures() - c0 == 1 and trace.segments() == []
+    (prog,) = graphs.programs()
+    k, per_call = 3, 3 * KPOST_N * KPOST_N * 4
+    assert prog.counts == {("kernels.kpost_blocks", ()): k * 3,
+                           ("kernels.kpost_bytes", ()): per_call}
+    with trace.recording():
+        got = [_kpost_call(x, inputs) for _ in range(3)]
+    with trace.recording(), graphs.eager():
+        want = _kpost_call(x, inputs)
+    replayed, eager = trace.segments()
+    assert graphs.captures() - c0 == 1 and prog.replays == 4
+    assert replayed.count("kernels.kpost_bytes") == 3 * eager.count("kernels.kpost_bytes")
+    assert eager.count("kernels.kpost_bytes") == per_call
+    assert replayed.count("kernels.kpost_blocks") == 3 * eager.count("kernels.kpost_blocks")
+    assert eager.count("kernels.kpost_blocks") == k * 3
+    assert all(torch.equal(g, want) for g in [first, *got])
+
+
+def test_a_capture_counts_its_warm_up_and_its_replay_once_each(replay_graph):
+    """Under ``recording()`` a call that captures counts the body's counters
+    twice, as it does its RBF launches: its eager warm-up and its replay;
+    the next call once."""
+    x, inputs = _kpost_inputs(k=2)
+    per_call = 2 * KPOST_N * KPOST_N * 4
+    with trace.recording():
+        _kpost_call(x, inputs)
+    with trace.recording():
+        _kpost_call(x, inputs)
+    captured, replayed = trace.segments()
+    assert captured.count("kernels.kpost_bytes") == 2 * per_call
+    assert replayed.count("kernels.kpost_bytes") == per_call
+    assert trace._LOCAL.tally is None
+
+
+def test_replays_with_tracing_off_count_nothing_and_launches_as_before(replay_graph):
+    """With tracing off nothing is counted, at the capture or any replay;
+    ``rbf_hopper.LAUNCHES`` counts the program's launches at every replay
+    (a capturing call's warm-up too), tracing on or off, as before."""
+    x, inputs = _kpost_inputs()
+    blocks = 3  # one launch a candidate block: the three sessions share their group's
+    l0 = rbf_hopper.LAUNCHES
+    _kpost_call(x, inputs)
+    assert rbf_hopper.LAUNCHES - l0 == 2 * blocks
+    l1 = rbf_hopper.LAUNCHES
+    for _ in range(2):
+        _kpost_call(x, inputs)
+    assert rbf_hopper.LAUNCHES - l1 == 2 * blocks
+    assert trace.segments() == []
+    l2 = rbf_hopper.LAUNCHES
+    with trace.recording():
+        _kpost_call(x, inputs)
+    assert rbf_hopper.LAUNCHES - l2 == blocks
+    (seg,) = trace.segments()
+    assert set(seg.counters) == {("kernels.kpost_blocks", ()), ("kernels.kpost_bytes", ()),
+                                 ("graphs.copy_bytes", (("dir", "in"),)),
+                                 ("graphs.copy_bytes", (("dir", "out"),))}
+
+
+def test_the_single_posterior_covariance_consumer_counts_its_blocks():
+    """``blockwise_reduce_abs_kpost`` over a subset of candidates counts one
+    block per ``block`` candidates, each N x its width x 4 bytes."""
+    x, inputs = _kpost_inputs(k=1)
+    cand = torch.arange(0, KPOST_N, 2)  # 20 candidates: a block of 16, one of 4
+    with trace.recording():
+        kernels.blockwise_reduce_abs_kpost(x, inputs["v"][0], cand, 2.0, 1.0, block=16)
+    kernels.blockwise_reduce_abs_kpost(x, inputs["v"][0], cand, 2.0, 1.0, block=16)
+    (seg,) = trace.segments()
+    assert seg.count("kernels.kpost_blocks") == 2
+    assert seg.count("kernels.kpost_bytes") == KPOST_N * 20 * 4
+
+
 def _scaled_rows(a, w):
     """Writes its list input and returns a view of it."""
     a.mul_(w)
@@ -536,3 +682,39 @@ def test_a_captured_program_records_its_capture_split_causes_and_bytes(monkeypat
     held = [p for p in graphs.programs() if p.name == "scaled_rows"]
     assert len(held) == 6 and all(p.inputs["a"].data_ptr() == stage.buffer.data_ptr()
                                   for p in held)
+
+
+@pytest.mark.cuda
+def test_a_captured_program_counts_its_body_at_every_replay(monkeypatch):
+    """On a card: the body's counters of a graph captured with tracing off
+    are counted at each replay under ``recording()``, as an eager call
+    counts them; a capture under ``recording()`` counts its warm-up and its
+    replay; the launches are counted as before."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (a graph capture has no CPU mode)")
+    monkeypatch.setattr(graphs, "_PROGRAMS", {})
+    monkeypatch.setattr(graphs, "_STAGES", {})
+    monkeypatch.setattr(graphs, "_RELEASED", {})
+    _, inputs = _kpost_inputs()
+    x = torch.randn(KPOST_N, 128, device="cuda")  # a width the kernels take
+    inputs = {k: [t.cuda() for t in v] if isinstance(v, list) else v.cuda()
+              for k, v in inputs.items()}
+    per_call, blocks = 3 * KPOST_N * KPOST_N * 4, 3
+    l0 = rbf_hopper.LAUNCHES
+    _kpost_call(x, inputs)
+    assert rbf_hopper.LAUNCHES - l0 == 2 * blocks and trace.segments() == []
+    with trace.recording():
+        got = [_kpost_call(x, inputs) for _ in range(3)]
+    with trace.recording(), graphs.eager():
+        want = _kpost_call(x, inputs)
+    torch.cuda.synchronize()
+    replayed, eager = trace.segments()
+    assert eager.count("kernels.kpost_bytes") == per_call
+    assert replayed.count("kernels.kpost_bytes") == 3 * per_call
+    assert replayed.count("kernels.kpost_blocks") == 3 * eager.count("kernels.kpost_blocks") == 27
+    assert all(torch.equal(g, want) for g in got)
+    inputs["v"] = inputs["v"][:2]  # a new signature, captured under recording()
+    with trace.recording():
+        _kpost_call(x, inputs)
+    assert trace.segments()[-1].count("kernels.kpost_bytes") == 2 * (2 * KPOST_N * KPOST_N * 4)
+    assert rbf_hopper.LAUNCHES - l0 == 2 * blocks + 4 * blocks + 2 * blocks
